@@ -1,0 +1,75 @@
+// Batched chunked-prefill flash attention over paged KV.
+//
+// Replaces the TPU kernel `_prefill_kernel` of
+// dynamo_tpu/ops/pallas_prefill_attention.py (wrapper
+// `paged_prefill_attention_pallas_batched`): the chunk's K/V are already in
+// the pages; query row i of sequence b sits at position starts[b] + i and
+// attends keys <= its position and < total_lens[b].
+//
+// Bound on this card: the larger of the products (4 * H * D per
+// query-key pair under the causal mask) and one pass over each
+// sequence's context K/V; at the engine's chunk sizes the products
+// dominate. grid = (ceil(T / 16), KH, B): a block holds 16 query tokens x
+// G heads, stops at its own causal limit min(total, start + (t+1)*16) and
+// never reads pages past it, so work follows the causal triangle. The
+// products are plain f32 FMA out of shared memory in this first version;
+// tensor-core products (mma.sync / wgmma) are the known next step.
+#include "flash_paged.cuh"
+
+namespace dyn {
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+prefill_attention_kernel(T* __restrict__ out, const T* __restrict__ q, PagedKV<T> kv,
+                         const int* __restrict__ page_tables,
+                         const int* __restrict__ starts,
+                         const int* __restrict__ total_lens, int Tq, int H, int G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int t0 = blockIdx.x * TQ_TILE, kh = blockIdx.y, b = blockIdx.z;
+  int n_tok = Tq - t0;
+  if (n_tok > TQ_TILE) n_tok = TQ_TILE;
+  kv.table = page_tables + (long long)b * kv.max_pages;
+  const long long o = (((long long)b * Tq + t0) * H + (long long)kh * G) * D;
+  flash_tile<T, D>(smem_raw, q + o, out + o, (long long)H * D, n_tok, G,
+                   starts[b] + t0, total_lens[b], kv, kh);
+}
+
+template <typename T, int D>
+int launch_prefill(void* out, const void* q, const void* kv_k, const void* kv_v,
+                   const int* page_tables, int max_pages, int num_phys,
+                   long long s_page, long long s_tok, long long s_head,
+                   const int* starts, const int* total_lens, int B, int Tq, int H,
+                   int KH, int page_size, cudaStream_t stream) {
+  const int G = H / KH;
+  PagedKV<T> kv{static_cast<const T*>(kv_k), static_cast<const T*>(kv_v), nullptr,
+                max_pages, num_phys, page_size, s_page, s_tok, s_head};
+  size_t smem = flash_smem_bytes<T, D>(TQ_TILE * G);
+  cudaError_t e = allow_smem(prefill_attention_kernel<T, D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Tq + TQ_TILE - 1) / TQ_TILE, KH, B);
+  prefill_attention_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<T*>(out), static_cast<const T*>(q), kv, page_tables, starts,
+      total_lens, Tq, H, G);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dyn
+
+#define LAUNCH_PREFILL(T, D)                                                      \
+  dyn::launch_prefill<T, D>(out, q, kv_k, kv_v, page_tables, max_pages, num_phys, \
+                            s_page, s_tok, s_head, starts, total_lens, B, Tq, H,  \
+                            KH, page_size, static_cast<cudaStream_t>(stream))
+
+// out, q: [B, Tq, H, D]; page_tables: [B, max_pages]; starts, total_lens:
+// [B] int32. Other arguments and the return value as dyn_paged_decode.
+extern "C" int dyn_prefill_attention(void* out, const void* q, const void* kv_k,
+                                     const void* kv_v, const int* page_tables,
+                                     int max_pages, int num_phys, long long s_page,
+                                     long long s_tok, long long s_head,
+                                     const int* starts, const int* total_lens,
+                                     int B, int Tq, int H, int KH, int D,
+                                     int page_size, int dtype, void* stream) {
+  if (B <= 0 || Tq <= 0) return 0;
+  if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size)) return dyn::ERR_UNSUPPORTED;
+  DYN_DISPATCH(dtype, D, LAUNCH_PREFILL);
+}

@@ -1,0 +1,122 @@
+"""Engine configuration (vLLM-engine-args role) for the PyTorch/CUDA engine.
+
+Field names and defaults are those of the JAX reference
+(`dynamo_tpu/engine/config.py`) so a deployment description carries over.
+Fields whose feature this port does not implement yet keep their names;
+`unsupported_fields` lists the ones a config sets away from their "off"
+value, and the engine refuses such a config with `UnsupportedConfigError`
+instead of ignoring the field.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+
+class UnsupportedConfigError(ValueError):
+    """An `EngineConfig` field (or a request field) asks for a feature the
+    port has not implemented. Raised, never silently ignored."""
+
+
+@dataclass
+class EngineConfig:
+    model: str = "tiny"  # models registry key
+    max_num_seqs: int = 64  # decode slot batch
+    page_size: int = 64  # tokens per KV page == router block size
+    num_pages: int = 2048  # device page pool size
+    max_model_len: int = 8192
+    max_prefill_chunk: int = 1024  # chunked-prefill bucket cap
+    prefill_buckets: tuple = (128, 256, 512, 1024)
+    enable_prefix_caching: bool = True
+    # fused decode: K steps per dispatch (one host read per K*B tokens);
+    # speculated tokens past a stop condition are discarded (bounded waste)
+    decode_block_steps: int = 8
+    # KV-write strategy inside the decode block. "scatter" writes each
+    # step's K/V into the pool (in place on this backend); "local" (new
+    # KV kept in a block-local buffer merged inside the attention kernel,
+    # one pool write per block) is not ported yet. None resolves to
+    # "scatter".
+    decode_pool_mode: Optional[str] = None
+    decode_block_unroll: int = 0  # meaningful under "local" only
+    # batched prefill: token budget per dispatch; lanes = budget // bucket
+    prefill_batch_tokens: int = 1024
+    max_prefill_batch: int = 8
+    quantize: Optional[str] = None  # weight-only quantization (not ported)
+    kv_quant: Optional[str] = None  # "none" | "int8" | "int4" (only none)
+    spec_mode: Optional[str] = None  # speculative decoding (not ported)
+    spec_draft_len: int = 4
+    spec_ngram: int = 2
+    spec_hist: int = 512
+    spec_rounds: int = 4
+    # sampling defaults
+    default_temperature: float = 0.0
+    seed: int = 0
+    # OpenAI penalties window: recent tokens tracked per lane on device
+    penalty_window: int = 256
+    # parallelism (not ported: all must stay 1)
+    tp_size: int = 1
+    dp_size: int = 1
+    pp_size: int = 1
+    sp_size: int = 1
+    ring_prefill_threshold: int = 512
+    # scheduling
+    max_queue: int = 4096
+    decode_batch_wait_s: float = 0.0
+    # SLA-aware step scheduling (engine/scheduler/). None = resolve from
+    # the DYN_SCHED_POLICY / DYN_SLA_TTFT_MS / DYN_SLA_ITL_MS env knobs.
+    sched_policy: Optional[str] = None
+    ttft_target_ms: Optional[float] = None
+    itl_target_ms: Optional[float] = None
+    # ragged unified mixed dispatch: when the planner has BOTH runnable
+    # prefill chunks and active decode lanes, pack them into ONE flat
+    # ragged token buffer and ONE forward (models.llama.ragged_forward)
+    # instead of a prefill dispatch followed by a decode dispatch.
+    # None = on.
+    mixed_dispatch: Optional[bool] = None
+    lora_pool_slots: Optional[int] = None  # multi-LoRA (not ported)
+    # flat-token budget of one mixed dispatch: decode rows + granted
+    # prefill chunks, pow2-bucketed up to this cap
+    mixed_max_tokens: int = 2048
+    # KVBM host/disk tiers (not ported: must stay 0 / None)
+    kvbm_host_blocks: int = 0
+    kvbm_disk_blocks: int = 0
+    kvbm_disk_path: Optional[str] = None
+    # commit newly-full generated blocks during the step loop instead of
+    # only at slot release. None = on.
+    incremental_commit: Optional[bool] = None
+    # serving role; disaggregated roles are not ported
+    role: str = "decode"
+
+    @property
+    def max_pages_per_seq(self) -> int:
+        return (self.max_model_len + self.page_size - 1) // self.page_size
+
+    @property
+    def block_advance(self) -> int:
+        """Max tokens one fused block advances a lane."""
+        return self.decode_block_steps
+
+    def unsupported_fields(self) -> List[str]:
+        """Names of the fields set to a value this port cannot honour."""
+        bad = []
+        if self.quantize:
+            bad.append("quantize")
+        if self.kv_quant not in (None, "none"):
+            bad.append("kv_quant")
+        if self.spec_mode:
+            bad.append("spec_mode")
+        for name in ("tp_size", "dp_size", "pp_size", "sp_size"):
+            if getattr(self, name) != 1:
+                bad.append(name)
+        if self.decode_pool_mode not in (None, "scatter"):
+            bad.append("decode_pool_mode")
+        if self.kvbm_host_blocks or self.kvbm_disk_blocks or self.kvbm_disk_path:
+            bad.append("kvbm_*")
+        if self.lora_pool_slots:
+            bad.append("lora_pool_slots")
+        if self.num_pages <= 0:
+            bad.append("num_pages")  # auto-sizing from free memory
+        if self.role not in ("decode", "both"):
+            bad.append("role")
+        return bad

@@ -1,0 +1,1658 @@
+"""TorchEngine: the continuous-batching inference engine on PyTorch/CUDA.
+
+Port of the aggregated single-device main path of
+`dynamo_tpu/engine/engine.py:JaxEngine` (plain chat traffic). The host loop
+keeps the reference's design — a synchronous device round-trip costs far
+more than an asynchronous dispatch, so dispatches are cheap and pipelined
+and host reads are the expensive unit:
+
+  * decode: ONE BLOCK of K steps for the whole slot batch [max_num_seqs] —
+    paged attention + on-device sampling, the sampled token feeding the
+    next step on the device, no host read inside the block. Up to two
+    blocks are kept in flight (the copy of block i runs on a side stream
+    and overlaps block i+1's compute), so steady-state decode costs ONE
+    device->host copy per K*B tokens. Tokens speculated past a stop are
+    discarded host-side.
+  * prefill: chunked + bucketed + BATCHED — chunks from several waiting
+    sequences are packed into one [B_pf, bucket] dispatch with the first
+    token sampled on-device. Chunks that do not complete a prompt need no
+    host read at all.
+  * mixed: when both prefill chunks and decode lanes are runnable, ONE
+    ragged forward over a flat token buffer serves both.
+  * prefix cache: PageAllocator keys pages by chained block hashes
+    (llm/tokens.py) and emits stored/removed events.
+  * preemption: on page exhaustion the newest-admitted sequence is
+    preempted — its full blocks are committed (cheap resume via prefix
+    cache), pages released, and the request requeued; it resumes decoding
+    from its pending token without re-emitting.
+
+The KV pool is written in place. There is nothing to compile per shape, so
+`warmup()` only builds the kernel library and drives one dispatch of each
+kind. All device work runs on one executor thread so a blocking copy never
+stalls the event loop. Left out of this port so far (each raises a typed
+error when asked for): disaggregation, KVBM tiers, role morphing,
+speculative decoding, guided decoding, LoRA, multimodal, multi-host,
+quantized weights/KV, tensor/pipeline/sequence parallelism.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import dataclasses
+import logging
+import secrets
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from functools import partial
+from typing import Any, AsyncIterator, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..llm.mocker.kv_manager import KvEvent
+from ..llm.protocols import Annotated, LLMEngineOutput, PreprocessedRequest
+from ..llm.tokens import TokenBlockSequence
+from ..models import llama
+from ..ops.hopper_ragged_attention import ragged_tile_q
+from ..runtime.engine import Context
+from .bucketing import next_pow2 as _next_pow2
+from .config import EngineConfig, UnsupportedConfigError
+from .kv_cache import PageAllocator, alloc_kv_arrays
+from .sampling import SamplingParams, penalized, sample_lp
+from .scheduler import SlaConfig, StepPlanner
+
+logger = logging.getLogger(__name__)
+
+SCRATCH_PAGE = 0  # physical page 0 is the dump target for masked lanes
+
+
+class UnsupportedRequestError(ValueError):
+    """A request field asks for a feature this port has not implemented
+    (multimodal parts, guided decoding, LoRA, disaggregation, embeddings).
+    Raised from `generate`, never silently dropped."""
+
+
+@dataclass
+class _Slot:
+    """One decode slot (host bookkeeping)."""
+
+    request_id: str
+    queue: asyncio.Queue
+    context: Context
+    prompt: List[int]
+    max_tokens: int
+    min_tokens: int
+    eos_ids: List[int]
+    ignore_eos: bool
+    stop_token_ids: List[int]
+    seq: TokenBlockSequence
+    kv_prompt: List[int] = field(default_factory=list)  # tokens whose KV
+    # prefill computes; == prompt for fresh slots, prompt+generated-minus-
+    # pending for preempted slots
+    pages: List[int] = field(default_factory=list)
+    committed_hashes: List[int] = field(default_factory=list)
+    prefill_pos: int = 0
+    generated: int = 0
+    last_token: int = 0
+    slot_idx: int = -1
+    admit_seq: int = 0  # admission order; preemption victims = newest
+    done: bool = False
+    resume_token: Optional[int] = None  # preempted: continue with this token
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    want_logprobs: bool = False  # attach sampled-token logprobs to emissions
+    sample_seed: int = 0  # per-request sampling seed (SamplingParams.seed)
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    repetition_penalty: float = 1.0
+    want_top_logprobs: int = 0  # top-k alternatives per token (max 5)
+    # scheduler bookkeeping: priority scales the TTFT target (each +1
+    # halves it); sched_deadline is the EDF key; sched_skips counts
+    # dispatches this candidate was passed over (the starvation guard's
+    # aging signal) and resets on every granted chunk
+    priority: int = 0
+    arrival_s: float = 0.0
+    sched_deadline: float = 0.0
+    sched_skips: int = 0
+    tenant: str = ""
+
+
+@dataclass
+class _DeviceResult:
+    """Tensors a dispatch left on the device for a later host read, and the
+    CUDA event recorded after the dispatch (None on the CPU)."""
+
+    tensors: tuple
+    event: Optional[Any] = None
+
+
+class TorchEngine:
+    """Continuous-batching engine with the reference's
+    `generate(request, context)` interface."""
+
+    def __init__(
+        self,
+        config: EngineConfig,
+        model_config: Optional[llama.LlamaConfig] = None,
+        params: Optional[dict] = None,
+        event_sink: Optional[Callable[[KvEvent], None]] = None,
+        device="cuda",
+    ):
+        bad = config.unsupported_fields()
+        if bad:
+            raise UnsupportedConfigError(
+                f"EngineConfig fields not supported by the PyTorch/CUDA port yet: {bad}"
+            )
+        # resolve the auto sentinels into a COPY — the caller's config keeps them
+        config = dataclasses.replace(
+            config, decode_pool_mode="scatter", kv_quant="none",
+        )
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchEngine(device='cuda') needs a CUDA device; pass "
+                "device='cpu' explicitly to run on the CPU"
+            )
+        self._on_cuda = self.device.type == "cuda"
+        self.model_config = model_config or _resolve_model(config.model)
+        c = self.model_config
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(config.seed)
+            params = llama.init_params(c, gen, device=self.device)
+        self.params = params
+        # +1: physical page 0 is scratch; allocator page i -> physical i + 1
+        self.kv_k, self.kv_v = alloc_kv_arrays(
+            c.num_layers, config.num_pages + 1, config.page_size,
+            c.num_kv_heads, c.head_dim, dtype=c.dtype, device=self.device,
+            kv_quant=config.kv_quant,
+        )
+        self.allocator = PageAllocator(
+            config.num_pages, config.page_size, event_sink=event_sink
+        )
+        B, P = config.max_num_seqs, config.max_pages_per_seq
+        self.page_tables = np.zeros((B, P), np.int32)
+        self.seq_lens = np.zeros((B,), np.int32)
+        self.tokens = np.zeros((B,), np.int32)
+        self.temps = np.zeros((B,), np.float32)
+        self.top_ks = np.zeros((B,), np.int32)
+        self.top_ps = np.ones((B,), np.float32)
+        self.seeds = np.zeros((B,), np.int64)  # per-lane u32 sampling seeds
+        self.presence = np.zeros((B,), np.float32)
+        self.frequency = np.zeros((B,), np.float32)
+        self.repetition = np.ones((B,), np.float32)
+        # recent-token ring per lane (penalties window; pad = -1). Host
+        # mirror for reset/patch; the device copy rides the decode carry.
+        self.recent = np.full((B, config.penalty_window), -1, np.int32)
+        self.slots: List[Optional[_Slot]] = [None] * B
+        self._free_slots = list(range(B - 1, -1, -1))
+        self._waiting: List[_Slot] = []
+        self._step_task: Optional[asyncio.Task] = None
+        self._wake = asyncio.Event()
+        self._closed = False
+        self.num_requests = 0
+        self.num_preemptions = 0
+        # blocks reused MID-prefix from concurrent same-prefix requests
+        # (_try_skip_ahead; admission-time hits count in the allocator)
+        self.prefix_skip_ahead_blocks = 0
+        self._admit_counter = 0
+        self.scheduler = StepPlanner(
+            config,
+            SlaConfig.from_env(
+                policy=config.sched_policy,
+                ttft_target_ms=config.ttft_target_ms,
+                itl_target_ms=config.itl_target_ms,
+            ),
+        )
+        self._mixed_enabled = (
+            config.mixed_dispatch if config.mixed_dispatch is not None else True
+        )
+        self._incremental_commit = (
+            config.incremental_commit
+            if config.incremental_commit is not None else True
+        )
+        # row-start alignment of the flat packer: whatever the ragged
+        # kernel asks for (packer and kernel agree through this function)
+        self._mixed_align = ragged_tile_q(c.dtype)
+        # ONE fixed row bucket: the row axis only sizes scalar operands
+        self._mixed_row_bucket = _next_pow2(
+            config.max_num_seqs + config.max_prefill_batch
+        )
+        # fused-vs-split visibility (stats()): is the fused path actually
+        # taken, and what padding does each path pay per step
+        self.mixed_steps = 0
+        self.split_steps = 0
+        self.mixed_padded_tokens = 0
+        self.mixed_real_tokens = 0
+        self.split_padded_tokens = 0
+        self.split_real_tokens = 0
+        self.mixed_rows_plain = 0
+        self._last_prefill_shape = None  # (padded, real) of the latest dispatch
+        self._last_decode_shape = None
+        # set by _dispatch_mixed when only the in-flight decode pipeline
+        # blocks fusing: the step loop holds the split prefill one step so
+        # the drained pipeline fuses next step instead
+        self._mixed_wait_drain = False
+        # per-dispatch-type device occupancy: {tag: (count, seconds)}. On
+        # CUDA the seconds come from events recorded around each dispatch
+        # (device time); on the CPU from the host clock.
+        self._dev_time: Dict[str, tuple] = {}
+        self._timing_lock = threading.Lock()
+        self._pending_timings: deque = deque()
+        self.emit_batches = 0
+        self.emit_tokens = 0
+        # decode pipeline: device-resident carry (tokens/positions/seq_lens)
+        # + up to two in-flight K-step blocks
+        self._carry = None  # (tokens_dev, positions_dev, seq_lens_dev)
+        self._carry_valid = False
+        # per-lane dirt: admissions/finishes/page-growth touch only their
+        # lanes via the patch program — a full invalidation would drain the
+        # block pipeline and re-upload everything
+        self._dirty_lanes: set = set()  # full lane state from host
+        self._dirty_tables: set = set()  # page-table row only (lane carry
+        # on device is NEWER than host and must not be overwritten)
+        self._tables_dev = None
+        self._samp_dev = None
+        self._pen_dev = None  # [B, W] recent-token ring (penalties)
+        self._inflight: deque = deque()  # [{"lanes": [...], "toks": result}]
+        # pending prefill completions awaiting their first-token fetch
+        self._pending_prefill: List[dict] = []
+        # all device dispatches run on this single thread, host reads on a
+        # separate one, so a blocking copy never delays the next dispatch
+        self._device_exec = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="torch-step"
+        )
+        self._fetch_exec = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="torch-fetch"
+        )
+        self._copy_stream = None  # side stream for device->host copies
+
+    # ------------------------------------------------------------------ #
+    # lifecycle / interface
+    # ------------------------------------------------------------------ #
+
+    def start(self):
+        if self._step_task is None:
+            self._step_task = asyncio.create_task(self._step_loop())
+
+    async def close(self):
+        self._closed = True
+        self._wake.set()
+        if self._step_task:
+            self._step_task.cancel()
+            try:
+                await self._step_task
+            except asyncio.CancelledError:
+                pass
+            self._step_task = None
+        self._device_exec.shutdown(wait=True)
+        self._fetch_exec.shutdown(wait=True)
+
+    async def warmup(self) -> int:
+        """Build the kernel library (on CUDA) and drive one dispatch of each
+        kind — batched prefill, decode reset/patch/block, the mixed step —
+        through the real `generate` path before serving traffic. Returns the
+        number of device dispatches made. The warmup prompts' cached pages
+        are evicted afterwards."""
+        if self._on_cuda:
+            from ..ops import _build
+
+            await asyncio.get_running_loop().run_in_executor(
+                self._device_exec, _build.load_library
+            )
+        rng = np.random.RandomState(0xD74A)
+        vocab = self.model_config.vocab_size
+        K = self.config.decode_block_steps
+        isl = max(min(self.config.prefill_buckets[0] - 8,
+                      self.config.max_model_len - 2 * K - 4), 4)
+
+        async def _drain(first_token: Optional[asyncio.Event]):
+            req = PreprocessedRequest(
+                token_ids=rng.randint(5, max(vocab - 1, 6), size=isl).tolist(),
+                stop_conditions={"max_tokens": 2 * K + 2, "ignore_eos": True},
+                sampling_options={"temperature": 1.0, "seed": 1},
+            ).to_dict()
+            async for _ in self.generate(req, Context()):
+                if first_token is not None:
+                    first_token.set()
+
+        before = self._dispatch_count()
+        # a staggered pair: the second arrives while the first decodes, so
+        # the fused mixed step runs (or, with mixed dispatch off, the
+        # lane patch beside a running block)
+        started = asyncio.Event()
+        t1 = asyncio.create_task(_drain(started))
+        await started.wait()
+        t2 = asyncio.create_task(_drain(None))
+        await asyncio.gather(t1, t2)
+        self.clear_kv_blocks()
+        return self._dispatch_count() - before
+
+    def _dispatch_count(self) -> int:
+        self._drain_timings(wait=True)
+        with self._timing_lock:
+            return sum(
+                cnt for tag, (cnt, _) in self._dev_time.items() if tag != "fetch"
+            )
+
+    @staticmethod
+    def _check_request(req: PreprocessedRequest) -> None:
+        bad = [
+            name for name in ("multimodal", "guided", "lora_name", "disagg_params")
+            if getattr(req, name)
+        ]
+        if req.embed:
+            bad.append("embed")
+        if bad:
+            raise UnsupportedRequestError(
+                f"request fields not supported by the PyTorch/CUDA port yet: {bad}"
+            )
+
+    def _new_slot(self, req: PreprocessedRequest, context: Context) -> _Slot:
+        stop = req.stop_conditions or {}
+        sampling = req.sampling_options or {}
+        slot = _Slot(
+            request_id=req.request_id or f"torch-{self.num_requests}",
+            queue=asyncio.Queue(),
+            context=context,
+            prompt=list(req.token_ids),
+            max_tokens=int(stop.get("max_tokens") or 128),
+            min_tokens=int(stop.get("min_tokens") or 0),
+            eos_ids=list(req.eos_token_ids or []),
+            ignore_eos=bool(stop.get("ignore_eos")),
+            stop_token_ids=list(stop.get("stop_token_ids") or []),
+            seq=TokenBlockSequence(req.token_ids, self.config.page_size, salt=0),
+        )
+        slot.kv_prompt = slot.prompt
+        slot.temperature = float(
+            sampling.get("temperature", self.config.default_temperature) or 0.0
+        )
+        slot.top_k = int(sampling.get("top_k") or 0)
+        slot.top_p = float(sampling.get("top_p") or 1.0)
+        slot.want_logprobs = bool(sampling.get("logprobs"))
+        slot.presence_penalty = float(sampling.get("presence_penalty") or 0.0)
+        slot.frequency_penalty = float(sampling.get("frequency_penalty") or 0.0)
+        slot.repetition_penalty = float(sampling.get("repetition_penalty") or 1.0)
+        # explicit seed => reproducible output independent of co-batched
+        # traffic (counter-based draws, sampling.py); else a random one —
+        # concurrent identical unseeded requests must diverge
+        seed = sampling.get("seed")
+        slot.sample_seed = (
+            int(seed) & 0xFFFFFFFF if seed is not None else secrets.randbits(32)
+        )
+        slot.want_top_logprobs = min(int(sampling.get("top_logprobs") or 0), 5)
+        if len(slot.prompt) + slot.max_tokens > self.config.max_model_len:
+            slot.max_tokens = max(self.config.max_model_len - len(slot.prompt), 1)
+        slot.priority = int(req.priority or 0)
+        slot.tenant = req.tenant or ""
+        slot.arrival_s = time.monotonic()
+        self.scheduler.assign_deadline(slot)
+        return slot
+
+    async def generate(self, request: Any, context: Context) -> AsyncIterator[dict]:
+        req = (
+            request
+            if isinstance(request, PreprocessedRequest)
+            else PreprocessedRequest.from_dict(request)
+        )
+        self._check_request(req)
+        if not req.token_ids:
+            raise ValueError("request has no prompt tokens")
+        self.start()
+        slot = self._new_slot(req, context)
+        self.num_requests += 1
+        self._waiting.append(slot)
+        self._wake.set()
+        try:
+            while True:
+                item = await slot.queue.get()
+                if item is None:
+                    return
+                yield item
+        finally:
+            slot.done = True
+            self._wake.set()
+
+    def clear_kv_blocks(self) -> int:
+        """Admin flush: evict every unreferenced prefix-cache page (emitting
+        removed events). Active sequences keep their pages."""
+        return self.allocator.clear_cache()
+
+    def stats(self) -> dict:
+        self._drain_timings()
+        running = sum(1 for s in self.slots if s is not None)
+        out = {
+            "num_waiting_reqs": len(self._waiting),
+            "num_running_reqs": running,
+            "gpu_cache_usage_perc": self.allocator.active_pages / self.allocator.num_pages,
+            "request_total_slots": self.config.max_num_seqs,
+            "kv_quant": self.config.kv_quant,
+            "kv_pool_bytes": 2 * self.kv_k.numel() * self.kv_k.element_size(),
+            **self.allocator.stats(),
+        }
+        out["num_preemptions"] = self.num_preemptions
+        out["kv_skip_ahead_blocks"] = self.prefix_skip_ahead_blocks
+        out["emit_batches"] = self.emit_batches
+        out["emit_tokens"] = self.emit_tokens
+        out["mixed_steps"] = self.mixed_steps
+        out["split_steps"] = self.split_steps
+        out["mixed_padded_tokens"] = self.mixed_padded_tokens
+        out["split_padded_tokens"] = self.split_padded_tokens
+        out["mixed_padding_frac"] = round(
+            1.0 - self.mixed_real_tokens / self.mixed_padded_tokens, 4
+        ) if self.mixed_padded_tokens else 0.0
+        out["split_padding_frac"] = round(
+            1.0 - self.split_real_tokens / self.split_padded_tokens, 4
+        ) if self.split_padded_tokens else 0.0
+        out["mixed_rows_plain"] = self.mixed_rows_plain
+        denom = self.mixed_steps + self.split_steps
+        out["mixed_coverage_frac"] = (
+            round(self.mixed_steps / denom, 4) if denom else 1.0
+        )
+        out.update(self.scheduler.stats())
+        recent = self.scheduler.recent_decisions()
+        if recent:
+            out["sched_last_decision"] = recent[-1]
+        with self._timing_lock:
+            dev_time = dict(self._dev_time)
+        out["dev_time"] = {
+            tag: {"count": cnt, "seconds": round(tot, 6)}
+            for tag, (cnt, tot) in dev_time.items()
+        }
+        for tag, (cnt, tot) in dev_time.items():
+            out[f"dispatch_{tag}_count"] = cnt
+            out[f"dispatch_{tag}_s"] = round(tot, 3)
+        return out
+
+    # ------------------------------------------------------------------ #
+    # step loop
+    # ------------------------------------------------------------------ #
+
+    async def _step_loop(self):
+        while not self._closed:
+            has_active = any(s is not None for s in self.slots)
+            if (
+                not self._waiting
+                and not has_active
+                and not self._inflight
+                and not self._pending_prefill
+            ):
+                self._wake.clear()
+                await self._wake.wait()
+                continue
+            try:
+                progressed = await self._step_once()
+            except Exception as e:  # noqa: BLE001 — engine loop must not die silently
+                logger.exception("engine step failed; failing active requests")
+                self._fail_all(f"engine step failed: {type(e).__name__}: {e}")
+                await asyncio.sleep(0.1)
+                continue
+            # yield to the event loop so streams flush between steps
+            await asyncio.sleep(0 if progressed else 0.001)
+
+    async def _step_once(self) -> bool:
+        """One engine iteration: admit, dispatch (ONE fused mixed step when
+        both prefill and decode are runnable, else prefill batch + decode
+        block), then collect ALL host-needed values in one fetch."""
+        self._admit_waiting()
+        progressed = False
+        dispatched = False
+        if await self._dispatch_mixed():
+            progressed = True
+        else:
+            self._last_prefill_shape = self._last_decode_shape = None
+            pf = False
+            if not self._mixed_wait_drain:
+                pf = await self._dispatch_prefill()
+            progressed |= pf
+            dispatched = await self._dispatch_decode()
+            if pf and dispatched and self._last_prefill_shape \
+                    and self._last_decode_shape:
+                # a mixed-shaped step served by the split pair: account its
+                # padding beside the fused path's
+                self.split_steps += 1
+                self.split_padded_tokens += (
+                    self._last_prefill_shape[0] + self._last_decode_shape[0]
+                )
+                self.split_real_tokens += (
+                    self._last_prefill_shape[1] + self._last_decode_shape[1]
+                )
+        # fetch the oldest block only once the pipeline is full or stalled,
+        # so its host read overlaps the newer block's compute
+        fetch_block = len(self._inflight) >= 2 or (
+            bool(self._inflight) and not dispatched
+        )
+        progressed |= dispatched
+        progressed |= await self._fetch_and_process(fetch_block)
+        return progressed
+
+    # -- admission ------------------------------------------------------- #
+
+    def _admit_waiting(self):
+        still: List[_Slot] = []
+        for slot in self.scheduler.order_waiting(self._waiting):
+            if slot.done or slot.context.is_stopped():
+                self._emit_finish(slot, "cancelled")
+                continue
+            if not self._free_slots or not self._try_admit(slot):
+                still.append(slot)
+        self._waiting = still
+
+    def _try_admit(self, slot: _Slot) -> bool:
+        cfg = self.config
+        kv_prompt = slot.kv_prompt
+        hashes = slot.seq.block_hashes()
+        cached_pages = (
+            self.allocator.acquire_cached(hashes) if cfg.enable_prefix_caching else []
+        )
+        n_cached = len(cached_pages)
+        # allocate the prompt's remaining pages now; generation pages grow later
+        prompt_pages = (len(kv_prompt) + cfg.page_size - 1) // cfg.page_size
+        fresh_prompt = max(prompt_pages - n_cached, 0)
+        if not self.allocator.can_allocate(fresh_prompt + 1):
+            self.allocator.release(cached_pages, hashes[:n_cached])
+            return False
+        fresh = self.allocator.alloc_fresh(fresh_prompt)
+        if fresh is None:
+            self.allocator.release(cached_pages, hashes[:n_cached])
+            return False
+        idx = self._free_slots.pop()
+        slot.slot_idx = idx
+        slot.pages = cached_pages + fresh
+        slot.committed_hashes = hashes[:n_cached]
+        slot.prefill_pos = min(n_cached * cfg.page_size, len(kv_prompt))
+        # if the whole prompt is cached, recompute the last token (need its
+        # logits) — back off one position
+        if slot.prefill_pos >= len(kv_prompt):
+            slot.prefill_pos = len(kv_prompt) - 1
+        self.slots[idx] = slot
+        # host state
+        self.page_tables[idx, :] = SCRATCH_PAGE
+        phys = [p + 1 for p in slot.pages]  # +1: scratch shift
+        self.page_tables[idx, : len(phys)] = phys
+        self.seq_lens[idx] = 0
+        self.temps[idx] = slot.temperature
+        self.top_ks[idx] = slot.top_k
+        self.top_ps[idx] = slot.top_p
+        self.seeds[idx] = slot.sample_seed
+        self.presence[idx] = slot.presence_penalty
+        self.frequency[idx] = slot.frequency_penalty
+        self.repetition[idx] = slot.repetition_penalty
+        self._fill_recent(idx, slot)
+        slot.admit_seq = self._admit_counter = self._admit_counter + 1
+        self.scheduler.on_admit(slot)
+        return True
+
+    # -- device helpers -------------------------------------------------- #
+
+    def _timed(self, fn, tag: str, shape: Optional[tuple] = None,
+               host_clock: bool = False):
+        """Wrap fn so its device time accrues to self._dev_time[tag] (and,
+        when `shape`=(bucket, lanes) is given, feeds the scheduler's
+        per-shape cost model). On CUDA the time is taken between two events
+        recorded on the stream and read once the later one has completed;
+        `host_clock` times a blocking host-side call with the host clock."""
+        def timed(*a):
+            if self._on_cuda and not host_clock:
+                self._drain_timings()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                try:
+                    return fn(*a)
+                finally:
+                    end.record()
+                    self._pending_timings.append((tag, shape, start, end))
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                self._account(tag, shape, time.perf_counter() - t0)
+        return timed
+
+    def _account(self, tag: str, shape: Optional[tuple], dt: float) -> None:
+        with self._timing_lock:
+            cnt, tot = self._dev_time.get(tag, (0, 0.0))
+            self._dev_time[tag] = (cnt + 1, tot + dt)
+        if shape is not None:
+            self.scheduler.cost.observe(tag, shape[0], shape[1], dt)
+
+    def _drain_timings(self, wait: bool = False) -> None:
+        """Fold every completed (start, end) event pair into _dev_time."""
+        while True:
+            with self._timing_lock:
+                if not self._pending_timings:
+                    return
+                tag, shape, start, end = self._pending_timings[0]
+                if not wait and not end.query():
+                    return
+                self._pending_timings.popleft()
+            if wait:
+                end.synchronize()
+            self._account(tag, shape, start.elapsed_time(end) / 1000.0)
+
+    async def _run_on_device(self, fn, *args, tag: str = None,
+                             shape: Optional[tuple] = None):
+        if tag is not None:
+            fn = self._timed(fn, tag, shape)
+        return await asyncio.get_running_loop().run_in_executor(
+            self._device_exec, fn, *args
+        )
+
+    def _result(self, *tensors) -> _DeviceResult:
+        """Package a dispatch's outputs; on CUDA record the event a later
+        copy on the side stream waits for."""
+        event = None
+        if self._on_cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return _DeviceResult(tensors, event)
+
+    def _to_host(self, results: List[Optional[_DeviceResult]]) -> list:
+        """ONE blocking host read for a list of dispatch results (None
+        entries pass through). On CUDA the copies run on a side stream that
+        waits only for each result's own event, so a block dispatched later
+        does not hold the read back."""
+        if not self._on_cuda:
+            return [
+                None if r is None else tuple(t.numpy() for t in r.tensors)
+                for r in results
+            ]
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        staged = []
+        with torch.cuda.stream(self._copy_stream):
+            for r in results:
+                if r is None:
+                    staged.append(None)
+                    continue
+                self._copy_stream.wait_event(r.event)
+                staged.append(tuple(t.to("cpu", non_blocking=True) for t in r.tensors))
+        self._copy_stream.synchronize()
+        return [None if s is None else tuple(t.numpy() for t in s) for s in staged]
+
+    async def _fetch(self, results: list) -> list:
+        return await asyncio.get_running_loop().run_in_executor(
+            self._fetch_exec,
+            self._timed(self._to_host, "fetch", host_clock=True), results
+        )
+
+    def _mark_lane_dirty(self, idx: int):
+        """Lane state changed on host (admission/finish/resume): patch just
+        that lane before the next block instead of a full carry reset."""
+        if self._carry_valid and idx >= 0:
+            self._dirty_lanes.add(idx)
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _samp(self, temps, top_ks, top_ps, seeds, pens) -> SamplingParams:
+        """Device sampling state from host arrays, with the host-known
+        all-greedy / no-penalty facts that let the sampler skip work."""
+        return SamplingParams(
+            temperature=self._dev(temps),
+            top_k=self._dev(top_ks),
+            top_p=self._dev(top_ps),
+            seed=self._dev(seeds),
+            presence=self._dev(pens[:, 0]),
+            frequency=self._dev(pens[:, 1]),
+            repetition=self._dev(pens[:, 2]),
+            all_greedy=bool(np.all(temps <= 0.0)),
+            no_penalties=bool(
+                np.all(pens[:, 0] == 0.0) and np.all(pens[:, 1] == 0.0)
+                and np.all(pens[:, 2] == 1.0)
+            ),
+        )
+
+    # -- device programs (run on the device executor thread) ------------- #
+
+    @torch.no_grad()
+    def _dev_prefill(self, toks, positions, tables, ctx_lens, last_idx,
+                     temps, top_ks, top_ps, seeds, pens, pen_rows):
+        """Batched chunked prefill + on-device first-token sampling."""
+        samp = self._samp(temps, top_ks, top_ps, seeds, pens)
+        ctx_d, last_d = self._dev(ctx_lens), self._dev(last_idx)
+        logits, _, _ = llama.prefill_forward_batched(
+            self.params, self.model_config, self._dev(toks), self._dev(positions),
+            self.kv_k, self.kv_v, self._dev(tables), ctx_d, last_d,
+        )
+        plogits = penalized(logits, samp, self._dev(pen_rows))
+        first = sample_lp(plogits, samp, ctx_d + last_d, raw=logits)
+        return self._result(*first)
+
+    @torch.no_grad()
+    def _dev_mixed(self, toks, positions, row_ids, tables, row_starts,
+                   row_lens, ctx_lens, last_flat, temps, top_ks, top_ps,
+                   seeds, pens, pen_rows):
+        """Unified mixed step: ONE ragged forward over a flat buffer packing
+        prefill chunks (row_len > 1) and decode lanes (row_len == 1), with
+        each row's last-token logits sampled on device."""
+        samp = self._samp(temps, top_ks, top_ps, seeds, pens)
+        ctx_d, len_d = self._dev(ctx_lens), self._dev(row_lens)
+        logits, _, _ = llama.ragged_forward(
+            self.params, self.model_config, self._dev(toks), self._dev(positions),
+            self._dev(row_ids), self.kv_k, self.kv_v, self._dev(tables),
+            self._dev(row_starts), len_d, ctx_d, self._dev(last_flat),
+        )
+        plogits = penalized(logits, samp, self._dev(pen_rows))
+        # the sampled token's position counter: the row's last real token
+        # (= ctx + last_idx for prefill rows, seq_len - 1 for decode rows)
+        # — identical to what the split dispatches use, so seeded streams
+        # don't depend on the dispatch shape
+        first = sample_lp(plogits, samp, ctx_d + len_d - 1, raw=logits)
+        return self._result(*first)
+
+    def _dev_reset(self, tokens, positions, seq_lens, page_tables, temps,
+                   top_ks, top_ps, seeds, pens, recent):
+        self._samp_dev = self._samp(temps, top_ks, top_ps, seeds, pens)
+        self._carry = (self._dev(tokens), self._dev(positions), self._dev(seq_lens))
+        self._pen_dev = self._dev(recent)
+        self._tables_dev = self._dev(page_tables)
+
+    def _dev_patch(self, lane_mask, table_mask, tokens, positions, seq_lens,
+                   tables, temps, top_ks, top_ps, seeds, pens, recent):
+        """Per-lane carry patch: lane_mask lanes take carry + sampling +
+        table from the host; table_mask extends to lanes whose page table
+        grew mid-decode (their carry on device is NEWER than host state)."""
+        lm, tm = self._dev(lane_mask), self._dev(table_mask)
+        new = self._samp(temps, top_ks, top_ps, seeds, pens)
+        cur = self._samp_dev
+        pick = lambda n, c: torch.where(lm, n, c)  # noqa: E731
+        self._carry = (
+            pick(self._dev(tokens), self._carry[0]),
+            pick(self._dev(positions), self._carry[1]),
+            pick(self._dev(seq_lens), self._carry[2]),
+        )
+        self._tables_dev = torch.where(tm[:, None], self._dev(tables), self._tables_dev)
+        self._pen_dev = torch.where(lm[:, None], self._dev(recent), self._pen_dev)
+        self._samp_dev = SamplingParams(
+            temperature=pick(new.temperature, cur.temperature),
+            top_k=pick(new.top_k, cur.top_k),
+            top_p=pick(new.top_p, cur.top_p),
+            seed=pick(new.seed, cur.seed),
+            presence=pick(new.presence, cur.presence),
+            frequency=pick(new.frequency, cur.frequency),
+            repetition=pick(new.repetition, cur.repetition),
+        )
+
+    @torch.no_grad()
+    def _dev_block(self, all_greedy: bool, no_penalties: bool):
+        """K fused decode steps: sampled tokens feed the next step on the
+        device — one host read per K*B tokens instead of per token. The KV
+        pool is written in place each step."""
+        tokens, positions, seq_lens = self._carry
+        samp = self._samp_dev._replace(
+            all_greedy=all_greedy, no_penalties=no_penalties
+        )
+        pen = self._pen_dev
+        W = pen.shape[1]
+        lanes = torch.arange(tokens.shape[0], device=self.device)
+        outs = []
+        for _ in range(self.config.decode_block_steps):
+            logits, _, _ = llama.decode_forward(
+                self.params, self.model_config, tokens, positions,
+                self.kv_k, self.kv_v, self._tables_dev, seq_lens,
+            )
+            plogits = penalized(logits, samp, pen)
+            nxt, lp, tid, tlp = sample_lp(plogits, samp, positions, raw=logits)
+            tokens = nxt.to(torch.int32)
+            if not no_penalties:
+                # lanes without a penalty never read their ring row, and a
+                # lane admitted later brings its own row from the host
+                pen = pen.index_put(
+                    (lanes, ((positions + 1) % W).long()), tokens)
+            positions = positions + 1
+            seq_lens = seq_lens + 1
+            outs.append((tokens, lp, tid, tlp))
+        self._carry = (tokens, positions, seq_lens)
+        self._pen_dev = pen
+        return self._result(*(torch.stack(x) for x in zip(*outs)))
+
+    # -- prefill ----------------------------------------------------------- #
+
+    def _try_skip_ahead(self, s: _Slot) -> None:
+        """Late-binding prefix reuse: blocks committed SINCE this slot was
+        admitted (by a concurrent same-prefix request, possibly via the
+        incremental chunk commit) cover part of the remaining prompt —
+        swap the cached pages into the table and skip the compute. Only
+        whole-page-aligned progress can splice; fresh slots only."""
+        cfg = self.config
+        if not cfg.enable_prefix_caching:
+            return  # caching disabled must disable ALL reuse paths
+        if s.generated or s.resume_token is not None:
+            return
+        n_known = len(s.committed_hashes)
+        if s.prefill_pos != n_known * cfg.page_size:
+            return
+        hashes = s.seq.block_hashes()
+        prompt_full = len(s.kv_prompt) // cfg.page_size
+        if n_known >= prompt_full:
+            return
+        extra = self.allocator.acquire_cached(hashes[n_known:prompt_full])
+        if not extra:
+            return
+        self.prefix_skip_ahead_blocks += len(extra)
+        old = s.pages[n_known : n_known + len(extra)]
+        s.pages[n_known : n_known + len(extra)] = extra
+        self.allocator.release(old, [])  # fresh, un-hashed -> free list
+        s.committed_hashes.extend(hashes[n_known : n_known + len(extra)])
+        s.prefill_pos = (n_known + len(extra)) * cfg.page_size
+        if s.prefill_pos >= len(s.kv_prompt):
+            # whole prompt now cached: recompute the last token for logits
+            s.prefill_pos = len(s.kv_prompt) - 1
+        phys = [p + 1 for p in s.pages]
+        self.page_tables[s.slot_idx, : len(phys)] = phys
+
+    def _prefill_candidates(self) -> List[_Slot]:
+        """Slots with prompt KV still to compute (cancelled ones are
+        finished and released on the way)."""
+        cands = []
+        for s in self.slots:
+            if s is None or s.prefill_pos >= len(s.kv_prompt):
+                continue
+            if s.done or s.context.is_stopped():
+                self._emit_finish(s, "cancelled")
+                self._release_slot(s)
+                continue
+            self._try_skip_ahead(s)
+            cands.append(s)
+        return cands
+
+    async def _dispatch_prefill(self) -> bool:
+        """Pack prefill chunks from several slots into ONE dispatch.
+
+        Shapes are bounded: batch lanes B_pf = prefill_batch_tokens/bucket
+        (padded with dummy lanes), table length = pow2 context bucket + a
+        scratch tail entry for padded positions."""
+        cfg = self.config
+        cands = self._prefill_candidates()
+        if not cands:
+            return False
+        cands = self.scheduler.order(cands)
+        has_decode = any(
+            s is not None and s.generated > 0 and s.resume_token is None
+            and s.prefill_pos >= len(s.kv_prompt)
+            for s in self.slots
+        )
+        plan = self.scheduler.plan_prefill(cands, decode_active=has_decode)
+        if plan is None:
+            # ITL budget exhausted and no deadline at risk: prefill yields
+            # this step; skipped candidates age toward the starvation guard
+            for s in cands:
+                s.sched_skips += 1
+            return False
+        bucket = plan.bucket
+        chosen = plan.chosen
+        for s in cands[len(chosen):]:
+            s.sched_skips += 1
+        B_pf = plan.lanes
+
+        # shared context-bounded table: pow2 pages covering the largest
+        # (history + chunk), plus one guaranteed-scratch tail entry that
+        # padded positions write to
+        chunk_of = {}
+        max_pages_needed = 1
+        for s in chosen:
+            chunk = min(len(s.kv_prompt) - s.prefill_pos, bucket)
+            chunk_of[s.request_id] = chunk
+            pages_needed = (s.prefill_pos + chunk + cfg.page_size - 1) // cfg.page_size
+            max_pages_needed = max(max_pages_needed, pages_needed)
+        ctx_pages = min(_next_pow2(max_pages_needed), cfg.max_pages_per_seq)
+        P = ctx_pages + 1
+        pad_pos = P * cfg.page_size - 1
+
+        toks = np.zeros((B_pf, bucket), np.int32)
+        positions = np.full((B_pf, bucket), pad_pos, np.int32)
+        tables = np.full((B_pf, P), SCRATCH_PAGE, np.int32)
+        ctx_lens = np.zeros((B_pf,), np.int32)
+        last_idx = np.zeros((B_pf,), np.int32)
+        temps = np.zeros((B_pf,), np.float32)
+        top_ks = np.zeros((B_pf,), np.int32)
+        top_ps = np.ones((B_pf,), np.float32)
+        seeds = np.zeros((B_pf,), np.int64)
+        pens = np.zeros((B_pf, 3), np.float32)
+        pens[:, 2] = 1.0  # repetition off
+        pen_rows = np.full((B_pf, cfg.penalty_window), -1, np.int32)
+        meta = []
+        for lane, s in enumerate(chosen):
+            chunk = chunk_of[s.request_id]
+            start = s.prefill_pos
+            toks[lane, :chunk] = s.kv_prompt[start : start + chunk]
+            positions[lane, :chunk] = np.arange(start, start + chunk)
+            tables[lane, :ctx_pages] = self.page_tables[s.slot_idx][:ctx_pages]
+            ctx_lens[lane] = start
+            last_idx[lane] = chunk - 1
+            temps[lane] = s.temperature
+            top_ks[lane] = s.top_k
+            top_ps[lane] = s.top_p
+            seeds[lane] = s.sample_seed
+            pens[lane] = (s.presence_penalty, s.frequency_penalty,
+                          s.repetition_penalty)
+            pen_rows[lane] = self.recent[s.slot_idx]
+            s.sched_skips = 0  # granted a chunk: starvation clock restarts
+            meta.append((s, chunk, lane))
+        self._last_prefill_shape = (
+            B_pf * bucket, sum(ch for _, ch, _ in meta)
+        )
+        first_dev = await self._run_on_device(
+            partial(
+                self._dev_prefill,
+                toks, positions, tables, ctx_lens, last_idx, temps,
+                top_ks, top_ps, seeds, pens, pen_rows,
+            ),
+            tag="prefill", shape=(bucket, B_pf),
+        )
+        completions = []
+        progressed = []
+        for s, chunk, lane in meta:
+            s.prefill_pos += chunk
+            # commit confirmed at this dispatch's FETCH (execution proof)
+            progressed.append((s, s.prefill_pos))
+            if s.prefill_pos >= len(s.kv_prompt):
+                completions.append((s, lane))
+        self._pending_prefill.append(
+            {"first": first_dev, "done": completions, "progressed": progressed}
+        )
+        return True
+
+    def _fill_recent(self, idx: int, slot: _Slot):
+        """Load the lane's penalty window from the tokens so far (prompt +
+        generated); ring-indexed by absolute position so device-side
+        appends stay consistent across patches."""
+        W = self.config.penalty_window
+        toks = np.asarray(slot.seq.tokens, np.int32)
+        row = self.recent[idx]
+        row[:] = -1
+        if len(toks):
+            ps = np.arange(max(0, len(toks) - W), len(toks))
+            row[ps % W] = toks[ps]
+
+    def _top_entry(self, slot: _Slot, tids, tlps) -> Optional[dict]:
+        """Top-k alternatives for one emitted token, sliced to the
+        request's ask (None when not requested — zero overhead)."""
+        n = slot.want_top_logprobs
+        if not n:
+            return None
+        return {
+            "ids": [int(t) for t in tids[:n]],
+            "logprobs": [float(v) for v in tlps[:n]],
+        }
+
+    def _finish_prefill(self, slot: _Slot, first: int,
+                        first_lp: Optional[float] = None,
+                        first_top: Optional[dict] = None):
+        """Prompt KV fully computed; activate the slot for decode."""
+        self._commit_blocks(slot)
+        if slot.done or slot.context.is_stopped():
+            self._emit_finish(slot, "cancelled")
+            self._release_slot(slot)
+            return
+        if slot.resume_token is not None:
+            # preempted resume: continue from the already-emitted pending
+            # token; the freshly sampled token is discarded
+            first = slot.resume_token
+            slot.resume_token = None
+            slot.last_token = first
+            self.tokens[slot.slot_idx] = first
+            self.seq_lens[slot.slot_idx] = len(slot.kv_prompt) + 1
+            self._fill_recent(slot.slot_idx, slot)
+            self._mark_lane_dirty(slot.slot_idx)
+            return
+        self._emit_token(slot, first, first_lp, first_top)
+        if not slot.done:
+            slot.last_token = first
+            slot.generated = 1
+            slot.seq.append(first)
+            self.tokens[slot.slot_idx] = first
+            self.seq_lens[slot.slot_idx] = len(slot.kv_prompt) + 1
+            self._fill_recent(slot.slot_idx, slot)
+            self._mark_lane_dirty(slot.slot_idx)
+            self._maybe_finish(slot, first)
+
+    def _commit_blocks(self, slot: _Slot, upto_tokens: Optional[int] = None):
+        """Bind filled prompt pages to their hashes -> prefix cache + events.
+
+        `upto_tokens`: incremental commit after a confirmed prefill CHUNK
+        (the fetch of its dispatch's first-token proves the device ran the
+        program, so the pages hold real KV) — concurrent same-prefix
+        requests start hitting these blocks before the whole prompt
+        finishes."""
+        hashes = slot.seq.block_hashes()
+        n_known = len(slot.committed_hashes)
+        limit = len(slot.kv_prompt)
+        if upto_tokens is not None:
+            limit = min(limit, upto_tokens)
+        prompt_full_blocks = limit // self.config.page_size
+        new_hashes = hashes[n_known:prompt_full_blocks]
+        if new_hashes:
+            pages = slot.pages[n_known : n_known + len(new_hashes)]
+            token_blocks = [
+                b.tokens for b in slot.seq.blocks[n_known : n_known + len(new_hashes)]
+            ]
+            parent = slot.committed_hashes[-1] if slot.committed_hashes else None
+            self.allocator.commit_hashes(pages, new_hashes, token_blocks, parent)
+            slot.committed_hashes.extend(new_hashes)
+
+    # -- decode ---------------------------------------------------------- #
+
+    def _active_decode_indices(self) -> List[int]:
+        out = []
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            if slot.prefill_pos >= len(slot.kv_prompt) and slot.generated > 0 and slot.resume_token is None:
+                out.append(i)
+        return out
+
+    def _grow_pages_for_block(self, active: List[int],
+                              steps: Optional[int] = None) -> List[int]:
+        """Ensure each active lane's pages cover `steps` decode steps
+        (default: one fused block's max advance); preempt the newest
+        sequence (or finish with 'length' as last resort) when the pool is
+        exhausted. Returns the surviving active set."""
+        cfg = self.config
+        K = steps or cfg.block_advance
+        for i in list(active):
+            slot = self.slots[i]
+            if slot is None:
+                continue
+            # clamp to the model-length bound: speculation past it writes to
+            # the scratch page (decode_forward routes out-of-range positions
+            # there), so no pages are needed beyond max_model_len
+            last_pos = min(
+                int(self.seq_lens[i]) - 1 + (K - 1), cfg.max_model_len - 1
+            )
+            needed_pages = last_pos // cfg.page_size + 1
+            while len(slot.pages) < needed_pages:
+                fresh = self.allocator.alloc_fresh(1)
+                if fresh is not None:
+                    slot.pages.extend(fresh)
+                    self.page_tables[i, len(slot.pages) - 1] = fresh[0] + 1
+                    if self._carry_valid:
+                        # table-row-only patch: this lane's carry values on
+                        # device are newer than host (blocks in flight)
+                        self._dirty_tables.add(i)
+                    continue
+                if not self._preempt_one(exclude_idx=i):
+                    # nothing left to preempt: finish with length
+                    self._emit_finish(slot, "length")
+                    self._release_slot(slot)
+                    break
+        return self._active_decode_indices()
+
+    def _preempt_one(self, exclude_idx: int) -> bool:
+        """Preempt the newest-admitted active sequence: commit its full
+        blocks (so resume rides the prefix cache), release pages, requeue."""
+        victims = [
+            s
+            for s in self.slots
+            if s is not None and s.slot_idx != exclude_idx and s.generated > 0
+        ]
+        if not victims:
+            return False
+        victim = max(victims, key=lambda s: s.admit_seq)
+        logger.info("preempting %s to reclaim pages", victim.request_id)
+        self.num_preemptions += 1
+        # resume state: recompute KV for everything except the pending token
+        victim.resume_token = victim.last_token
+        victim.kv_prompt = list(victim.seq.tokens[:-1])
+        victim.prefill_pos = 0
+        self._release_slot(victim)
+        self._waiting.insert(0, victim)
+        return True
+
+    def _prefill_work_pending(self) -> bool:
+        """True when prefill compute could actually be dispatched: a slot
+        passing _dispatch_prefill's candidate filter, or an admittable
+        waiter. An un-admittable waiter must NOT throttle decode."""
+        if self._waiting and self._free_slots:
+            return True
+        return any(
+            s is not None and s.prefill_pos < len(s.kv_prompt) and not s.done
+            for s in self.slots
+        )
+
+    async def _dispatch_mixed(self) -> bool:
+        """Unified mixed step: when there are BOTH runnable prefill chunks
+        and active decode lanes, pack them into one flat ragged token
+        buffer — prefill chunks as T>1 rows, decode lanes as T=1 rows with
+        ctx = seq_len - 1 — and run ONE forward instead of a prefill
+        dispatch followed by a decode dispatch. Every decode lane advances
+        one token; completed prompts sample their first token; both ride
+        the same fetched [R] result. Returns False (split path runs)
+        whenever the fused step is inapplicable: mixed disabled, decode
+        blocks in flight (their device carry owns lane state — the mixed
+        step needs host-authoritative lanes), or the planner declines.
+
+        Shapes stay bounded: flat tokens pow2-bucketed to
+        config.mixed_max_tokens, ONE fixed row bucket, tables
+        pow2-bucketed like the prefill dispatch. Row starts are aligned to
+        `ragged_tile_q()` of the ragged kernel."""
+        cfg = self.config
+        self._mixed_wait_drain = False
+        if not self._mixed_enabled:
+            return False
+        active = self._active_decode_indices()
+        if not active:
+            return False
+        cands = self._prefill_candidates()
+        if not cands:
+            return False
+        cands = self.scheduler.order(cands)
+        align = self._mixed_align
+        plan = self.scheduler.plan_mixed(cands, n_decode=len(active), align=align)
+        if plan is None:
+            return False  # nothing fuses (e.g. decode lanes fill the
+            # budget) — split path runs at full rate, no hold
+        if self._inflight or self._pending_prefill:
+            # a decode block in flight owns these lanes' device carry, so
+            # the fused step can't pack them yet. Signal the step loop to
+            # HOLD the split prefill for one step while the pipeline
+            # drains — the next step fuses.
+            self._mixed_wait_drain = True
+            for s in cands:
+                s.sched_skips += 1
+            return False
+        # one decode step of page headroom; growth can preempt — re-filter
+        # both the decode set and the chosen prefill slots
+        active = self._grow_pages_for_block(active, steps=1)
+        if not active:
+            return False
+        chosen = [
+            (s, ch) for s, ch in zip(plan.chosen, plan.chunks)
+            if s.slot_idx >= 0 and self.slots[s.slot_idx] is s
+        ]
+        if not chosen:
+            return False
+        # the dispatch is committed from here on — account it
+        self.scheduler.commit_mixed(plan, chosen)
+        granted_slots = {id(s) for s, _ in chosen}
+        for s in cands:
+            if id(s) not in granted_slots:
+                s.sched_skips += 1
+
+        def aligned(n: int) -> int:
+            return -(-n // align) * align
+
+        cap = cfg.mixed_max_tokens - cfg.mixed_max_tokens % align
+        n_rows_decode = len(active)
+        total = sum(aligned(ch) for _, ch in chosen) \
+            + aligned(1) * n_rows_decode
+        N_pad = min(_next_pow2(max(total, align)), cap)
+        R_pad = self._mixed_row_bucket
+        max_pages_needed = 1
+        for s, ch in chosen:
+            pages = (s.prefill_pos + ch + cfg.page_size - 1) // cfg.page_size
+            max_pages_needed = max(max_pages_needed, pages)
+        for i in active:
+            pages = (int(self.seq_lens[i]) - 1) // cfg.page_size + 1
+            max_pages_needed = max(max_pages_needed, pages)
+        ctx_pages = min(_next_pow2(max_pages_needed), cfg.max_pages_per_seq)
+        P = ctx_pages + 1
+        pad_pos = P * cfg.page_size - 1  # pads write to the scratch tail
+
+        toks = np.zeros((N_pad,), np.int32)
+        positions = np.full((N_pad,), pad_pos, np.int32)
+        row_ids = np.full((N_pad,), R_pad - 1, np.int32)
+        row_starts = np.full((R_pad,), N_pad, np.int32)
+        row_lens = np.zeros((R_pad,), np.int32)
+        ctx_lens = np.zeros((R_pad,), np.int32)
+        tables = np.full((R_pad, P), SCRATCH_PAGE, np.int32)
+        last_flat = np.zeros((R_pad,), np.int32)
+        temps = np.zeros((R_pad,), np.float32)
+        top_ks = np.zeros((R_pad,), np.int32)
+        top_ps = np.ones((R_pad,), np.float32)
+        seeds = np.zeros((R_pad,), np.int64)
+        pens = np.zeros((R_pad, 3), np.float32)
+        pens[:, 2] = 1.0  # repetition off
+        pen_rows = np.full((R_pad, cfg.penalty_window), -1, np.int32)
+
+        off = 0
+        row = 0
+        meta = []  # prefill rows: (slot, chunk, row)
+        decode_rows = []  # (row, lane_idx, slot)
+        for s, chunk in chosen:
+            start = s.prefill_pos
+            row_starts[row] = off
+            row_lens[row] = chunk
+            ctx_lens[row] = start
+            toks[off : off + chunk] = s.kv_prompt[start : start + chunk]
+            positions[off : off + chunk] = np.arange(start, start + chunk)
+            row_ids[off : off + aligned(chunk)] = row
+            tables[row, :ctx_pages] = self.page_tables[s.slot_idx][:ctx_pages]
+            last_flat[row] = off + chunk - 1
+            temps[row] = s.temperature
+            top_ks[row] = s.top_k
+            top_ps[row] = s.top_p
+            seeds[row] = s.sample_seed
+            pens[row] = (s.presence_penalty, s.frequency_penalty,
+                         s.repetition_penalty)
+            pen_rows[row] = self.recent[s.slot_idx]
+            self.mixed_rows_plain += 1
+            s.sched_skips = 0
+            meta.append((s, chunk, row))
+            off += aligned(chunk)
+            row += 1
+        for i in active:
+            s = self.slots[i]
+            L = int(self.seq_lens[i])
+            # one token at position L-1 with ctx L-1: it attends the lane's
+            # committed KV plus its own (written before attention each layer)
+            row_starts[row] = off
+            row_lens[row] = 1
+            ctx_lens[row] = L - 1
+            toks[off] = int(self.tokens[i])
+            positions[off] = L - 1
+            row_ids[off : off + aligned(1)] = row
+            tables[row, :ctx_pages] = self.page_tables[i][:ctx_pages]
+            last_flat[row] = off
+            temps[row] = self.temps[i]
+            top_ks[row] = self.top_ks[i]
+            top_ps[row] = self.top_ps[i]
+            seeds[row] = self.seeds[i]
+            pens[row] = (self.presence[i], self.frequency[i], self.repetition[i])
+            # the device pen ring (decode carry) is not host-visible;
+            # rebuild this lane's window from the authoritative token
+            # sequence (ring-indexed by absolute position, so the patch
+            # after the fetch stays consistent with it)
+            self._fill_recent(i, s)
+            pen_rows[row] = self.recent[i]
+            decode_rows.append((row, i, s))
+            self.mixed_rows_plain += 1
+            off += aligned(1)
+            row += 1
+
+        first_dev = await self._run_on_device(
+            partial(
+                self._dev_mixed, toks, positions, row_ids, tables,
+                row_starts, row_lens, ctx_lens, last_flat, temps, top_ks,
+                top_ps, seeds, pens, pen_rows,
+            ),
+            tag="mixed", shape=(N_pad, row),
+        )
+        completions = []
+        progressed = []
+        for s, chunk, row_i in meta:
+            s.prefill_pos += chunk
+            progressed.append((s, s.prefill_pos))
+            if s.prefill_pos >= len(s.kv_prompt):
+                completions.append((s, row_i))
+        for row_i, i, s in decode_rows:
+            self.seq_lens[i] += 1
+        # rides the prefill-pending fetch (drained THIS step, so no decode
+        # block can dispatch against the stale device carry in between)
+        self._pending_prefill.append({
+            "first": first_dev, "done": completions,
+            "progressed": progressed, "decode": decode_rows,
+        })
+        self.mixed_steps += 1
+        self.mixed_padded_tokens += N_pad
+        self.mixed_real_tokens += sum(ch for _, ch, _ in meta) + n_rows_decode
+        return True
+
+    def _lane_upload(self, active: List[int]):
+        """Host arrays for a carry reset/patch: lanes that are not
+        decode-active get SCRATCH table rows and zeroed carry — inside a
+        fused block inactive lanes still advance and write KV, and a scratch
+        row routes all such writes to the scratch page by construction
+        (never into a prefilling slot's, possibly shared, pages)."""
+        B = self.config.max_num_seqs
+        mask = np.zeros((B,), bool)
+        mask[active] = True
+        tokens = np.where(mask, self.tokens, 0).astype(np.int32)
+        positions = np.where(mask, self.seq_lens - 1, 0).astype(np.int32)
+        seq_lens = np.where(mask, self.seq_lens, 0).astype(np.int32)
+        tables = np.where(
+            mask[:, None], self.page_tables, SCRATCH_PAGE
+        ).astype(np.int32)
+        pens = np.stack([self.presence, self.frequency, self.repetition], axis=1)
+        return (
+            tokens, positions, seq_lens, tables, self.temps.copy(),
+            self.top_ks.copy(), self.top_ps.copy(), self.seeds.copy(), pens,
+            self.recent.copy(),
+        )
+
+    async def _dispatch_decode(self) -> bool:
+        cfg = self.config
+        # prefill-priority depth cap: with dispatchable prefill work, keep
+        # only ONE speculative block in flight — a new arrival's prefill
+        # queues behind every in-flight block on the device stream, so
+        # depth-2 doubles its queueing delay (TTFT) to buy decode overlap
+        # it regains once the queue drains
+        depth = 1 if self._prefill_work_pending() else 2
+        if len(self._inflight) >= depth:
+            return False
+        if not self._carry_valid and self._inflight:
+            return False  # drain in-flight blocks before a state reset
+        active = self._active_decode_indices()
+        if not active:
+            return False
+        active = self._grow_pages_for_block(active)
+        if not active:
+            return False
+        if not self._carry_valid and self._inflight:
+            # growth/preemption invalidated the carry mid-pipeline: drain the
+            # in-flight block first (its results update host state), THEN a
+            # fresh upload is consistent
+            return False
+
+        B = cfg.max_num_seqs
+        K = cfg.decode_block_steps
+        if not self._carry_valid:
+            # TAKE the dirt before building the upload: the dispatch below
+            # suspends, and dirt added during that await must ride the next
+            # step's patch, not be cleared with this one
+            self._dirty_lanes.clear()
+            self._dirty_tables.clear()
+            await self._run_on_device(
+                partial(self._dev_reset, *self._lane_upload(active)), tag="reset",
+            )
+            self._carry_valid = True
+        elif self._dirty_lanes or self._dirty_tables:
+            # per-lane patch: update just the changed lanes on device — no
+            # pipeline drain, no full re-upload. Untouched lanes keep their
+            # (newer) device carry; table_mask covers lanes whose page table
+            # grew but whose carry must be preserved.
+            dirty_lanes, dirty_tables = self._dirty_lanes, self._dirty_tables
+            self._dirty_lanes, self._dirty_tables = set(), set()
+            lane_mask = np.zeros((B,), bool)
+            for i in dirty_lanes:
+                lane_mask[i] = True
+            table_mask = lane_mask.copy()
+            for i in dirty_tables:
+                table_mask[i] = True
+            await self._run_on_device(
+                partial(self._dev_patch, lane_mask, table_mask,
+                        *self._lane_upload(active)),
+                tag="patch",
+            )
+
+        all_greedy = all(self.temps[i] <= 0.0 for i in active)
+        no_penalties = all(
+            self.presence[i] == 0.0 and self.frequency[i] == 0.0
+            and self.repetition[i] == 1.0 for i in active
+        )
+        toks_dev = await self._run_on_device(
+            partial(self._dev_block, all_greedy, no_penalties),
+            tag="block", shape=(K, B),
+        )
+        adv = cfg.block_advance
+        self._last_decode_shape = (B * adv, len(active) * adv)
+        self._inflight.append({
+            "lanes": [(i, self.slots[i]) for i in active], "toks": toks_dev,
+        })
+        # advance host bookkeeping by the block's advance for the NEXT
+        # block's page growth
+        for i in active:
+            self.seq_lens[i] += adv
+        return True
+
+    async def _fetch_and_process(self, fetch_block: bool) -> bool:
+        """One host read: fetch pending prefill first-tokens + the oldest
+        in-flight decode block together, then run host bookkeeping/emission."""
+        want_block = self._inflight[0] if (fetch_block and self._inflight) else None
+        prefills = self._pending_prefill
+        self._pending_prefill = []
+        if want_block is None and not prefills:
+            return False
+        fetched = await self._fetch(
+            [p["first"] for p in prefills]
+            + [want_block["toks"] if want_block is not None else None]
+        )
+        firsts_np, toks_np = fetched[:-1], fetched[-1]
+
+        for p, first in zip(prefills, firsts_np):
+            for slot, upto in p.get("progressed", []):
+                if slot.slot_idx < 0 or self.slots[slot.slot_idx] is not slot:
+                    continue
+                if slot.prefill_pos < len(slot.kv_prompt):
+                    # mid-prompt: commit the chunk's full pages now so
+                    # concurrent same-prefix requests can skip ahead
+                    self._commit_blocks(slot, upto_tokens=upto)
+            first_toks, first_lps, first_tids, first_tlps = first
+            for slot, lane in p["done"]:
+                if slot.slot_idx < 0 or self.slots[slot.slot_idx] is not slot:
+                    continue  # released meanwhile (cancel)
+                self._finish_prefill(
+                    slot, int(first_toks[lane]), float(first_lps[lane]),
+                    self._top_entry(slot, first_tids[lane], first_tlps[lane]),
+                )
+            # mixed-step decode rows: each active lane advanced ONE token
+            # inside the fused dispatch — emit it and re-sync the (stale)
+            # device decode carry for this lane via the patch path
+            for row, i, slot_ref in p.get("decode", []):
+                slot = self.slots[i]
+                if slot is None or slot is not slot_ref:
+                    continue  # released/preempted meanwhile
+                if slot.done or slot.context.is_stopped():
+                    self._emit_finish(slot, "cancelled")
+                    self._release_slot(slot)
+                    continue
+                tok = int(first_toks[row])
+                slot.seq.append(tok)
+                slot.generated += 1
+                slot.last_token = tok
+                self.tokens[i] = tok
+                lp = float(first_lps[row])
+                top = self._top_entry(slot, first_tids[row], first_tlps[row])
+                self._emit_tokens(
+                    slot, [tok],
+                    [lp] if slot.want_logprobs else [],
+                    [top] if top else [],
+                )
+                finish = self._finish_reason(slot, tok)
+                if finish:
+                    self._emit_finish(slot, finish)
+                    self._release_slot(slot)
+                else:
+                    self._fill_recent(i, slot)
+                    self._mark_lane_dirty(i)
+                    self._maybe_commit_incremental(slot)
+
+        if want_block is not None:
+            self._inflight.popleft()
+            self._process_block(want_block["lanes"], *toks_np)
+        return True
+
+    def _process_block(self, lanes: List[tuple], toks: np.ndarray,
+                       lps: np.ndarray, tids: np.ndarray,
+                       tlps: np.ndarray):
+        """Emit a fetched K-step block: per lane, append/emit tokens until a
+        stop condition; excess speculated tokens are discarded. Lanes whose
+        slot was preempted/released (or re-assigned) meanwhile are skipped —
+        their speculated tokens were never emitted, so no client ever sees
+        them."""
+        K = toks.shape[0]
+        for i, slot_ref in lanes:
+            slot = self.slots[i]
+            if slot is None or slot is not slot_ref:
+                continue
+            if slot.done or slot.context.is_stopped():
+                self._emit_finish(slot, "cancelled")
+                self._release_slot(slot)
+                continue
+            # the whole K-step block lands in ONE delta batch on the slot
+            # queue. A mid-block stop/eos truncates host-side — tokens past
+            # it were speculated by the device and are never client-visible.
+            batch: List[int] = []
+            batch_lps: List[float] = []
+            batch_tops: List[Optional[dict]] = []
+            finish = None
+            for k in range(K):
+                tok = int(toks[k, i])
+                slot.seq.append(tok)
+                slot.generated += 1
+                slot.last_token = tok
+                self.tokens[i] = tok
+                batch.append(tok)
+                if slot.want_logprobs:
+                    batch_lps.append(float(lps[k, i]))
+                    batch_tops.append(
+                        self._top_entry(slot, tids[k, i], tlps[k, i])
+                    )
+                finish = self._finish_reason(slot, tok)
+                if finish:
+                    break
+            self._emit_tokens(slot, batch, batch_lps, batch_tops)
+            if finish:
+                self._emit_finish(slot, finish)
+                self._release_slot(slot)
+            else:
+                self._maybe_commit_incremental(slot)
+
+    def _fail_all(self, message: str):
+        """A step raised: the batch state is unreliable. Error every live
+        request so callers can retry rather than hang."""
+        self._inflight.clear()
+        self._pending_prefill = []
+        self._carry_valid = False
+        self._dirty_lanes.clear()
+        self._dirty_tables.clear()
+        self.scheduler.reset()
+        for slot in list(self.slots) + self._waiting:
+            if slot is None:
+                continue
+            if not slot.done:
+                slot.queue.put_nowait(Annotated.from_error(message).to_dict())
+                slot.queue.put_nowait(None)
+                slot.done = True
+            if slot.slot_idx >= 0:
+                self._release_slot(slot)
+        self._waiting = []
+
+    # -- emission / teardown --------------------------------------------- #
+
+    def _emit_token(self, slot: _Slot, token: int,
+                    lp: Optional[float] = None,
+                    top: Optional[dict] = None):
+        if slot.done:
+            return
+        out = LLMEngineOutput(
+            token_ids=[token],
+            log_probs=[lp] if (slot.want_logprobs and lp is not None) else None,
+            top_logprobs=[top] if top else None,
+        ).to_dict()
+        slot.queue.put_nowait(Annotated(data=out).to_dict())
+
+    def _emit_tokens(self, slot: _Slot, tokens: List[int],
+                     lps: List[float], tops: List[Optional[dict]]):
+        """Emit a decode block's accepted tokens as ONE delta batch.
+        `lps`/`tops` are 1:1 with `tokens` when the request asked for
+        logprobs, else empty."""
+        if slot.done or not tokens:
+            return
+        out = LLMEngineOutput(
+            token_ids=tokens,
+            log_probs=lps if (slot.want_logprobs and lps) else None,
+            top_logprobs=tops if any(tops) else None,
+        ).to_dict()
+        slot.queue.put_nowait(Annotated(data=out).to_dict())
+        self.emit_batches += 1
+        self.emit_tokens += len(tokens)
+
+    def _finish_reason(self, slot: _Slot, token: int) -> Optional[str]:
+        """Host-side stop check for one generated token (eos / stop token
+        / length) — pure, so block loops can truncate before emitting."""
+        if (
+            not slot.ignore_eos
+            and slot.generated >= slot.min_tokens
+            and (token in slot.eos_ids or token in slot.stop_token_ids)
+        ):
+            return "eos"
+        if slot.generated >= slot.max_tokens:
+            return "length"
+        return None
+
+    def _maybe_finish(self, slot: _Slot, token: int):
+        finish = self._finish_reason(slot, token)
+        if finish:
+            self._emit_finish(slot, finish)
+            self._release_slot(slot)
+
+    def _emit_finish(self, slot: _Slot, reason: str):
+        if not slot.done:
+            out = LLMEngineOutput(token_ids=[], finish_reason=reason).to_dict()
+            slot.queue.put_nowait(Annotated(data=out).to_dict())
+            slot.queue.put_nowait(None)
+            slot.done = True
+
+    def _release_slot(self, slot: _Slot):
+        if slot.slot_idx >= 0 and self.slots[slot.slot_idx] is slot:
+            self.scheduler.on_release(slot)
+            # commit any full generated blocks before release so decode KV is
+            # reusable (conversation prefix reuse / cheap preemption resume)
+            self._commit_generated_blocks(slot)
+            # releasing while blocks are in flight is safe: in-flight writes
+            # for this lane land strictly AFTER its last committed position
+            # (speculation starts past the fetched tokens), i.e. only on
+            # free tail pages — and any reuse of those pages is re-written
+            # by a later-dispatched (stream-ordered) prefill
+            self.allocator.release(slot.pages, slot.committed_hashes)
+            idx = slot.slot_idx
+            self.slots[idx] = None
+            self._free_slots.append(idx)
+            self.page_tables[idx, :] = SCRATCH_PAGE
+            self.seq_lens[idx] = 0
+            slot.slot_idx = -1
+            slot.pages = []
+            self._mark_lane_dirty(idx)
+
+    def _maybe_commit_incremental(self, slot: _Slot):
+        """Step-loop arm of the generated-block commit: when a decode block
+        just filled a page, publish it NOW — same _commit_generated_blocks
+        spelling as release, so the two arms commit identical blocks."""
+        if (
+            not self._incremental_commit
+            or slot.generated == 0
+            or slot.slot_idx < 0
+        ):
+            return
+        written = max(len(slot.seq.tokens) - 1, 0)
+        if written // self.config.page_size > len(slot.committed_hashes):
+            self._commit_generated_blocks(slot)
+
+    def _commit_generated_blocks(self, slot: _Slot):
+        if slot.generated == 0:
+            # never produced a token: its valid pages are exactly its
+            # incrementally-confirmed chunks (already in committed_hashes).
+            # Committing past that — e.g. on a mid-prefill cancel — would
+            # publish unwritten pages into the prefix cache.
+            return
+        hashes = slot.seq.block_hashes()
+        n_known = len(slot.committed_hashes)
+        # only commit blocks whose KV is fully WRITTEN: the pending (last
+        # sampled) token's KV never is — a block containing it would poison
+        # the prefix cache with one missing position
+        written = max(len(slot.seq.tokens) - 1, 0)
+        full_written = written // self.config.page_size
+        max_by_pages = min(full_written, len(slot.pages))
+        new_hashes = hashes[n_known:max_by_pages]
+        if new_hashes:
+            pages = slot.pages[n_known : n_known + len(new_hashes)]
+            token_blocks = [
+                b.tokens for b in slot.seq.blocks[n_known : n_known + len(new_hashes)]
+            ]
+            parent = slot.committed_hashes[-1] if slot.committed_hashes else None
+            self.allocator.commit_hashes(pages, new_hashes, token_blocks, parent)
+            slot.committed_hashes.extend(new_hashes)
+
+
+MODEL_REGISTRY = {
+    "tiny": llama.LlamaConfig.tiny,
+    "llama3-3b": llama.LlamaConfig.llama3_2_3b,
+    "llama3-8b": llama.LlamaConfig.llama3_8b,
+    "llama3-70b": llama.LlamaConfig.llama3_70b,
+}
+
+
+def _resolve_model(name: str) -> llama.LlamaConfig:
+    if name not in MODEL_REGISTRY:
+        raise ValueError(
+            f"unknown model {name!r}; the port knows {sorted(MODEL_REGISTRY)}"
+        )
+    return MODEL_REGISTRY[name]()

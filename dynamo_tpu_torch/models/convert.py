@@ -1,0 +1,36 @@
+"""Parameters of the JAX reference as parameters of this port.
+
+`params_from_jax` takes the reference's `init_params` pytree with every
+leaf converted to a numpy array (stacked `layers` leaves `[L, in, out]`,
+`lm_head=None` under tied embeddings) and returns the port's parameter
+dictionary, which keeps the same tree and the same `[in, out]` weight
+orientation. With it both packages compute on the same weights in tests.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def _leaf(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.kind not in "fiu":  # e.g. ml_dtypes bfloat16: widen first
+        arr = arr.astype(np.float32)
+    t = torch.from_numpy(np.array(arr, order="C", copy=True))  # own its memory
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def params_from_jax(tree: Dict[str, Any], dtype: Optional[torch.dtype] = None,
+                    device="cuda") -> Dict[str, Any]:
+    """numpy pytree of the reference -> the port's parameters on `device`
+    (cast to `dtype` when given)."""
+    return {
+        "embed": _leaf(tree["embed"], dtype, device),
+        "layers": {k: _leaf(v, dtype, device) for k, v in tree["layers"].items()},
+        "final_norm": _leaf(tree["final_norm"], dtype, device),
+        "lm_head": None if tree.get("lm_head") is None
+        else _leaf(tree["lm_head"], dtype, device),
+    }

@@ -1,0 +1,122 @@
+"""Import hygiene of the PyTorch/CUDA port.
+
+`dynamo_tpu_torch` and `chip_smoke.py` import torch, numpy and the standard
+library only: never jax, never anything of the JAX package `dynamo_tpu`,
+never another third-party package (Triton, if ever used, only inside a
+launching function). Importing the package on a machine without a CUDA
+device or nvcc succeeds and builds nothing.
+"""
+
+import ast
+import importlib
+import pkgutil
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "dynamo_tpu_torch"
+ALLOWED_THIRD_PARTY = {"torch", "numpy"}
+LAZY_ONLY = {"triton"}  # allowed inside a function body, never at module level
+STDLIB = set(sys.stdlib_module_names)
+
+
+def _sources():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    return files
+
+
+def _imports(tree):
+    """(top-level module name, relative level, at module level?) per import."""
+    out = []
+
+    def visit(node, top):
+        for child in ast.iter_child_nodes(node):
+            inner = top and not isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            if isinstance(child, ast.Import):
+                out.extend((a.name.split(".")[0], 0, top) for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                out.append(((child.module or "").split(".")[0], child.level, top))
+            visit(child, inner)
+
+    visit(tree, True)
+    return out
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_module_imports_only_torch_numpy_stdlib(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, level, at_top in _imports(tree):
+        if level:  # relative import: stays inside dynamo_tpu_torch
+            assert path != ROOT / "chip_smoke.py"
+            continue
+        assert name not in ("jax", "jaxlib", "flax"), f"{path}: imports {name}"
+        assert name != "dynamo_tpu", f"{path}: imports the JAX package"
+        if name == "dynamo_tpu_torch" or name in STDLIB or name in ALLOWED_THIRD_PARTY:
+            continue
+        assert name in LAZY_ONLY and not at_top, f"{path}: imports {name}"
+
+
+def test_no_source_names_the_reference_package_in_code():
+    """String-built imports would dodge the AST walk: no `import_module` or
+    `__import__` call in the port."""
+    for path in _sources():
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call):
+                fn = node.func
+                name = getattr(fn, "id", None) or getattr(fn, "attr", None)
+                assert name not in ("import_module", "__import__"), path
+
+
+def test_importing_every_module_builds_nothing_and_pulls_no_jax():
+    """Run in a fresh interpreter so this test file's own imports (and other
+    tests' jax) do not mask what the package itself imports."""
+    import subprocess
+
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "import dynamo_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "from dynamo_tpu_torch.ops import _build\n"
+        "assert _build._lib is None and _build.build_seconds is None\n"
+        "print(len(names))\n"
+    )
+    before = set(p.name for p in (PKG / "build").glob("*")) if (PKG / "build").exists() else set()
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 25
+    after = set(p.name for p in (PKG / "build").glob("*")) if (PKG / "build").exists() else set()
+    assert after == before
+
+
+def test_walk_finds_every_subpackage():
+    names = {m.name for m in pkgutil.walk_packages([str(PKG)], "dynamo_tpu_torch.")}
+    for expected in ("engine.engine", "engine.scheduler.policy", "ops.paged_attention",
+                     "ops.hopper_ragged_attention", "models.llama", "llm.tokens",
+                     "llm.protocols.common", "runtime.engine"):
+        assert f"dynamo_tpu_torch.{expected}" in names
+    importlib.import_module("dynamo_tpu_torch.ops._build")
+
+
+def test_cuda_tensor_dispatch_has_no_cpu_fallback():
+    """The dispatchers choose by the tensor's device alone; the kernel
+    wrappers refuse CPU tensors instead of computing something else."""
+    import torch
+
+    from dynamo_tpu_torch.ops import hopper_paged_attention as hp
+
+    q = torch.zeros(1, 4, 16)
+    kv = torch.zeros(4, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        hp.paged_attention_decode_hopper(
+            q, kv, kv, torch.zeros(1, 2, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32))
+    assert hp.launch_count == 0
