@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
-Builds the Hopper kernels from dynamo_tpu_torch/csrc, holds each against its
-plain PyTorch version on the card, holds the three model forwards against
-the same forwards fed the plain attention, then serves a few requests
-through `TorchEngine.generate` at the full width of Llama-3.2-3B (random
-weights from --seed) and checks that the main path went through the
-kernels. Every phase prints one JSON line; any failure raises (non-zero
-exit). The last line of output is
+Builds the Hopper kernels from dynamo_tpu_torch/csrc, holds each kernel in
+each KV format (bf16/f32 pages, int8, int4) against its plain PyTorch
+version on the card, holds the card's quantized page writes to the CPU's
+bit for bit, holds the model forwards against the same forwards fed the
+plain attention, then serves a few requests through `TorchEngine.generate`
+at the full width of Llama-3.2-3B (random weights from --seed) in each
+decode-pool mode and KV format, and checks that every served path went
+through the kernels. Every phase prints one JSON line; any failure raises
+(non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
 """
@@ -35,11 +37,14 @@ from dynamo_tpu_torch.engine import EngineConfig, TorchEngine  # noqa: E402
 from dynamo_tpu_torch.llm.protocols import PreprocessedRequest  # noqa: E402
 from dynamo_tpu_torch.llm.tokenizers import ByteTokenizer  # noqa: E402
 from dynamo_tpu_torch.models import llama  # noqa: E402
+from dynamo_tpu_torch.models.quant import QMAX, pack_int4  # noqa: E402
 from dynamo_tpu_torch.ops import (  # noqa: E402
     _build,
     hopper_paged_attention,
+    hopper_paged_attention_local,
     hopper_prefill_attention,
     hopper_ragged_attention,
+    kv_quant,
     paged_attention as pa,
 )
 from dynamo_tpu_torch.runtime.engine import Context  # noqa: E402
@@ -64,24 +69,49 @@ TOL_FORWARD_REL = 3e-2
 LAYERS = 28  # Llama-3.2-3B's own depth
 MAX_TOKENS = 64  # output tokens of every served request
 STAGGER_S = 0.08  # gap between request arrivals in the serve phase
+FORMATS = ("none", "int8", "int4")
+LOCAL_K, LOCAL_STEP = 8, 7  # the local kernel's timed shape: a full K=8 block
 
 KERNELS = {
     "paged_decode": {
         "module": hopper_paged_attention,
         "source": "dynamo_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "dynamo_tpu/ops/pallas_paged_attention.py:514",
+        "replaces": {"none": "dynamo_tpu/ops/pallas_paged_attention.py:514",
+                     "quant": "dynamo_tpu/ops/pallas_paged_attention.py:40"},
+    },
+    "paged_decode_local": {
+        "module": hopper_paged_attention_local,
+        "source": "dynamo_tpu_torch/csrc/paged_decode_local.cu",
+        "replaces": {"none": "dynamo_tpu/ops/pallas_paged_attention.py:422",
+                     "quant": "dynamo_tpu/ops/pallas_paged_attention.py:40"},
     },
     "prefill_attention": {
         "module": hopper_prefill_attention,
         "source": "dynamo_tpu_torch/csrc/prefill_attention.cu",
-        "replaces": "dynamo_tpu/ops/pallas_prefill_attention.py:250",
+        # the reference has no quantized prefill kernel: the quantized
+        # variant extends this one (a port-side addition)
+        "replaces": {"none": "dynamo_tpu/ops/pallas_prefill_attention.py:250",
+                     "quant": "dynamo_tpu/ops/pallas_prefill_attention.py:250"},
     },
     "ragged_attention": {
         "module": hopper_ragged_attention,
         "source": "dynamo_tpu_torch/csrc/ragged_attention.cu",
-        "replaces": "dynamo_tpu/ops/pallas_ragged_attention.py:336",
+        "replaces": {"none": "dynamo_tpu/ops/pallas_ragged_attention.py:336",
+                     "quant": "dynamo_tpu/ops/pallas_ragged_attention.py:142"},
     },
 }
+
+# served paths: (phase, decode_pool_mode, kv_quant, layers). The first three
+# are the model's full depth; the last three cover the remaining (decode
+# kernel, format) pairs at a cut depth.
+SERVE_PHASES = [
+    ("serve", "scatter", "none", LAYERS),
+    ("serve_local_int8", "local", "int8", LAYERS),
+    ("serve_scatter_int4", "scatter", "int4", LAYERS),
+    ("serve_local_none", "local", "none", 4),
+    ("serve_scatter_int8", "scatter", "int8", 4),
+    ("serve_local_int4", "local", "int4", 4),
+]
 
 
 def emit(phase: str, **fields) -> None:
@@ -131,6 +161,43 @@ def make_pool(rng, pages, ps, KH, D, dtype):
     return k, v
 
 
+def quantize_layer(x: torch.Tensor, fmt: str):
+    """A per-layer pool [pages, ps, KH, D] in `fmt`: the tensor itself, or
+    a QuantKV with one scale per page and head (amax / qmax) and the values
+    rounded to it — the layout the engine's writes produce."""
+    if fmt == "none":
+        return x
+    bits = kv_quant.kv_quant_bits(fmt)
+    x32 = x.float()
+    s = x32.abs().amax(dim=(1, 3)) / QMAX[bits]  # [pages, KH]
+    q = torch.round(x32 / s.clamp(min=1e-30)[:, None, :, None]).clamp(-QMAX[bits], QMAX[bits])
+    q = q.to(torch.int8)
+    if bits == 4:
+        q = pack_int4(q, axis=1)
+    return kv_quant.QuantKV(q.contiguous(), s.contiguous(), bits, x.shape[1])
+
+
+def pool_in(k, v, fmt):
+    return quantize_layer(k, fmt), quantize_layer(v, fmt)
+
+
+def dense_ctx(layer, tables, dtype):
+    """[rows, KH, S, D] context gathered (and dequantized) for a library call."""
+    g = kv_quant.gather_dequant(layer, tables, dtype)  # [rows, P, ps, KH, D]
+    R, P, ps, KH, D = g.shape
+    return g.reshape(R, P * ps, KH, D).transpose(1, 2).contiguous()
+
+
+def kv_bytes_per_token(KH, D, fmt, elem=2) -> float:
+    """K + V bytes one context token occupies in a pool of format `fmt`."""
+    per = {"none": elem, "int8": 1, "int4": 0.5}[fmt]
+    return 2 * KH * D * per
+
+
+def scale_bytes(pages_read: float, KH: int, fmt: str) -> float:
+    return 0.0 if fmt == "none" else 2 * 4 * KH * pages_read
+
+
 def rand_tables(rng, rows, P, pages):
     # random physical pages (>= 1: page 0 is the scratch page), with repeats
     return torch.from_numpy(
@@ -151,6 +218,14 @@ def sdpa_ms(q, k, v, mask) -> float:
     return time_ms(lambda: f(q, k, v, attn_mask=mask), warm=2, reps=10)
 
 
+def check_full(name, fmt, out, ref):
+    torch.cuda.synchronize()
+    err, rel = max_err(out, ref), row_rel_err(out, ref)
+    assert err <= TOL_BF16_FULL, f"{name}[{fmt}] bf16 full: {err}"
+    assert rel <= TOL_BF16_ROW_REL, f"{name}[{fmt}] bf16 full, per row: {rel}"
+    return err, rel
+
+
 # ---------------------------------------------------------------------- #
 # phase: kernels
 # ---------------------------------------------------------------------- #
@@ -166,40 +241,105 @@ def check_decode(rng, measured):
     # tiny f32: GQA 2, page-straddling lengths, an empty lane
     q, k, v, tab, lens = decode_case(
         rng, 5, 4, 2, 16, 8, 6, 40, torch.float32, [1, 8, 9, 37, 0])
-    err = max_err(pa.paged_attention_decode(q, k, v, tab, lens),
-                  pa.paged_attention_decode_plain(q, k, v, tab, lens))
-    torch.cuda.synchronize()
-    assert err <= TOL_F32_TINY, f"paged_decode f32 tiny: {err}"
+    tiny = {}
+    for fmt in FORMATS:
+        kk, vv = pool_in(k, v, fmt)
+        tiny[fmt] = max_err(pa.paged_attention_decode(q, kk, vv, tab, lens),
+                            pa.paged_attention_decode_plain(q, kk, vv, tab, lens))
+        torch.cuda.synchronize()
+        assert tiny[fmt] <= TOL_F32_TINY, f"paged_decode[{fmt}] f32 tiny: {tiny[fmt]}"
     # full width bf16: the engine's decode shape (64 lanes, 128-entry tables)
     B, H, KH, D, ps, P = 64, 24, 8, 128, 64, 128
     lens = rng.integers(1, 2049, size=B)
     lens[:4] = [0, 1, 64, 65]
     q, k, v, tab, lens_t = decode_case(rng, B, H, KH, D, ps, P, 2049, torch.bfloat16, lens)
-    out = pa.paged_attention_decode(q, k, v, tab, lens_t)
-    ref = pa.paged_attention_decode_plain(q, k, v, tab, lens_t)
-    torch.cuda.synchronize()
-    err_full = max_err(out, ref)
-    rel_full = row_rel_err(out, ref)
-    assert err_full <= TOL_BF16_FULL, f"paged_decode bf16 full: {err_full}"
-    assert rel_full <= TOL_BF16_ROW_REL, f"paged_decode bf16 full, per row: {rel_full}"
     ctx = np.maximum(lens, 1).astype(np.float64)
-    bytes_moved = ctx.sum() * KH * D * 2 * 2 + 2 * q.numel() * 2
-    flops = 4.0 * H * D * ctx.sum()
-    b_ms, b_by = bound(bytes_moved, flops)
-    # library yardstick: SDPA over the dense gathered context
+    pages_read = np.ceil(ctx / ps).sum()
     S = P * ps
-    kd = k[tab.long()].reshape(B, S, KH, D).transpose(1, 2).contiguous()
-    vd = v[tab.long()].reshape(B, S, KH, D).transpose(1, 2).contiguous()
     mask = (torch.arange(S, device=DEV)[None, :] < lens_t.clamp(min=1)[:, None])[:, None, None, :]
-    lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
-    del kd, vd
-    measured["paged_decode"] = {
-        "max_abs_err": err_full, "max_row_rel_err": rel_full, "max_abs_err_f32_tiny": err,
-        "ms": time_ms(lambda: pa.paged_attention_decode(q, k, v, tab, lens_t)),
-        "plain_ms": time_ms(lambda: pa.paged_attention_decode_plain(q, k, v, tab, lens_t), 1, 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-        "shape": f"B={B} H={H} KH={KH} D={D} ps={ps} tables=[{B},{P}] mean_len={ctx.mean():.0f}",
-    }
+    for fmt in FORMATS:
+        kk, vv = pool_in(k, v, fmt)
+        out = pa.paged_attention_decode(q, kk, vv, tab, lens_t)
+        ref = pa.paged_attention_decode_plain(q, kk, vv, tab, lens_t)
+        err_full, rel_full = check_full("paged_decode", fmt, out, ref)
+        bytes_moved = (ctx.sum() * kv_bytes_per_token(KH, D, fmt)
+                       + scale_bytes(pages_read, KH, fmt) + 2 * q.numel() * 2)
+        b_ms, b_by = bound(bytes_moved, 4.0 * H * D * ctx.sum())
+        # library yardstick: SDPA over the dense gathered (dequantized) context
+        kd, vd = dense_ctx(kk, tab, q.dtype), dense_ctx(vv, tab, q.dtype)
+        lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
+        del kd, vd
+        measured[("paged_decode", fmt)] = {
+            "max_abs_err": err_full, "max_row_rel_err": rel_full,
+            "max_abs_err_f32_tiny": tiny[fmt],
+            "ms": time_ms(lambda: pa.paged_attention_decode(q, kk, vv, tab, lens_t)),
+            "plain_ms": time_ms(
+                lambda: pa.paged_attention_decode_plain(q, kk, vv, tab, lens_t), 1, 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "shape": f"B={B} H={H} KH={KH} D={D} ps={ps} tables=[{B},{P}] mean_len={ctx.mean():.0f}",
+        }
+
+
+def check_decode_local(rng, measured):
+    # tiny f32: GQA 2, page-straddling pool lengths, two empty pools, K=4
+    # with entries past step_idx holding garbage that must not be read
+    B, H, KH, D = 5, 4, 2, 16
+    q, k, v, tab, pool = decode_case(rng, B, H, KH, D, 8, 6, 40, torch.float32,
+                                     [0, 7, 8, 36, 0])
+    loc_k = torch.randn((B, 4, KH, D), device=DEV)
+    loc_v = torch.randn((B, 4, KH, D), device=DEV)
+    loc_k[:, 3], loc_v[:, 3] = 1e4, 1e4
+    step = i32([2])
+    tiny = {}
+    for fmt in FORMATS:
+        kk, vv = pool_in(k, v, fmt)
+        args = (q, kk, vv, tab, pool, loc_k, loc_v, step)
+        tiny[fmt] = max_err(pa.paged_attention_decode_mixed(*args),
+                            pa.paged_attention_decode_mixed_plain(*args))
+        torch.cuda.synchronize()
+        assert tiny[fmt] <= TOL_F32_TINY, f"paged_decode_local[{fmt}] f32 tiny: {tiny[fmt]}"
+    # full width bf16: the decode shape, K=8 local rows, the block's last step
+    B, H, KH, D, ps, P, K = 64, 24, 8, 128, 64, 128, LOCAL_K
+    lens = rng.integers(1, 2049, size=B)
+    lens[:4] = [1, 2, 64, 65]
+    pool_lens = np.maximum(lens - 1, 0)
+    q, k, v, tab, pool_t = decode_case(rng, B, H, KH, D, ps, P, 2049, torch.bfloat16,
+                                       pool_lens)
+    loc_k = torch.randn((B, K, KH, D), device=DEV).to(torch.bfloat16)
+    loc_v = torch.randn((B, K, KH, D), device=DEV).to(torch.bfloat16)
+    step = i32([LOCAL_STEP])
+    n_loc = LOCAL_STEP + 1
+    pages_read = np.ceil(pool_lens / ps).sum()
+    S = P * ps
+    mask = torch.cat([
+        torch.arange(S, device=DEV)[None, :] < pool_t[:, None],
+        torch.ones((B, K), dtype=torch.bool, device=DEV),
+    ], dim=1)[:, None, None, :]
+    for fmt in FORMATS:
+        kk, vv = pool_in(k, v, fmt)
+        args = (q, kk, vv, tab, pool_t, loc_k, loc_v, step)
+        out = pa.paged_attention_decode_mixed(*args)
+        ref = pa.paged_attention_decode_mixed_plain(*args)
+        err_full, rel_full = check_full("paged_decode_local", fmt, out, ref)
+        keys = pool_lens.sum() + B * n_loc
+        bytes_moved = (pool_lens.sum() * kv_bytes_per_token(KH, D, fmt)
+                       + scale_bytes(pages_read, KH, fmt)
+                       + B * n_loc * kv_bytes_per_token(KH, D, "none")
+                       + 2 * q.numel() * 2)
+        b_ms, b_by = bound(bytes_moved, 4.0 * H * D * keys)
+        kd = torch.cat([dense_ctx(kk, tab, q.dtype), loc_k.transpose(1, 2)], dim=2).contiguous()
+        vd = torch.cat([dense_ctx(vv, tab, q.dtype), loc_v.transpose(1, 2)], dim=2).contiguous()
+        lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
+        del kd, vd
+        measured[("paged_decode_local", fmt)] = {
+            "max_abs_err": err_full, "max_row_rel_err": rel_full,
+            "max_abs_err_f32_tiny": tiny[fmt],
+            "ms": time_ms(lambda: pa.paged_attention_decode_mixed(*args)),
+            "plain_ms": time_ms(lambda: pa.paged_attention_decode_mixed_plain(*args), 1, 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "shape": (f"B={B} H={H} KH={KH} D={D} ps={ps} tables=[{B},{P}] "
+                      f"mean_pool_len={pool_lens.mean():.0f} K={K} step={LOCAL_STEP}"),
+        }
 
 
 def prefill_case(rng, B, T, H, KH, D, ps, P, pages, dtype, starts, reals):
@@ -213,51 +353,55 @@ def prefill_case(rng, B, T, H, KH, D, ps, P, pages, dtype, starts, reals):
 
 def check_prefill(rng, measured):
     # tiny f32: history + chunk, page-straddling, a padded tail, a dummy lane
-    args = prefill_case(rng, 3, 24, 4, 2, 16, 8, 9, 40, torch.float32,
-                        starts=[0, 13, 0], reals=[24, 17, 1])
-    err = max_err(pa.prefill_attention_batched(*args),
-                  pa.prefill_attention_batched_plain(*args))
-    torch.cuda.synchronize()
-    assert err <= TOL_F32_TINY, f"prefill_attention f32 tiny: {err}"
+    q, k, v, *rest = prefill_case(rng, 3, 24, 4, 2, 16, 8, 9, 40, torch.float32,
+                                  starts=[0, 13, 0], reals=[24, 17, 1])
+    tiny = {}
+    for fmt in FORMATS:
+        kk, vv = pool_in(k, v, fmt)
+        tiny[fmt] = max_err(pa.prefill_attention_batched(q, kk, vv, *rest),
+                            pa.prefill_attention_batched_plain(q, kk, vv, *rest))
+        torch.cuda.synchronize()
+        assert tiny[fmt] <= TOL_F32_TINY, f"prefill_attention[{fmt}] f32 tiny: {tiny[fmt]}"
     H, KH, D, ps = 24, 8, 128, 64
-    errs, rels = {}, {}
     # the engine's batch shape: 8 lanes x bucket 128, varied history
     a8 = prefill_case(rng, 8, 128, H, KH, D, ps, 17, 2049, torch.bfloat16,
                       starts=[0, 64, 100, 256, 512, 777, 900, 0],
                       reals=[128, 128, 90, 128, 128, 33, 128, 1])
-    out, ref = pa.prefill_attention_batched(*a8), pa.prefill_attention_batched_plain(*a8)
-    errs["B8_T128"], rels["B8_T128"] = max_err(out, ref), row_rel_err(out, ref)
     # the lone-arrival shape: 1 lane x bucket 1024, second chunk of a prompt
     B, T, P, start = 1, 1024, 33, 1024
     a1 = prefill_case(rng, B, T, H, KH, D, ps, P, 2049, torch.bfloat16,
                       starts=[start], reals=[T])
     q, k, v, pos, tab, totals, starts = a1
-    out, ref = pa.prefill_attention_batched(*a1), pa.prefill_attention_batched_plain(*a1)
-    errs["B1_T1024"], rels["B1_T1024"] = max_err(out, ref), row_rel_err(out, ref)
-    torch.cuda.synchronize()
-    del out, ref
-    err_full, rel_full = max(errs.values()), max(rels.values())
-    assert err_full <= TOL_BF16_FULL, f"prefill_attention bf16 full: {errs}"
-    assert rel_full <= TOL_BF16_ROW_REL, f"prefill_attention bf16 full, per row: {rels}"
     visible = float(sum(min(start + i + 1, start + T) for i in range(T)))
-    bytes_moved = (start + T) * KH * D * 2 * 2 + 2 * q.numel() * 2
-    b_ms, b_by = bound(bytes_moved, 4.0 * H * D * visible)
     S = P * ps
-    kd = k[tab.long()].reshape(B, S, KH, D).transpose(1, 2).contiguous()
-    vd = v[tab.long()].reshape(B, S, KH, D).transpose(1, 2).contiguous()
     key = torch.arange(S, device=DEV)
     mask = ((key[None, None, :] <= pos[:, :, None]) &
             (key[None, None, :] < totals[:, None, None]))[:, None]
-    lib = sdpa_ms(q.transpose(1, 2), kd, vd, mask)
-    del kd, vd
-    measured["prefill_attention"] = {
-        "max_abs_err": err_full, "max_row_rel_err": rel_full,
-        "max_abs_err_f32_tiny": err, "errs": errs, "row_rel_errs": rels,
-        "ms": time_ms(lambda: pa.prefill_attention_batched(*a1)),
-        "plain_ms": time_ms(lambda: pa.prefill_attention_batched_plain(*a1), 1, 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-        "shape": f"B={B} T={T} H={H} KH={KH} D={D} ps={ps} start={start} total={start + T}",
-    }
+    for fmt in FORMATS:
+        errs, rels = {}, {}
+        for shape, (qq, k_, v_, *rest) in (("B8_T128", a8), ("B1_T1024", a1)):
+            kk, vv = pool_in(k_, v_, fmt)
+            out = pa.prefill_attention_batched(qq, kk, vv, *rest)
+            ref = pa.prefill_attention_batched_plain(qq, kk, vv, *rest)
+            errs[shape], rels[shape] = check_full("prefill_attention", fmt, out, ref)
+            del out, ref
+        kk, vv = pool_in(k, v, fmt)
+        args = (q, kk, vv, pos, tab, totals, starts)
+        bytes_moved = ((start + T) * kv_bytes_per_token(KH, D, fmt)
+                       + scale_bytes((start + T) / ps, KH, fmt) + 2 * q.numel() * 2)
+        b_ms, b_by = bound(bytes_moved, 4.0 * H * D * visible)
+        kd, vd = dense_ctx(kk, tab, q.dtype), dense_ctx(vv, tab, q.dtype)
+        lib = sdpa_ms(q.transpose(1, 2), kd, vd, mask)
+        del kd, vd
+        measured[("prefill_attention", fmt)] = {
+            "max_abs_err": max(errs.values()), "max_row_rel_err": max(rels.values()),
+            "max_abs_err_f32_tiny": tiny[fmt], "errs": errs, "row_rel_errs": rels,
+            "ms": time_ms(lambda: pa.prefill_attention_batched(*args)),
+            "plain_ms": time_ms(lambda: pa.prefill_attention_batched_plain(*args), 1, 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "shape": f"B={B} T={T} H={H} KH={KH} D={D} ps={ps} start={start} total={start + T}",
+        }
+        torch.cuda.empty_cache()
 
 
 def ragged_case(rng, N, R, H, KH, D, ps, P, pages, dtype, rows):
@@ -282,28 +426,27 @@ def check_ragged(rng, measured):
     # tiny f32: decode rows + prefill rows, page-straddling, a padding row,
     # a decode row with no history, tail padding tokens
     rows = [(1, 12), (11, 0), (1, 0), (20, 7), (1, 8), (5, 16)]
-    args, real = ragged_case(rng, 64, 8, 4, 2, 16, 8, 6, 40, torch.float32, rows)
-    out, ref = pa.ragged_attention(*args), pa.ragged_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = max_err(out[real], ref[real])
-    assert err <= TOL_F32_TINY, f"ragged_attention f32 tiny: {err}"
-    assert torch.isfinite(out.float()).all(), "ragged padding tokens are not finite"
+    (q, k, v, *rest), real = ragged_case(rng, 64, 8, 4, 2, 16, 8, 6, 40, torch.float32, rows)
+    tiny = {}
+    for fmt in FORMATS:
+        kk, vv = pool_in(k, v, fmt)
+        out = pa.ragged_attention(q, kk, vv, *rest)
+        ref = pa.ragged_attention_plain(q, kk, vv, *rest)
+        torch.cuda.synchronize()
+        tiny[fmt] = max_err(out[real], ref[real])
+        assert tiny[fmt] <= TOL_F32_TINY, f"ragged_attention[{fmt}] f32 tiny: {tiny[fmt]}"
+        assert torch.isfinite(out.float()).all(), "ragged padding tokens are not finite"
     # full width bf16: one 1024-token chunk with history beside 48 decode lanes
     H, KH, D, ps, P, N, R = 24, 8, 128, 64, 33, 2048, 128
     rows = [(1024, 512), (200, 0)] + [(1, int(c)) for c in rng.integers(0, 2048, size=48)]
-    args, real = ragged_case(rng, N, R, H, KH, D, ps, P, 2049, torch.bfloat16, rows)
-    out, ref = pa.ragged_attention(*args), pa.ragged_attention_plain(*args)
-    torch.cuda.synchronize()
-    err_full, rel_full = max_err(out[real], ref[real]), row_rel_err(out[real], ref[real])
-    assert err_full <= TOL_BF16_FULL, f"ragged_attention bf16 full: {err_full}"
-    assert rel_full <= TOL_BF16_ROW_REL, f"ragged_attention bf16 full, per row: {rel_full}"
+    (q, k, v, tab, row_starts, row_lens, ctx_lens), real = ragged_case(
+        rng, N, R, H, KH, D, ps, P, 2049, torch.bfloat16, rows)
     visible = sum(sum(min(c + j + 1, c + ln) for j in range(ln)) for ln, c in rows)
-    ctx_bytes = sum(c + ln for ln, c in rows) * KH * D * 2 * 2
+    ctx_tokens = sum(c + ln for ln, c in rows)
+    pages_read = sum(-(-(c + ln) // ps) for ln, c in rows)
     n_real = sum(ln for ln, _ in rows)
-    b_ms, b_by = bound(ctx_bytes + 2 * n_real * H * D * 2, 4.0 * H * D * visible)
     # library yardstick: the rows scattered into a padded batch [rows, Tmax]
     # against each row's densely gathered context, one masked SDPA call
-    q, k, v, tab, row_starts, row_lens, ctx_lens = args
     Rr, Tmax, S = len(rows), max(ln for ln, _ in rows), P * ps
     qp = torch.zeros((Rr, Tmax, H, D), dtype=q.dtype, device=DEV)
     off = 0
@@ -311,35 +454,86 @@ def check_ragged(rng, measured):
         qp[r, :ln] = q[off:off + ln]
         off += ln
     qp = qp.transpose(1, 2).contiguous()
-    kd = k[tab[:Rr].long()].reshape(Rr, S, KH, D).transpose(1, 2).contiguous()
-    vd = v[tab[:Rr].long()].reshape(Rr, S, KH, D).transpose(1, 2).contiguous()
-    key = torch.arange(S, device=DEV)[None, None, :]
+    keyp = torch.arange(S, device=DEV)[None, None, :]
     pos = ctx_lens[:Rr, None] + torch.arange(Tmax, device=DEV)[None, :]
-    mask = ((key <= pos[:, :, None]) &
-            (key < (ctx_lens + row_lens)[:Rr, None, None]))[:, None]
-    lib = sdpa_ms(qp, kd, vd, mask)
-    del qp, kd, vd, mask
-    measured["ragged_attention"] = {
-        "max_abs_err": err_full, "max_row_rel_err": rel_full, "max_abs_err_f32_tiny": err,
-        "ms": time_ms(lambda: pa.ragged_attention(*args)),
-        "plain_ms": time_ms(lambda: pa.ragged_attention_plain(*args), 1, 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-        "shape": f"N={N} R={R} H={H} KH={KH} D={D} ps={ps} rows=1024@512+200@0+48 decode",
-    }
+    mask = ((keyp <= pos[:, :, None]) &
+            (keyp < (ctx_lens + row_lens)[:Rr, None, None]))[:, None]
+    for fmt in FORMATS:
+        kk, vv = pool_in(k, v, fmt)
+        args = (q, kk, vv, tab, row_starts, row_lens, ctx_lens)
+        out, ref = pa.ragged_attention(*args), pa.ragged_attention_plain(*args)
+        err_full, rel_full = check_full("ragged_attention", fmt, out[real], ref[real])
+        del out, ref
+        bytes_moved = (ctx_tokens * kv_bytes_per_token(KH, D, fmt)
+                       + scale_bytes(pages_read, KH, fmt) + 2 * n_real * H * D * 2)
+        b_ms, b_by = bound(bytes_moved, 4.0 * H * D * visible)
+        kd, vd = dense_ctx(kk, tab[:Rr], q.dtype), dense_ctx(vv, tab[:Rr], q.dtype)
+        lib = sdpa_ms(qp, kd, vd, mask)
+        del kd, vd
+        measured[("ragged_attention", fmt)] = {
+            "max_abs_err": err_full, "max_row_rel_err": rel_full,
+            "max_abs_err_f32_tiny": tiny[fmt],
+            "ms": time_ms(lambda: pa.ragged_attention(*args)),
+            "plain_ms": time_ms(lambda: pa.ragged_attention_plain(*args), 1, 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "shape": f"N={N} R={R} H={H} KH={KH} D={D} ps={ps} rows=1024@512+200@0+48 decode",
+        }
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(seed: int) -> dict:
     measured: dict = {}
     rng = np.random.default_rng(seed)
-    check_decode(rng, measured)
-    torch.cuda.empty_cache()
-    check_prefill(rng, measured)
-    torch.cuda.empty_cache()
-    check_ragged(rng, measured)
-    torch.cuda.empty_cache()
+    for check in (check_decode, check_decode_local, check_prefill, check_ragged):
+        check(rng, measured)
+        torch.cuda.empty_cache()
     emit("kernels", tol_f32_tiny=TOL_F32_TINY, tol_bf16_full=TOL_BF16_FULL,
-         tol_bf16_row_rel=TOL_BF16_ROW_REL, kernels=measured)
+         tol_bf16_row_rel=TOL_BF16_ROW_REL,
+         kernels={f"{name}/{fmt}": m for (name, fmt), m in measured.items()})
     return measured
+
+
+# ---------------------------------------------------------------------- #
+# phase: quant_write (the card's quantized page writes vs the CPU's)
+# ---------------------------------------------------------------------- #
+
+
+@torch.no_grad()
+def phase_quant_write(seed: int) -> None:
+    """A fixed sequence of f32 writes — scale growth, page-start resets,
+    duplicate pages (both halves of an int4 byte, one slot twice) and an
+    all-layer commit — must leave the same ints and scales on the card as
+    on the CPU, bit for bit."""
+    L, pages, ps, KH, D = 2, 12, 64, 8, 128
+    rng = np.random.default_rng(seed + 2)
+    writes = [  # (layer or None = all layers, phys, offs, value scale)
+        (1, [3, 3, 3, 4], [0, 1, 2, 0], 0.05),
+        (1, [3, 4, 4, 3], [40, 1, 2, 33], 8.0),  # outlier: scales grow
+        (0, [5, 5, 5, 5], [7, 39, 7, 40], 1.0),  # one slot twice, both halves
+        (1, [3, 3, 6, 6], [0, 1, 0, 32], 0.2),  # page 3 restarts
+        (None, [[6, 6, 6, 7], [0, 0, 0, 0]], [[33, 34, 35, 0], [1, 2, 3, 4]], 3.0),
+    ]
+    done = {}
+    for fmt in ("int8", "int4"):
+        stores = {dev: [kv_quant.alloc_kv_store(L, pages, ps, KH, D, torch.float32, fmt,
+                                                device=dev)] for dev in ("cpu", "cuda")}
+        for li, phys, offs, scale in writes:
+            ph, of = np.asarray(phys, np.int64), np.asarray(offs, np.int64)
+            lead = (L,) if li is None else ()
+            vals = (rng.standard_normal((*lead, *ph.shape, KH, D)) * scale).astype(np.float32)
+            for dev, (st,) in stores.items():
+                args = [torch.from_numpy(a).to(dev) for a in (ph, of, vals)]
+                if li is None:
+                    kv_quant.kv_write_all_layers(st, *args)
+                else:
+                    kv_quant.kv_write(st, li, *args)
+        torch.cuda.synchronize()
+        cpu, gpu = stores["cpu"][0], stores["cuda"][0]
+        assert torch.equal(gpu.q.cpu(), cpu.q), f"quant_write[{fmt}]: ints differ"
+        assert torch.equal(gpu.s.cpu(), cpu.s), f"quant_write[{fmt}]: scales differ"
+        done[fmt] = {"pages_touched": int((cpu.s > 0).any(dim=-1).sum()),
+                     "max_scale": float(cpu.s.max())}
+    emit("quant_write", writes=len(writes), bit_equal=True, formats=done)
 
 
 # ---------------------------------------------------------------------- #
@@ -428,6 +622,62 @@ def phase_forward(seed: int) -> None:
     emit("forward", layers=2, dtype="bfloat16", tol_rel=TOL_FORWARD_REL,
          layer0_pages_equal=True, max_row_rel_err=worst)
     assert not bad, f"forward: kernels vs plain attention disagree: {bad}"
+    phase_forward_local_int8(params, cfg, rng)
+
+
+def phase_forward_local_int8(params, cfg, rng) -> None:
+    """The local decode block over an int8 pool, 2 layers at full width:
+    prefill two sequences into the pool, run K local steps, commit the
+    block — kernels against plain attention, each arm on its own pool."""
+    ps, pages, B, T, P, K = 64, 64, 2, 200, 17, 4
+    tables = torch.zeros((B, P), dtype=torch.int32, device=DEV)
+    tables[:, :16] = i32(np.arange(1, 1 + B * 16).reshape(B, 16))
+    arms = []
+    toks = i32(rng.integers(5, cfg.vocab_size, size=(B, T)))
+    steps = i32(rng.integers(5, cfg.vocab_size, size=(K, B)))
+    step_idx = [i32([j]) for j in range(K)]
+    for plain in (False, True):
+        kv = [kv_quant.alloc_kv_store(2, pages, ps, cfg.num_kv_heads, cfg.head_dim,
+                                      cfg.dtype, "int8", device=DEV) for _ in range(2)]
+        pos = i32(np.arange(T)[None, :].repeat(B, 0))
+        pre, _, _ = llama.prefill_forward_batched(
+            params, cfg, toks, pos, kv[0], kv[1], tables, i32([0, 0]), i32([T - 1, T - 1]),
+            plain_attention=plain)
+        loc = torch.zeros((2, 2, B, K, cfg.num_kv_heads, cfg.head_dim), dtype=cfg.dtype,
+                          device=DEV)
+        pool_lens = i32([T - 1, T - 1])  # the last prompt token is the block's first
+        logits = []
+        for j in range(K):
+            lg, _, _ = llama.decode_forward_local(
+                params, cfg, steps[j], pool_lens + j, loc[0], loc[1], step_idx[j],
+                kv[0], kv[1], tables, pool_lens, plain_attention=plain)
+            logits.append(lg)
+        start = T - 1
+        blk = start + torch.arange(K, device=DEV)[None, :].expand(B, K)
+        phys = torch.gather(tables.long(), 1, (blk // ps).long())
+        kv_quant.kv_write_all_layers(kv[0], phys, blk % ps, loc[0])
+        kv_quant.kv_write_all_layers(kv[1], phys, blk % ps, loc[1])
+        torch.cuda.synchronize()
+        arms.append((pre, torch.stack(logits), loc, kv))
+    (pre_a, lg_a, loc_a, kv_a), (pre_b, lg_b, loc_b, kv_b) = arms
+    worst = {
+        "prefill_logits": row_rel_err(pre_a, pre_b),
+        "local_logits": row_rel_err(lg_a, lg_b),
+        "local_k1": row_rel_err(loc_a[0, 1], loc_b[0, 1]),
+        "local_v1": row_rel_err(loc_a[1, 1], loc_b[1, 1]),
+    }
+    for t in (lg_a, loc_a):
+        max_err(t, t)  # finite
+    # layer 0 never depends on attention: its local rows and committed
+    # int8 pages (ints and scales) agree bit for bit
+    assert torch.equal(loc_a[:, 0], loc_b[:, 0]), "forward_local_int8: layer-0 local rows differ"
+    for name, a, b in (("k", kv_a[0], kv_b[0]), ("v", kv_a[1], kv_b[1])):
+        assert torch.equal(a.q[0], b.q[0]) and torch.equal(a.s[0], b.s[0]), \
+            f"forward_local_int8: layer-0 {name} pages differ"
+    bad = {k: v for k, v in worst.items() if not v <= TOL_FORWARD_REL}
+    emit("forward_local_int8", layers=2, dtype="bfloat16", kv_quant="int8", K=K,
+         tol_rel=TOL_FORWARD_REL, layer0_equal=True, max_row_rel_err=worst)
+    assert not bad, f"forward_local_int8: kernels vs plain attention disagree: {bad}"
 
 
 # ---------------------------------------------------------------------- #
@@ -467,11 +717,22 @@ async def run_request(engine, req: dict, record: dict, after=None) -> None:
     record["done_s"] = time.perf_counter() - t0
 
 
-async def serve(seed: int) -> dict:
-    model_cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=LAYERS)
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k["module"].launch_count = 0
+        for fmt in k["module"].launches_by_format:
+            k["module"].launches_by_format[fmt] = 0
+    for name in pa.plain_calls:
+        pa.plain_calls[name] = 0
+
+
+async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params) -> dict:
+    model_cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=layers)
+    if layers != LAYERS:  # a cut depth: the full model's first layers
+        params = dict(params, layers={k: v[:layers] for k, v in params["layers"].items()})
     engine = TorchEngine(
-        EngineConfig(model="llama3-3b", seed=seed), model_config=model_cfg,
-        device="cuda",
+        EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode=mode, kv_quant=kvq),
+        model_config=model_cfg, params=params, device="cuda",
     )
     t0 = time.perf_counter()
     n_warm = await engine.warmup()
@@ -504,10 +765,7 @@ async def serve(seed: int) -> dict:
         ).to_dict())
 
     # counts to zero just before the main path is driven
-    for k in KERNELS.values():
-        k["module"].launch_count = 0
-    for name in pa.plain_calls:
-        pa.plain_calls[name] = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     base = engine.stats()
 
@@ -526,7 +784,8 @@ async def serve(seed: int) -> dict:
         await asyncio.sleep(STAGGER_S)
     await asyncio.gather(*tasks)
     wall = time.perf_counter() - t_start
-    launches = {name: k["module"].launch_count for name, k in KERNELS.items()}
+    launches = {(name, fmt): n for name, k in KERNELS.items()
+                for fmt, n in k["module"].launches_by_format.items()}
     plain = dict(pa.plain_calls)
     stats = engine.stats()
 
@@ -545,18 +804,23 @@ async def serve(seed: int) -> dict:
     await engine.close()
 
     for i, rec in enumerate(records):
-        assert rec["finish"] == "length", f"request {i} finished with {rec['finish']}"
-        assert len(rec["tokens"]) == MAX_TOKENS, (i, len(rec["tokens"]))
-        assert all(0 <= t < model_cfg.vocab_size for t in rec["tokens"]), i
+        assert rec["finish"] == "length", f"{phase}: request {i} finished with {rec['finish']}"
+        assert len(rec["tokens"]) == MAX_TOKENS, (phase, i, len(rec["tokens"]))
+        assert all(0 <= t < model_cfg.vocab_size for t in rec["tokens"]), (phase, i)
     assert pair[0] == pair[1] and len(pair[0]) == MAX_TOKENS, \
-        "the two runs of the seeded request differ"
-    assert all(n > 0 for n in launches.values()), f"a path kernel never launched: {launches}"
-    assert not any(plain.values()), f"plain attention ran on the card's main path: {plain}"
+        f"{phase}: the two runs of the seeded request differ"
+    decode_kernel = "paged_decode_local" if mode == "local" else "paged_decode"
+    used = [(name, kvq) for name in (decode_kernel, "prefill_attention", "ragged_attention")]
+    assert all(launches[u] > 0 for u in used), \
+        f"{phase}: a path kernel never launched: {launches}"
+    assert sum(launches.values()) == sum(launches[u] for u in used), \
+        f"{phase}: a kernel outside the path launched: {launches}"
+    assert not any(plain.values()), f"{phase}: plain attention ran on the card's main path: {plain}"
     mixed = stats["mixed_steps"] - base["mixed_steps"]
     hits = (stats["kv_prefix_hit_blocks_total"] - base["kv_prefix_hit_blocks_total"]
             + stats["kv_skip_ahead_blocks"] - base["kv_skip_ahead_blocks"])
-    assert mixed >= 1, "no mixed step ran"
-    assert hits > 0, "the shared prefix never hit the prefix cache"
+    assert mixed >= 1, f"{phase}: no mixed step ran"
+    assert hits > 0, f"{phase}: the shared prefix never hit the prefix cache"
 
     dev_time = {}
     for tag, cur in stats["dev_time"].items():
@@ -570,7 +834,8 @@ async def serve(seed: int) -> dict:
     itl = [x for r in records for x in r["itl_s"]]
     ttft = [r["ttft_s"] for r in records]
     emit(
-        "serve", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
+        phase, model="llama-3.2-3b", layers=layers, dtype="bfloat16",
+        decode_pool_mode=mode, kv_quant=kvq, kv_pool_bytes=stats["kv_pool_bytes"],
         requests=len(reqs), prompt_tokens=[len(r["token_ids"]) for r in reqs],
         max_tokens=MAX_TOKENS, warmup_dispatches=n_warm,
         warmup_s=round(warm_s, 3), wall_s=round(wall, 3),
@@ -579,11 +844,25 @@ async def serve(seed: int) -> dict:
         itl_ms={"p50": round(1e3 * pct(itl, 50), 3), "p99": round(1e3 * pct(itl, 99), 3)},
         mixed_steps=mixed, split_steps=stats["split_steps"] - base["split_steps"],
         prefix_hit_blocks=hits, num_preemptions=stats["num_preemptions"],
-        launches=launches, plain_calls=plain, dev_time=dev_time,
-        seeded_pair_equal=True,
+        launches={f"{n}/{f}": c for (n, f), c in launches.items() if c},
+        plain_calls=plain, dev_time=dev_time, seeded_pair_equal=True,
         peak_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
     )
+    del engine
+    torch.cuda.empty_cache()
     return launches
+
+
+async def serve_all(seed: int) -> dict:
+    """Every served path, one engine at a time, on one set of weights."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    params = llama.init_params(llama.LlamaConfig.llama3_2_3b(), gen, device=DEV)
+    total: dict = {}
+    for phase, mode, kvq, layers in SERVE_PHASES:
+        for key, n in (await serve(seed, phase, mode, kvq, layers, params)).items():
+            total[key] = total.get(key, 0) + n
+    return total
 
 
 # ---------------------------------------------------------------------- #
@@ -610,20 +889,30 @@ def main() -> None:
          nvcc_seconds=None if _build.build_seconds is None else round(_build.build_seconds, 2),
          sources=sorted(p.name for p in _build.CSRC_DIR.glob("*.cu*")))
 
+    seconds = {}
+    t0 = time.perf_counter()
     measured = phase_kernels(args.seed)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_quant_write(args.seed)
     phase_forward(args.seed)
-    launches = asyncio.run(serve(args.seed))
+    seconds["quant_write_forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = asyncio.run(serve_all(args.seed))
+    seconds["serve"] = time.perf_counter() - t0
 
     line = {"kernels": [
         {
-            "name": name, "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"], "launches": launches[name],
-            **{key: measured[name][key] for key in (
+            "name": f"{name}/{fmt}", "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"]["none" if fmt == "none" else "quant"],
+            "launches": launches[(name, fmt)],
+            **{key: measured[(name, fmt)][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
-        for name, k in KERNELS.items()
+        for name, k in KERNELS.items() for fmt in FORMATS
     ]}
-    emit("total", seconds=round(time.perf_counter() - t_all, 1))
+    emit("total", seconds=round(time.perf_counter() - t_all, 1),
+         phase_seconds={k: round(v, 1) for k, v in seconds.items()})
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

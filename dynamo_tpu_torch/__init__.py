@@ -14,10 +14,14 @@ reader finds the counterpart. Layer map of what is ported so far:
   models/    — Llama family as plain functions on tensors
   ops/       — paged attention ops: hand-written Hopper kernels
                (csrc/*.cu, built by ops/_build.py at first use) with a
-               plain PyTorch version beside each
-                 hopper_paged_attention.py   — one-token decode
-                 hopper_prefill_attention.py — batched chunked prefill
-                 hopper_ragged_attention.py  — ragged mixed prefill+decode
+               plain PyTorch version beside each, over full-precision or
+               int8/int4 KV pages (kv_quant.py: quantize on write,
+               dequantize inside the kernels)
+                 hopper_paged_attention.py       — one-token decode
+                 hopper_paged_attention_local.py — decode over the pool
+                                                   + block-local KV
+                 hopper_prefill_attention.py     — batched chunked prefill
+                 hopper_ragged_attention.py      — ragged mixed prefill+decode
 
 Every entry point defaults to `device="cuda"` and raises when there is no
 card; only a caller that passes `device="cpu"` runs on the CPU, where the

@@ -1,6 +1,6 @@
-// Flash attention over one sequence's paged KV: the device function the
-// three Hopper kernels (paged_decode.cu, prefill_attention.cu,
-// ragged_attention.cu) share.
+// Flash attention over one sequence's paged KV: the device code the four
+// Hopper kernels (paged_decode.cu, paged_decode_local.cu,
+// prefill_attention.cu, ragged_attention.cu) share.
 //
 // One thread block serves ONE KV head and a tile of up to TQ_TILE
 // consecutive query tokens of one sequence, i.e. R = n_tok * G query rows
@@ -17,6 +17,12 @@
 // pool, query token t (0-based in the tile) sees keys
 // [0, min(kv_base + t + 1, kv_total)), scale = 1/sqrt(D) is applied to q.
 // A row that sees no key returns zeros (finite).
+//
+// Quantized pools (int8, or int4 two keys to a byte) are dequantized where
+// a tile is staged: float(q) * scale[phys, kh], rounded to T, written into
+// the same shared-memory tile a full-precision pool fills; everything after
+// staging is format-blind. The format is a run-time argument (uniform over
+// the block), so each (T, D) is instantiated once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,17 +86,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Where one sequence's KV lives: one layer's K and V pools in the public
-// layout [num_phys, page_size, KH, D] (strides in elements, D contiguous)
-// and the sequence's page-table row.
-template <typename T>
+// Where one sequence's KV lives: one layer's K and V pools and the
+// sequence's page-table row. Full precision (bits 0): pools of T in the
+// public layout [num_phys, page_size, KH, D]. Quantized (bits 8 or 4):
+// int8 pools [num_phys, rows, KH, D] with rows = page_size (int8) or
+// page_size / 2 (int4: key o and key o + page_size/2 share a byte, low
+// nibble first) plus f32 scales [num_phys, KH] per pool. Strides are in
+// elements of the pool's own type (bytes when quantized), D contiguous.
 struct PagedKV {
-  const T* k;
-  const T* v;
+  const void* k;
+  const void* v;
+  const float* k_scale;  // null when bits == 0
+  const float* v_scale;
   const int* table;  // [max_pages] logical page -> physical page
   int max_pages;
   int num_phys;
-  int page_size;
+  int page_size;  // tokens per page (logical)
+  int bits;       // 0, 8 or 4
+  int KH;
   long long s_page, s_tok, s_head;
 };
 
@@ -102,75 +115,171 @@ __host__ __device__ inline size_t flash_smem_bytes(int R) {
   return nfl * sizeof(float) + (size_t)2 * KT_MAX * (D + Vec<T>::N) * sizeof(T);
 }
 
-// q0 / out0 point at the tile's first token and the KV head's first query
-// head ([.., H, D] layout: token stride `tok_stride`, head stride D).
-template <typename T, int D>
-__device__ void flash_tile(unsigned char* smem_raw, const T* __restrict__ q0,
-                           T* __restrict__ out0, long long tok_stride, int n_tok,
-                           int G, int kv_base, int kv_total, const PagedKV<T>& kv,
-                           int kh) {
+// VN (= Vec<T>::N) float values -> one 16-byte vector of T in shared memory
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* f) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+__device__ __forceinline__ void store_vec(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+// VN consecutive int8 bytes (VN-byte aligned) -> raw bytes
+template <int VN> struct Bytes;
+template <> struct Bytes<8> {
+  __device__ static void load(const int8_t* p, int8_t* b) {
+    *reinterpret_cast<uint2*>(b) = *reinterpret_cast<const uint2*>(p);
+  }
+};
+template <> struct Bytes<4> {
+  __device__ static void load(const int8_t* p, int8_t* b) {
+    *reinterpret_cast<uint32_t*>(b) = *reinterpret_cast<const uint32_t*>(p);
+  }
+};
+
+// Dequantize VN stored values of one key row: float(int) * scale, rounded
+// to T by store_vec — the formula of the reference's gather_dequant and
+// _window_dequant. int4: the high nibble when `high`, else the low one,
+// both sign-extended through a signed 8-bit value.
+template <typename T>
+__device__ __forceinline__ void dequant_vec(const int8_t* src, int bits, bool high,
+                                            float scale, T* dst) {
   constexpr int VN = Vec<T>::N;
-  constexpr int KS = D + VN;   // padded tile row: consecutive keys land on
-                               // distinct banks for 16-byte loads
-  constexpr int CPR = D / VN;  // 16-byte chunks per key row
-  const int tid = threadIdx.x;
-  const int R = n_tok * G;
-  const float scale = rsqrtf((float)D);
-
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [R][D] scaled q
-  float* O = qs + R * D;                           // [R][D]
-  float* S = O + R * D;                            // [R][KT_MAX] scores / probs
-  float* m_s = S + R * KT_MAX;                     // [R]
-  float* l_s = m_s + R;
-  float* a_s = l_s + R;
-  size_t nfl = (size_t)2 * R * D + (size_t)R * KT_MAX + (size_t)3 * R;
-  nfl = (nfl + 3) & ~(size_t)3;
-  T* ks = reinterpret_cast<T*>(qs + nfl);  // [KT_MAX][KS]
-  T* vs = ks + KT_MAX * KS;
-
-  for (int idx = tid; idx < R * D; idx += NT) {
-    int r = idx / D, d = idx - r * D;
-    int t = r / G, g = r - t * G;
-    qs[idx] = to_float(q0[t * tok_stride + g * D + d]) * scale;
-    O[idx] = 0.f;
+  alignas(8) int8_t b[VN];
+  Bytes<VN>::load(src, b);
+  float f[VN];
+#pragma unroll
+  for (int i = 0; i < VN; ++i) {
+    int val;
+    if (bits == 8) val = b[i];
+    else if (high) val = b[i] >> 4;
+    else val = (int8_t)((uint8_t)b[i] << 4) >> 4;
+    f[i] = (float)val * scale;
   }
-  for (int r = tid; r < R; r += NT) {
-    m_s[r] = NEG;
-    l_s[r] = 0.f;
+  store_vec(dst, f);
+}
+
+// Online-softmax state of one block's R query rows in shared memory.
+template <typename T, int D>
+struct Flash {
+  static constexpr int VN = Vec<T>::N;
+  static constexpr int KS = D + VN;   // padded tile row: consecutive keys land
+                                      // on distinct banks for 16-byte loads
+  static constexpr int CPR = D / VN;  // 16-byte chunks per key row
+  int R, G;
+  float* qs;  // [R][D] scaled q
+  float* O;   // [R][D] un-normalised output
+  float* S;   // [R][KT_MAX] scores / probs
+  float *m_s, *l_s, *a_s;  // [R]
+  T* ks;  // [KT_MAX][KS]
+  T* vs;
+
+  __device__ Flash(unsigned char* smem_raw, int n_tok, int G_) : R(n_tok * G_), G(G_) {
+    qs = reinterpret_cast<float*>(smem_raw);
+    O = qs + R * D;
+    S = O + R * D;
+    m_s = S + R * KT_MAX;
+    l_s = m_s + R;
+    a_s = l_s + R;
+    size_t nfl = (size_t)2 * R * D + (size_t)R * KT_MAX + (size_t)3 * R;
+    nfl = (nfl + 3) & ~(size_t)3;
+    ks = reinterpret_cast<T*>(qs + nfl);
+    vs = ks + KT_MAX * KS;
   }
-  __syncthreads();
 
-  const int kt = kv.page_size < KT_MAX ? kv.page_size : KT_MAX;
-  // causal early exit: the tile's last token bounds what any row can see
-  int limit = kv_base + n_tok;
-  if (limit > kv_total) limit = kv_total;
-  const int n_tiles = limit > 0 ? (limit + kt - 1) / kt : 0;
-  const long long head_off = (long long)kh * kv.s_head;
+  // q0 points at the tile's first token and the KV head's first query head
+  // ([.., H, D] layout: token stride `tok_stride`, head stride D)
+  __device__ void init(const T* __restrict__ q0, long long tok_stride) {
+    const float scale = rsqrtf((float)D);
+    for (int idx = threadIdx.x; idx < R * D; idx += NT) {
+      int r = idx / D, d = idx - r * D;
+      int t = r / G, g = r - t * G;
+      qs[idx] = to_float(q0[t * tok_stride + g * D + d]) * scale;
+      O[idx] = 0.f;
+    }
+    for (int r = threadIdx.x; r < R; r += NT) {
+      m_s[r] = NEG;
+      l_s[r] = 0.f;
+    }
+    __syncthreads();
+  }
 
-  for (int ti = 0; ti < n_tiles; ++ti) {
-    const int key0 = ti * kt;
+  // Stage keys [key0, key0 + kt) of one page of `kv` (kt keys, never
+  // across a page) into ks/vs; keys at or past `limit` become zeros.
+  __device__ void stage_pool(const PagedKV& kv, int kh, int key0, int kt, int limit) {
     int lp = key0 / kv.page_size;
     const int off = key0 - lp * kv.page_size;
     if (lp > kv.max_pages - 1) lp = kv.max_pages - 1;
     int phys = kv.table[lp];
     if (phys > kv.num_phys - 1) phys = kv.num_phys - 1;
     if (phys < 0) phys = 0;
-    const long long base = (long long)phys * kv.s_page + (long long)off * kv.s_tok + head_off;
+    const long long head_off = (long long)kh * kv.s_head;
+    if (kv.bits == 0) {
+      const T* kp = static_cast<const T*>(kv.k);
+      const T* vp = static_cast<const T*>(kv.v);
+      const long long base = (long long)phys * kv.s_page + (long long)off * kv.s_tok + head_off;
+      for (int c = threadIdx.x; c < kt * CPR; c += NT) {
+        int j = c / CPR, dc = (c - j * CPR) * VN;
+        uint4 kraw = make_uint4(0u, 0u, 0u, 0u), vraw = kraw;
+        if (key0 + j < limit) {
+          long long src = base + (long long)j * kv.s_tok + dc;
+          kraw = *reinterpret_cast<const uint4*>(kp + src);
+          vraw = *reinterpret_cast<const uint4*>(vp + src);
+        }
+        *reinterpret_cast<uint4*>(ks + j * KS + dc) = kraw;
+        *reinterpret_cast<uint4*>(vs + j * KS + dc) = vraw;
+      }
+    } else {
+      const int8_t* kp = static_cast<const int8_t*>(kv.k);
+      const int8_t* vp = static_cast<const int8_t*>(kv.v);
+      const float k_sc = kv.k_scale[(long long)phys * kv.KH + kh];
+      const float v_sc = kv.v_scale[(long long)phys * kv.KH + kh];
+      const int half = kv.page_size / 2;
+      const long long base = (long long)phys * kv.s_page + head_off;
+      for (int c = threadIdx.x; c < kt * CPR; c += NT) {
+        int j = c / CPR, dc = (c - j * CPR) * VN;
+        if (key0 + j < limit) {
+          int key = off + j;  // key within the page
+          bool high = kv.bits == 4 && key >= half;
+          int row = high ? key - half : key;
+          long long src = base + (long long)row * kv.s_tok + dc;
+          dequant_vec<T>(kp + src, kv.bits, high, k_sc, ks + j * KS + dc);
+          dequant_vec<T>(vp + src, kv.bits, high, v_sc, vs + j * KS + dc);
+        } else {
+          *reinterpret_cast<uint4*>(ks + j * KS + dc) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(vs + j * KS + dc) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+    __syncthreads();
+  }
 
-    // stage K and V rows of this tile; keys at or past `limit` become zeros
-    for (int c = tid; c < kt * CPR; c += NT) {
+  // Stage n_valid rows of a dense [.., D] buffer (row stride `row_stride`
+  // elements) as keys 0..kt-1; rows at or past n_valid become zeros.
+  __device__ void stage_dense(const T* __restrict__ k, const T* __restrict__ v,
+                              long long row_stride, int kt, int n_valid) {
+    for (int c = threadIdx.x; c < kt * CPR; c += NT) {
       int j = c / CPR, dc = (c - j * CPR) * VN;
       uint4 kraw = make_uint4(0u, 0u, 0u, 0u), vraw = kraw;
-      if (key0 + j < limit) {
-        long long src = base + (long long)j * kv.s_tok + dc;
-        kraw = *reinterpret_cast<const uint4*>(kv.k + src);
-        vraw = *reinterpret_cast<const uint4*>(kv.v + src);
+      if (j < n_valid) {
+        long long src = (long long)j * row_stride + dc;
+        kraw = *reinterpret_cast<const uint4*>(k + src);
+        vraw = *reinterpret_cast<const uint4*>(v + src);
       }
       *reinterpret_cast<uint4*>(ks + j * KS + dc) = kraw;
       *reinterpret_cast<uint4*>(vs + j * KS + dc) = vraw;
     }
     __syncthreads();
+  }
 
+  // One online-softmax step over the kt staged keys (kt a multiple of 4).
+  // Staged key j is key key0 + j; query token t sees keys
+  // < min(kv_base + t + 1, kv_total).
+  __device__ void update(int kt, int key0, int kv_base, int kv_total) {
+    const int tid = threadIdx.x;
     // scores: S[r][j] = q_r . k_j, masked per row
     for (int idx = tid; idx < R * kt; idx += NT) {
       int r = idx / kt, j = idx - r * kt;
@@ -242,13 +351,42 @@ __device__ void flash_tile(unsigned char* smem_raw, const T* __restrict__ q0,
     __syncthreads();
   }
 
-  for (int idx = tid; idx < R * D; idx += NT) {
-    int r = idx / D, d = idx - r * D;
-    int t = r / G, g = r - t * G;
-    float l = l_s[r];
-    float inv = l > 0.f ? 1.f / l : 0.f;
-    store_out(out0 + t * tok_stride + g * D + d, O[idx] * inv);
+  // Walk the sequence's pages: keys < min(kv_base + n_tok, kv_total) (the
+  // tile's last token bounds what any row can see: causal early exit).
+  __device__ void pool(const PagedKV& kv, int kh, int n_tok, int kv_base, int kv_total) {
+    const int kt = kv.page_size < KT_MAX ? kv.page_size : KT_MAX;
+    int limit = kv_base + n_tok;
+    if (limit > kv_total) limit = kv_total;
+    const int n_tiles = limit > 0 ? (limit + kt - 1) / kt : 0;
+    for (int ti = 0; ti < n_tiles; ++ti) {
+      stage_pool(kv, kh, ti * kt, kt, limit);
+      update(kt, ti * kt, kv_base, kv_total);
+    }
   }
+
+  // out0 as q0 in init(); a row that saw no key returns zeros
+  __device__ void finalize(T* __restrict__ out0, long long tok_stride) {
+    for (int idx = threadIdx.x; idx < R * D; idx += NT) {
+      int r = idx / D, d = idx - r * D;
+      int t = r / G, g = r - t * G;
+      float l = l_s[r];
+      float inv = l > 0.f ? 1.f / l : 0.f;
+      store_out(out0 + t * tok_stride + g * D + d, O[idx] * inv);
+    }
+  }
+};
+
+// Flash attention of one tile of n_tok query tokens over one sequence's
+// pages (the three paged kernels' shared body).
+template <typename T, int D>
+__device__ void flash_tile(unsigned char* smem_raw, const T* __restrict__ q0,
+                           T* __restrict__ out0, long long tok_stride, int n_tok,
+                           int G, int kv_base, int kv_total, const PagedKV& kv,
+                           int kh) {
+  Flash<T, D> f(smem_raw, n_tok, G);
+  f.init(q0, tok_stride);
+  f.pool(kv, kh, n_tok, kv_base, kv_total);
+  f.finalize(out0, tok_stride);
 }
 
 // Host side: raise a kernel's dynamic shared-memory limit when it needs
@@ -264,12 +402,24 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 constexpr int DT_BF16 = 0;
 constexpr int DT_F32 = 1;
 // own error codes (negative, so they never collide with cudaError_t)
-constexpr int ERR_UNSUPPORTED = -1;  // dtype / head_dim / page_size not built
+constexpr int ERR_UNSUPPORTED = -1;  // dtype / head_dim / page_size / format not built
 
-inline bool page_size_ok(int page_size) {
+inline bool page_size_ok(int page_size, int bits) {
   // tiles never straddle a page and the PV loop reads 4 keys at a time
   if (page_size <= 0 || page_size % 4 != 0) return false;
+  if (bits != 0 && bits != 8 && bits != 4) return false;
+  // int4: a 64-key tile never straddles the nibble boundary either
+  if (bits == 4) return page_size <= KT_MAX || (page_size / 2) % KT_MAX == 0;
   return page_size <= KT_MAX || page_size % KT_MAX == 0;
+}
+
+// Build a PagedKV from the C interface's arguments (table set per block).
+inline PagedKV make_kv(const void* kv_k, const void* kv_v, const float* k_scale,
+                       const float* v_scale, int kv_bits, int max_pages,
+                       int num_phys, int page_size, int KH, long long s_page,
+                       long long s_tok, long long s_head) {
+  return PagedKV{kv_k, kv_v, k_scale, v_scale, nullptr, max_pages, num_phys,
+                 page_size, kv_bits, KH, s_page, s_tok, s_head};
 }
 
 }  // namespace dyn

@@ -14,13 +14,17 @@
 // never reads pages past it, so work follows the causal triangle. The
 // products are plain f32 FMA out of shared memory in this first version;
 // tensor-core products (mma.sync / wgmma) are the known next step.
+//
+// Quantized pools (int8/int4) are dequantized while a tile is staged
+// (flash_paged.cuh). The TPU reference has no kernel for that case (it
+// sends quantized prefill to its XLA path); this port keeps it on the card.
 #include "flash_paged.cuh"
 
 namespace dyn {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
-prefill_attention_kernel(T* __restrict__ out, const T* __restrict__ q, PagedKV<T> kv,
+prefill_attention_kernel(T* __restrict__ out, const T* __restrict__ q, PagedKV kv,
                          const int* __restrict__ page_tables,
                          const int* __restrict__ starts,
                          const int* __restrict__ total_lens, int Tq, int H, int G) {
@@ -35,14 +39,10 @@ prefill_attention_kernel(T* __restrict__ out, const T* __restrict__ q, PagedKV<T
 }
 
 template <typename T, int D>
-int launch_prefill(void* out, const void* q, const void* kv_k, const void* kv_v,
-                   const int* page_tables, int max_pages, int num_phys,
-                   long long s_page, long long s_tok, long long s_head,
+int launch_prefill(void* out, const void* q, PagedKV kv, const int* page_tables,
                    const int* starts, const int* total_lens, int B, int Tq, int H,
-                   int KH, int page_size, cudaStream_t stream) {
+                   int KH, cudaStream_t stream) {
   const int G = H / KH;
-  PagedKV<T> kv{static_cast<const T*>(kv_k), static_cast<const T*>(kv_v), nullptr,
-                max_pages, num_phys, page_size, s_page, s_tok, s_head};
   size_t smem = flash_smem_bytes<T, D>(TQ_TILE * G);
   cudaError_t e = allow_smem(prefill_attention_kernel<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -55,21 +55,25 @@ int launch_prefill(void* out, const void* q, const void* kv_k, const void* kv_v,
 
 }  // namespace dyn
 
-#define LAUNCH_PREFILL(T, D)                                                      \
-  dyn::launch_prefill<T, D>(out, q, kv_k, kv_v, page_tables, max_pages, num_phys, \
-                            s_page, s_tok, s_head, starts, total_lens, B, Tq, H,  \
-                            KH, page_size, static_cast<cudaStream_t>(stream))
+#define LAUNCH_PREFILL(T, D)                                                    \
+  dyn::launch_prefill<T, D>(out, q, kv, page_tables, starts, total_lens, B, Tq, \
+                            H, KH, static_cast<cudaStream_t>(stream))
 
 // out, q: [B, Tq, H, D]; page_tables: [B, max_pages]; starts, total_lens:
 // [B] int32. Other arguments and the return value as dyn_paged_decode.
 extern "C" int dyn_prefill_attention(void* out, const void* q, const void* kv_k,
-                                     const void* kv_v, const int* page_tables,
-                                     int max_pages, int num_phys, long long s_page,
-                                     long long s_tok, long long s_head,
-                                     const int* starts, const int* total_lens,
-                                     int B, int Tq, int H, int KH, int D,
-                                     int page_size, int dtype, void* stream) {
+                                     const void* kv_v, const float* k_scale,
+                                     const float* v_scale, int kv_bits,
+                                     const int* page_tables, int max_pages,
+                                     int num_phys, long long s_page, long long s_tok,
+                                     long long s_head, const int* starts,
+                                     const int* total_lens, int B, int Tq, int H,
+                                     int KH, int D, int page_size, int dtype,
+                                     void* stream) {
   if (B <= 0 || Tq <= 0) return 0;
-  if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size)) return dyn::ERR_UNSUPPORTED;
+  if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size, kv_bits))
+    return dyn::ERR_UNSUPPORTED;
+  dyn::PagedKV kv = dyn::make_kv(kv_k, kv_v, k_scale, v_scale, kv_bits, max_pages,
+                                 num_phys, page_size, KH, s_page, s_tok, s_head);
   DYN_DISPATCH(dtype, D, LAUNCH_PREFILL);
 }

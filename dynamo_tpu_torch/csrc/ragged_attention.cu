@@ -17,14 +17,16 @@
 // ceil(row_lens[r] / 16) tiles); one thread walks the <= R row lengths to
 // find it — R is at most a few hundred and the walk is an L2-resident
 // read. grid.x = ceil(N / 16) + R bounds the tile count for any packing;
-// surplus blocks exit at once.
+// surplus blocks exit at once. Quantized pools (int8/int4) are dequantized
+// while a tile is staged (flash_paged.cuh), replacing the TPU kernel's
+// `dequant_window` (pallas_ragged_attention.py:142).
 #include "flash_paged.cuh"
 
 namespace dyn {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
-ragged_attention_kernel(T* __restrict__ out, const T* __restrict__ q, PagedKV<T> kv,
+ragged_attention_kernel(T* __restrict__ out, const T* __restrict__ q, PagedKV kv,
                         const int* __restrict__ page_tables,
                         const int* __restrict__ row_starts,
                         const int* __restrict__ row_lens,
@@ -63,15 +65,10 @@ ragged_attention_kernel(T* __restrict__ out, const T* __restrict__ q, PagedKV<T>
 }
 
 template <typename T, int D>
-int launch_ragged(void* out, const void* q, const void* kv_k, const void* kv_v,
-                  const int* page_tables, int max_pages, int num_phys,
-                  long long s_page, long long s_tok, long long s_head,
+int launch_ragged(void* out, const void* q, PagedKV kv, const int* page_tables,
                   const int* row_starts, const int* row_lens, const int* ctx_lens,
-                  int N, int R_rows, int H, int KH, int page_size,
-                  cudaStream_t stream) {
+                  int N, int R_rows, int H, int KH, cudaStream_t stream) {
   const int G = H / KH;
-  PagedKV<T> kv{static_cast<const T*>(kv_k), static_cast<const T*>(kv_v), nullptr,
-                max_pages, num_phys, page_size, s_page, s_tok, s_head};
   size_t smem = flash_smem_bytes<T, D>(TQ_TILE * G);
   cudaError_t e = allow_smem(ragged_attention_kernel<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -84,24 +81,27 @@ int launch_ragged(void* out, const void* q, const void* kv_k, const void* kv_v,
 
 }  // namespace dyn
 
-#define LAUNCH_RAGGED(T, D)                                                      \
-  dyn::launch_ragged<T, D>(out, q, kv_k, kv_v, page_tables, max_pages, num_phys, \
-                           s_page, s_tok, s_head, row_starts, row_lens, ctx_lens, \
-                           N, R_rows, H, KH, page_size,                          \
+#define LAUNCH_RAGGED(T, D)                                                    \
+  dyn::launch_ragged<T, D>(out, q, kv, page_tables, row_starts, row_lens,      \
+                           ctx_lens, N, R_rows, H, KH,                         \
                            static_cast<cudaStream_t>(stream))
 
 // out, q: [N, H, D] (out zero-filled by the caller); page_tables:
 // [R_rows, max_pages]; row_starts, row_lens, ctx_lens: [R_rows] int32.
 // Other arguments and the return value as dyn_paged_decode.
 extern "C" int dyn_ragged_attention(void* out, const void* q, const void* kv_k,
-                                    const void* kv_v, const int* page_tables,
-                                    int max_pages, int num_phys, long long s_page,
-                                    long long s_tok, long long s_head,
-                                    const int* row_starts, const int* row_lens,
-                                    const int* ctx_lens, int N, int R_rows, int H,
-                                    int KH, int D, int page_size, int dtype,
-                                    void* stream) {
+                                    const void* kv_v, const float* k_scale,
+                                    const float* v_scale, int kv_bits,
+                                    const int* page_tables, int max_pages,
+                                    int num_phys, long long s_page, long long s_tok,
+                                    long long s_head, const int* row_starts,
+                                    const int* row_lens, const int* ctx_lens, int N,
+                                    int R_rows, int H, int KH, int D, int page_size,
+                                    int dtype, void* stream) {
   if (N <= 0 || R_rows <= 0) return 0;
-  if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size)) return dyn::ERR_UNSUPPORTED;
+  if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size, kv_bits))
+    return dyn::ERR_UNSUPPORTED;
+  dyn::PagedKV kv = dyn::make_kv(kv_k, kv_v, k_scale, v_scale, kv_bits, max_pages,
+                                 num_phys, page_size, KH, s_page, s_tok, s_head);
   DYN_DISPATCH(dtype, D, LAUNCH_RAGGED);
 }

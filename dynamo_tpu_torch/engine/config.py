@@ -33,17 +33,23 @@ class EngineConfig:
     # speculated tokens past a stop condition are discarded (bounded waste)
     decode_block_steps: int = 8
     # KV-write strategy inside the decode block. "scatter" writes each
-    # step's K/V into the pool (in place on this backend); "local" (new
-    # KV kept in a block-local buffer merged inside the attention kernel,
-    # one pool write per block) is not ported yet. None resolves to
-    # "scatter".
+    # step's K/V into the pool (in place on this backend); "local" keeps
+    # the pool read-only for the block's K steps — new K/V go into
+    # per-layer block-local buffers that the attention kernel merges with
+    # the pool — and commits them in ONE pool write per block. None
+    # resolves to "scatter": in-place writes have none of the pool-copy
+    # cost that makes the reference prefer "local" on its platform.
     decode_pool_mode: Optional[str] = None
-    decode_block_unroll: int = 0  # meaningful under "local" only
+    # a lax.scan unroll factor in the reference; accepted for the
+    # configuration's sake and without effect here (no scan to unroll)
+    decode_block_unroll: int = 0
     # batched prefill: token budget per dispatch; lanes = budget // bucket
     prefill_batch_tokens: int = 1024
     max_prefill_batch: int = 8
     quantize: Optional[str] = None  # weight-only quantization (not ported)
-    kv_quant: Optional[str] = None  # "none" | "int8" | "int4" (only none)
+    # KV page format: "none" | "int8" | "int4" (per-page-per-head f32
+    # scales); None = DYN_KV_QUANT, else "none"
+    kv_quant: Optional[str] = None
     spec_mode: Optional[str] = None  # speculative decoding (not ported)
     spec_draft_len: int = 4
     spec_ngram: int = 2
@@ -102,14 +108,12 @@ class EngineConfig:
         bad = []
         if self.quantize:
             bad.append("quantize")
-        if self.kv_quant not in (None, "none"):
-            bad.append("kv_quant")
         if self.spec_mode:
             bad.append("spec_mode")
         for name in ("tp_size", "dp_size", "pp_size", "sp_size"):
             if getattr(self, name) != 1:
                 bad.append(name)
-        if self.decode_pool_mode not in (None, "scatter"):
+        if self.decode_pool_mode not in (None, "scatter", "local"):
             bad.append("decode_pool_mode")
         if self.kvbm_host_blocks or self.kvbm_disk_blocks or self.kvbm_disk_path:
             bad.append("kvbm_*")

@@ -8,7 +8,11 @@ and host reads are the expensive unit:
 
   * decode: ONE BLOCK of K steps for the whole slot batch [max_num_seqs] —
     paged attention + on-device sampling, the sampled token feeding the
-    next step on the device, no host read inside the block. Up to two
+    next step on the device, no host read inside the block. Under
+    decode_pool_mode="scatter" each step writes its K/V into the pool;
+    under "local" the pool stays read-only for the block, each step's K/V
+    go into per-layer block-local buffers that the attention kernel merges
+    with the pool, and one write commits them at the block's end. Up to two
     blocks are kept in flight (the copy of block i runs on a side stream
     and overlaps block i+1's compute), so steady-state decode costs ONE
     device->host copy per K*B tokens. Tokens speculated past a stop are
@@ -32,7 +36,9 @@ kind. All device work runs on one executor thread so a blocking copy never
 stalls the event loop. Left out of this port so far (each raises a typed
 error when asked for): disaggregation, KVBM tiers, role morphing,
 speculative decoding, guided decoding, LoRA, multimodal, multi-host,
-quantized weights/KV, tensor/pipeline/sequence parallelism.
+quantized weights, tensor/pipeline/sequence parallelism. The KV pool may be
+stored at 8 or 4 bits (`kv_quant`): quantized on write, dequantized inside
+the attention kernels.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from ..llm.protocols import Annotated, LLMEngineOutput, PreprocessedRequest
 from ..llm.tokens import TokenBlockSequence
 from ..models import llama
 from ..ops.hopper_ragged_attention import ragged_tile_q
+from ..ops.kv_quant import QuantKV, kv_write_all_layers, resolve_kv_quant
 from ..runtime.engine import Context
 from .bucketing import next_pow2 as _next_pow2
 from .config import EngineConfig, UnsupportedConfigError
@@ -147,9 +154,11 @@ class TorchEngine:
             raise UnsupportedConfigError(
                 f"EngineConfig fields not supported by the PyTorch/CUDA port yet: {bad}"
             )
-        # resolve the auto sentinels into a COPY — the caller's config keeps them
+        # resolve the auto sentinels into a COPY — the caller's config keeps
+        # them. decode_block_unroll is kept as given: it has no effect here.
         config = dataclasses.replace(
-            config, decode_pool_mode="scatter", kv_quant="none",
+            config, decode_pool_mode=config.decode_pool_mode or "scatter",
+            kv_quant=resolve_kv_quant(config.kv_quant),
         )
         self.config = config
         self.device = torch.device(device)
@@ -271,6 +280,7 @@ class TorchEngine:
             max_workers=1, thread_name_prefix="torch-fetch"
         )
         self._copy_stream = None  # side stream for device->host copies
+        self._step_idx = None  # local block: one-element step tensors on the device
 
     # ------------------------------------------------------------------ #
     # lifecycle / interface
@@ -423,6 +433,13 @@ class TorchEngine:
         removed events). Active sequences keep their pages."""
         return self.allocator.clear_cache()
 
+    def _kv_pool_bytes(self) -> int:
+        """Device bytes of the K and V stores (ints plus scales when quantized)."""
+        return sum(
+            kv.nbytes if isinstance(kv, QuantKV) else kv.numel() * kv.element_size()
+            for kv in (self.kv_k, self.kv_v)
+        )
+
     def stats(self) -> dict:
         self._drain_timings()
         running = sum(1 for s in self.slots if s is not None)
@@ -432,7 +449,7 @@ class TorchEngine:
             "gpu_cache_usage_perc": self.allocator.active_pages / self.allocator.num_pages,
             "request_total_slots": self.config.max_num_seqs,
             "kv_quant": self.config.kv_quant,
-            "kv_pool_bytes": 2 * self.kv_k.numel() * self.kv_k.element_size(),
+            "kv_pool_bytes": self._kv_pool_bytes(),
             **self.allocator.stats(),
         }
         out["num_preemptions"] = self.num_preemptions
@@ -783,8 +800,9 @@ class TorchEngine:
     @torch.no_grad()
     def _dev_block(self, all_greedy: bool, no_penalties: bool):
         """K fused decode steps: sampled tokens feed the next step on the
-        device — one host read per K*B tokens instead of per token. The KV
-        pool is written in place each step."""
+        device — one host read per K*B tokens instead of per token. Under
+        "scatter" the KV pool is written in place each step; under "local"
+        it is read-only for the block and committed once at its end."""
         tokens, positions, seq_lens = self._carry
         samp = self._samp_dev._replace(
             all_greedy=all_greedy, no_penalties=no_penalties
@@ -792,12 +810,35 @@ class TorchEngine:
         pen = self._pen_dev
         W = pen.shape[1]
         lanes = torch.arange(tokens.shape[0], device=self.device)
-        outs = []
-        for _ in range(self.config.decode_block_steps):
-            logits, _, _ = llama.decode_forward(
-                self.params, self.model_config, tokens, positions,
-                self.kv_k, self.kv_v, self._tables_dev, seq_lens,
+        local = self.config.decode_pool_mode == "local"
+        if local:
+            c, K = self.model_config, self.config.decode_block_steps
+            pool_lens = (seq_lens - 1).clamp(min=0)
+            start_pos = positions
+            # per-layer block-local K/V in the compute dtype (full precision
+            # under a quantized pool), zeroed at block start
+            loc = torch.zeros(
+                (2, c.num_layers, tokens.shape[0], K, c.num_kv_heads, c.head_dim),
+                dtype=c.dtype, device=self.device,
             )
+            if self._step_idx is None:
+                self._step_idx = [
+                    torch.full((1,), j, dtype=torch.int32, device=self.device)
+                    for j in range(K)
+                ]
+        outs = []
+        for j in range(self.config.decode_block_steps):
+            if local:
+                logits, _, _ = llama.decode_forward_local(
+                    self.params, self.model_config, tokens, positions,
+                    loc[0], loc[1], self._step_idx[j], self.kv_k, self.kv_v,
+                    self._tables_dev, pool_lens,
+                )
+            else:
+                logits, _, _ = llama.decode_forward(
+                    self.params, self.model_config, tokens, positions,
+                    self.kv_k, self.kv_v, self._tables_dev, seq_lens,
+                )
             plogits = penalized(logits, samp, pen)
             nxt, lp, tid, tlp = sample_lp(plogits, samp, positions, raw=logits)
             tokens = nxt.to(torch.int32)
@@ -809,6 +850,16 @@ class TorchEngine:
             positions = positions + 1
             seq_lens = seq_lens + 1
             outs.append((tokens, lp, tid, tlp))
+        if local:
+            # one pool write for the block's K positions of every lane:
+            # inactive lanes write through their scratch table rows, and
+            # positions past the table go to the scratch page
+            pos = start_pos[:, None] + torch.arange(K, device=self.device)[None, :]
+            tables = self._tables_dev
+            phys, offs = llama._page_slots(
+                pos, tables[:, None, :].expand(-1, K, -1), self.config.page_size)
+            kv_write_all_layers(self.kv_k, phys, offs, loc[0])
+            kv_write_all_layers(self.kv_v, phys, offs, loc[1])
         self._carry = (tokens, positions, seq_lens)
         self._pen_dev = pen
         return self._result(*(torch.stack(x) for x in zip(*outs)))

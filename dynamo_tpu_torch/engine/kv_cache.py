@@ -14,7 +14,7 @@ from __future__ import annotations
 import logging
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,9 +32,10 @@ def alloc_kv_arrays(
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
     kv_quant: str = "none",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the zeroed K and V stores. Only the full-precision layout
-    (kv_quant="none") is ported; the engine writes these tensors in place."""
+) -> Tuple[Any, Any]:
+    """Allocate the zeroed K and V stores: tensors for kv_quant="none",
+    `QuantKV` stores for "int8"/"int4" (ops/kv_quant.py). The engine
+    writes them in place."""
     from ..ops.kv_quant import alloc_kv_store
 
     kv_k = alloc_kv_store(

@@ -10,9 +10,13 @@ reference's argument order and layouts:
     "final_norm", "lm_head" (None when tied)} — the reference's tree.
 
 Unlike the reference, the KV cache is WRITTEN IN PLACE: the forwards return
-the same `kv_k`/`kv_v` tensors they were given. Physical page 0 is the
-scratch page — padding tokens and positions past the page table write
-there (a missed case would corrupt a shared prefix-cache page silently).
+the same `kv_k`/`kv_v` stores they were given (tensors, or `QuantKV` for an
+int8/int4 cache, whose writes quantize and whose reads dequantize: the
+attention reads a layer's pages back after that layer's write, so a
+quantized prefill attends the quantized copy of its own chunk, as in the
+reference). Physical page 0 is the scratch page — padding tokens and
+positions past the page table write there (a missed case would corrupt a
+shared prefix-cache page silently).
 
 Products: every projection runs `qdot` in the model dtype (bf16 in, f32
 accumulation, bf16 out); `silu(gate) * up` is evaluated in f32 from those
@@ -30,6 +34,8 @@ import torch.nn.functional as F
 from ..ops.kv_quant import kv_layer, kv_page_size, kv_write
 from ..ops.paged_attention import (
     paged_attention_decode,
+    paged_attention_decode_mixed,
+    paged_attention_decode_mixed_plain,
     paged_attention_decode_plain,
     prefill_attention_batched,
     prefill_attention_batched_plain,
@@ -197,8 +203,8 @@ def prefill_forward_batched(
     config: LlamaConfig,
     tokens: torch.Tensor,  # [B, T] one chunk per sequence (padded to bucket)
     positions: torch.Tensor,  # [B, T] absolute positions (pads -> scratch tail)
-    kv_k: torch.Tensor,  # [L, pages, page_size, kv_heads, head_dim]
-    kv_v: torch.Tensor,
+    kv_k,  # [L, pages, page_size, kv_heads, head_dim] or QuantKV
+    kv_v,
     page_tables: torch.Tensor,  # [B, max_pages] per-seq tables (ctx-bounded)
     context_lens: torch.Tensor,  # [B] history length per seq
     last_idx: torch.Tensor,  # [B] index of last REAL token per chunk
@@ -242,8 +248,8 @@ def ragged_forward(
     tokens: torch.Tensor,  # [N] flat packed: prefill chunks + decode singletons
     positions: torch.Tensor,  # [N] absolute positions (pads -> scratch tail)
     row_ids: torch.Tensor,  # [N] owning row per flat token
-    kv_k: torch.Tensor,  # [L, pages, page_size, kv_heads, head_dim]
-    kv_v: torch.Tensor,
+    kv_k,  # [L, pages, page_size, kv_heads, head_dim] or QuantKV
+    kv_v,
     page_tables: torch.Tensor,  # [R, max_pages] per-row tables (ctx-bounded)
     row_starts: torch.Tensor,  # [R] flat index of each row's token 0
     row_lens: torch.Tensor,  # [R] real tokens per row (1 for decode rows)
@@ -287,8 +293,8 @@ def decode_forward(
     config: LlamaConfig,
     tokens: torch.Tensor,  # [B] one new token per slot
     positions: torch.Tensor,  # [B]
-    kv_k: torch.Tensor,
-    kv_v: torch.Tensor,
+    kv_k,
+    kv_v,
     page_tables: torch.Tensor,  # [B, max_pages]
     seq_lens: torch.Tensor,  # [B] lengths INCLUDING the new token
     plain_attention: bool = False,
@@ -316,6 +322,49 @@ def decode_forward(
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     logits = qdot(x, head_leaf(params), out_dtype=torch.float32)
     return logits, kv_k, kv_v
+
+
+def decode_forward_local(
+    params: Dict[str, Any],
+    config: LlamaConfig,
+    tokens: torch.Tensor,  # [B] one new token per slot
+    positions: torch.Tensor,  # [B]
+    loc_k,  # [L, B, K, KH, D] (or L tensors [B, K, KH, D]) block-local KV
+    loc_v,  # in the compute dtype, written in place
+    step_idx: torch.Tensor,  # [1] int32 on the device: this step's local slot
+    kv_k,  # READ-ONLY pool (the engine commits the local buffer once per block)
+    kv_v,
+    page_tables: torch.Tensor,  # [B, max_pages]
+    pool_lens: torch.Tensor,  # [B] positions valid in the pool (block-start len)
+    plain_attention: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step that does NOT write the KV pool: each layer's new
+    K/V go into its block-local buffer at `step_idx` (in place), and
+    attention reads pool + local through paged_attention_decode_mixed.
+    `step_idx` stays on the device, so no step needs a host value. Returns
+    (logits [B, vocab] f32, loc_k, loc_v)."""
+    c = config
+    x = embed_rows(params["embed"], tokens, c.dtype)  # [B, H]
+    cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
+    slot = step_idx.reshape(1).long()
+    attend = (paged_attention_decode_mixed_plain if plain_attention
+              else paged_attention_decode_mixed)
+
+    for li in range(c.num_layers):
+        layer = _layer(params, li)
+        q, k, v = _qkv(layer, x, c, cos, sin)
+        loc_k[li].index_copy_(1, slot, k[:, None].to(loc_k[li].dtype))
+        loc_v[li].index_copy_(1, slot, v[:, None].to(loc_v[li].dtype))
+        attn = attend(
+            q, kv_layer(kv_k, li), kv_layer(kv_v, li), page_tables, pool_lens,
+            loc_k[li], loc_v[li], step_idx,
+        )
+        x = x + qdot(attn.reshape(-1, c.num_heads * c.head_dim), layer["wo"])
+        x = _mlp(layer, x, c)
+
+    x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
+    logits = qdot(x, head_leaf(params), out_dtype=torch.float32)
+    return logits, loc_k, loc_v
 
 
 def param_count(params) -> int:

@@ -1,7 +1,9 @@
 """Matrix-product helpers shared by the model code.
 
 Port of the unquantized form of `dynamo_tpu/models/quant.py` (`qdot`,
-`embed_rows`, `head_leaf`); int8 weight-only quantization is not ported.
+`embed_rows`, `head_leaf`) and of the symmetric-range primitives the
+quantized KV cache shares with it (`QMAX`, `pack_int4`, `unpack_int4`);
+int8 weight-only quantization is not ported.
 
 Where the two frameworks differ: the reference's `qdot` returns f32 from
 bf16 operands (f32 accumulation AND f32 output) and the caller casts.
@@ -31,6 +33,27 @@ def qdot(x: torch.Tensor, w: torch.Tensor,
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=out_dtype)
         return y.reshape(*lead, w.shape[-1])
     return torch.matmul(x.to(out_dtype), w.to(out_dtype))
+
+
+QMAX = {8: 127, 4: 7}  # symmetric ranges: int8 [-127,127], int4 [-7,7]
+
+
+def pack_int4(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Pack int4 values (int8 storage, range [-7,7]) two to a byte along
+    `axis`, pairing index i with i + n/2: byte = (q[i] & 0xF) | (q[i+n/2]
+    << 4), so unpack_int4's concat(lo, hi) restores the original order.
+    `axis` length must be even."""
+    n = q.shape[axis]
+    lo, hi = torch.split(q, n // 2, dim=axis)
+    return (lo & 0x0F) | (hi << 4)
+
+
+def unpack_int4(packed: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inverse of pack_int4: sign-extend both nibbles (arithmetic shifts on
+    int8) and concatenate along `axis`, low half first."""
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
+    return torch.cat([lo, hi], dim=axis)
 
 
 def embed_rows(embed: torch.Tensor, tokens: torch.Tensor, dtype=None) -> torch.Tensor:

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from .kv_quant import kernel_operands
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -124,35 +126,37 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _declare(lib: ctypes.CDLL) -> None:
     """argtypes/restype of every C entry (pointers and the stream are
     c_void_p: ctypes would otherwise truncate them to 32-bit ints)."""
-    kv = [_P, _P, _P, _I, _I, _L, _L, _L]  # kv_k, kv_v, tables, max_pages, num_phys, strides
+    # kv_k, kv_v, k_scale, v_scale, kv_bits, tables, max_pages, num_phys, strides
+    kv = [_P, _P, _P, _P, _I, _P, _I, _I, _L, _L, _L]
     lib.dyn_paged_decode.argtypes = [
         _P, _P, *kv, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.dyn_paged_decode_local.argtypes = [
+        _P, _P, *kv, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.dyn_prefill_attention.argtypes = [
         _P, _P, *kv, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.dyn_ragged_attention.argtypes = [
         _P, _P, *kv, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-    for fn in (lib.dyn_paged_decode, lib.dyn_prefill_attention,
-               lib.dyn_ragged_attention):
+    for fn in (lib.dyn_paged_decode, lib.dyn_paged_decode_local,
+               lib.dyn_prefill_attention, lib.dyn_ragged_attention):
         fn.restype = _I
     lib.dyn_error_string.argtypes = [_I]
     lib.dyn_error_string.restype = ctypes.c_char_p
 
 
 # ---------------------------------------------------------------------- #
-# argument checks shared by the three kernel wrappers
+# argument checks shared by the kernel wrappers
 # ---------------------------------------------------------------------- #
 
 _DTYPE_CODES = {"torch.bfloat16": 0, "torch.float32": 1}
 HEAD_DIMS = (16, 64, 128)  # head_dim values the kernels are instantiated for
+KV_FORMATS = ("none", "int8", "int4")  # keys of each wrapper's launches_by_format
+_BITS_FORMAT = {0: "none", 8: "int8", 4: "int4"}
 
 
-def dtype_code(q, kv_k, kv_v) -> int:
+def dtype_code(q) -> int:
     code = _DTYPE_CODES.get(str(q.dtype))
-    if code is None or kv_k.dtype != q.dtype or kv_v.dtype != q.dtype:
-        raise TypeError(
-            f"kernel takes bfloat16 or float32 with q and KV alike, got "
-            f"q={q.dtype} k={kv_k.dtype} v={kv_v.dtype}"
-        )
+    if code is None:
+        raise TypeError(f"kernel takes bfloat16 or float32 queries, got {q.dtype}")
     return code
 
 
@@ -168,36 +172,59 @@ def check_dense(name: str, t, dtype=None) -> None:
         raise TypeError(f"{name} must be {dtype}, is {t.dtype}")
 
 
-def kv_args(q, kv_k, kv_v, page_tables, rows: int):
-    """Validate one layer's KV pools + page tables against q [.., H, D] and
-    return the C arguments (kv_k, kv_v, tables, max_pages, num_phys,
-    s_page, s_tok, s_head) plus (KH, page_size)."""
+def kv_args(q, kv_k_layer, kv_v_layer, page_tables, rows: int):
+    """Validate one layer's KV operands (tensors, or per-layer QuantKV) and
+    page tables against q [.., H, D]. Returns the C arguments (kv_k, kv_v,
+    k_scale, v_scale, kv_bits, tables, max_pages, num_phys, s_page, s_tok,
+    s_head), KH, page_size and the format's name."""
     check_dense("q", q)
     H, D = q.shape[-2], q.shape[-1]
+    kv_k, kv_v, _, page_size, bits, k_scale, v_scale = kernel_operands(
+        kv_k_layer, kv_v_layer)
     if kv_k.dim() != 4 or kv_k.shape != kv_v.shape or kv_k.stride() != kv_v.stride():
-        raise ValueError("kv_k and kv_v must be [pages, page_size, KH, D] and alike")
-    num_phys, page_size, KH, Dk = kv_k.shape
+        raise ValueError("kv_k and kv_v must be [pages, rows, KH, D] and alike")
+    num_phys, rows_held, KH, Dk = kv_k.shape
+    if rows_held != (page_size // 2 if bits == 4 else page_size):
+        raise ValueError(f"{rows_held} stored rows per page do not hold {page_size} "
+                         f"tokens at kv_bits {bits}")
+    want = q.dtype if bits == 0 else torch.int8
+    if kv_k.dtype != want or kv_v.dtype != want:
+        raise TypeError(f"KV pools must be {want} for q {q.dtype} and kv_bits {bits}, "
+                        f"are {kv_k.dtype}/{kv_v.dtype}")
     if Dk != D or D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} (KV {Dk}) not in {HEAD_DIMS}")
     if H % KH:
         raise ValueError(f"{H} query heads do not group over {KH} KV heads")
     if page_size % 4 or not (page_size <= 64 or page_size % 64 == 0):
         raise ValueError(f"page_size {page_size}: want a multiple of 4, <= 64 or a multiple of 64")
-    vec = 16 // kv_k.element_size()
+    if bits == 4 and not (page_size <= 64 or (page_size // 2) % 64 == 0):
+        raise ValueError(f"int4 page_size {page_size}: want <= 64 or a multiple of 128")
+    # 16-byte vectors of the pool's type; quantized rows are read 8 bytes
+    # (bf16) or 4 bytes (f32) at a time
+    vec = 16 // kv_k.element_size() if bits == 0 else 8
     s_page, s_tok, s_head, s_d = kv_k.stride()
     if s_d != 1 or s_page % vec or s_tok % vec or s_head % vec:
-        raise ValueError(f"KV strides {kv_k.stride()} must keep D contiguous and rows 16-byte aligned")
+        raise ValueError(f"KV strides {kv_k.stride()} must keep D contiguous and rows aligned")
     for name, t in (("kv_k", kv_k), ("kv_v", kv_v), ("page_tables", page_tables)):
         if t.device != q.device:
             raise ValueError(f"{name} must lie on {q.device}, is on {t.device}")
     if kv_k.data_ptr() % 16 or kv_v.data_ptr() % 16:
         raise ValueError("KV pools must be 16-byte aligned")
+    scale_ptrs = (None, None)
+    if bits:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            # read one f32 at a time: contiguous, no vector alignment needed
+            if (sc.dtype != torch.float32 or sc.shape != (num_phys, KH)
+                    or not sc.is_contiguous() or sc.device != q.device):
+                raise ValueError(f"{name} must be contiguous f32 [{num_phys}, {KH}] "
+                                 f"on {q.device}")
+        scale_ptrs = (k_scale.data_ptr(), v_scale.data_ptr())
     check_dense("page_tables", page_tables, torch.int32)
     if page_tables.dim() != 2 or page_tables.shape[0] != rows:
         raise ValueError(f"page_tables must be [{rows}, max_pages], is {tuple(page_tables.shape)}")
-    args = (kv_k.data_ptr(), kv_v.data_ptr(), page_tables.data_ptr(),
+    args = (kv_k.data_ptr(), kv_v.data_ptr(), *scale_ptrs, bits, page_tables.data_ptr(),
             page_tables.shape[1], num_phys, s_page, s_tok, s_head)
-    return args, KH, page_size
+    return args, KH, page_size, _BITS_FORMAT[bits]
 
 
 def check_index_vector(name: str, t, n: int, device) -> None:

@@ -4,7 +4,9 @@ The kernel (csrc/prefill_attention.cu) replaces the TPU kernel
 `dynamo_tpu/ops/pallas_prefill_attention.py:_prefill_kernel`. It is bound
 by the larger of its products and one pass over each sequence's context;
 each block of 16 query tokens x G heads stops at its own causal limit and
-never reads pages past it. The plain PyTorch version is
+never reads pages past it. An int8/int4 pool is dequantized while each
+tile is staged (the TPU reference had no quantized prefill kernel). The
+plain PyTorch version is
 `ops.paged_attention.prefill_attention_batched_plain`.
 """
 
@@ -15,12 +17,13 @@ import torch
 from . import _build
 
 launch_count = 0  # kernel launches made through this wrapper
+launches_by_format = dict.fromkeys(_build.KV_FORMATS, 0)  # the same, by KV format
 
 
 def prefill_attention_batched_hopper(
     q: torch.Tensor,  # [B, T, H, D] (rope applied; chunk KV already in pages)
-    kv_k_layer: torch.Tensor,  # [pages, page_size, KH, D]
-    kv_v_layer: torch.Tensor,
+    kv_k_layer,  # [pages, page_size, KH, D] tensor, or per-layer QuantKV
+    kv_v_layer,
     page_tables: torch.Tensor,  # [B, max_pages] int32
     starts: torch.Tensor,  # [B] int32 absolute position of each chunk's row 0
     total_lens: torch.Tensor,  # [B] int32 valid context (history + real chunk)
@@ -30,8 +33,8 @@ def prefill_attention_batched_hopper(
     if q.dim() != 4:
         raise ValueError(f"q must be [B, T, H, D], is {tuple(q.shape)}")
     B, T, H, D = q.shape
-    code = _build.dtype_code(q, kv_k_layer, kv_v_layer)
-    kv, KH, page_size = _build.kv_args(q, kv_k_layer, kv_v_layer, page_tables, B)
+    code = _build.dtype_code(q)
+    kv, KH, page_size, fmt = _build.kv_args(q, kv_k_layer, kv_v_layer, page_tables, B)
     _build.check_index_vector("starts", starts, B, q.device)
     _build.check_index_vector("total_lens", total_lens, B, q.device)
     lib = _build.load_library()
@@ -43,4 +46,5 @@ def prefill_attention_batched_hopper(
     )
     _build.check_status(lib, rc, "prefill attention")
     launch_count += 1
+    launches_by_format[fmt] += 1
     return out

@@ -5,7 +5,9 @@ The kernel (csrc/ragged_attention.cu) replaces the TPU kernel
 bound by their products, one-token rows by the bytes of their context.
 Each block finds its own row from the row lengths, so rows need no
 alignment in the flat buffer: `ragged_tile_q()` is 1 and the engine's
-mixed packer packs densely. The plain PyTorch version is
+mixed packer packs densely. An int8/int4 pool is dequantized while each
+tile is staged, in place of the TPU kernel's `dequant_window`. The plain
+PyTorch version is
 `ops.paged_attention.ragged_attention_plain`.
 """
 
@@ -16,6 +18,7 @@ import torch
 from . import _build
 
 launch_count = 0  # kernel launches made through this wrapper
+launches_by_format = dict.fromkeys(_build.KV_FORMATS, 0)  # the same, by KV format
 
 
 def ragged_tile_q(dtype=None) -> int:
@@ -25,8 +28,8 @@ def ragged_tile_q(dtype=None) -> int:
 
 def ragged_attention_hopper(
     q: torch.Tensor,  # [N, H, D] flat packed tokens (rope applied)
-    kv_k_layer: torch.Tensor,  # [pages, page_size, KH, D]
-    kv_v_layer: torch.Tensor,
+    kv_k_layer,  # [pages, page_size, KH, D] tensor, or per-layer QuantKV
+    kv_v_layer,
     page_tables: torch.Tensor,  # [R, max_pages] int32
     row_starts: torch.Tensor,  # [R] int32 flat index of each row's token 0
     row_lens: torch.Tensor,  # [R] int32 real tokens per row (0 = padding row)
@@ -39,8 +42,8 @@ def ragged_attention_hopper(
         raise ValueError(f"q must be [N, H, D], is {tuple(q.shape)}")
     N, H, D = q.shape
     R = page_tables.shape[0]
-    code = _build.dtype_code(q, kv_k_layer, kv_v_layer)
-    kv, KH, page_size = _build.kv_args(q, kv_k_layer, kv_v_layer, page_tables, R)
+    code = _build.dtype_code(q)
+    kv, KH, page_size, fmt = _build.kv_args(q, kv_k_layer, kv_v_layer, page_tables, R)
     for name, t in (("row_starts", row_starts), ("row_lens", row_lens),
                     ("ctx_lens", ctx_lens)):
         _build.check_index_vector(name, t, R, q.device)
@@ -55,4 +58,5 @@ def ragged_attention_hopper(
     )
     _build.check_status(lib, rc, "ragged attention")
     launch_count += 1
+    launches_by_format[fmt] += 1
     return out

@@ -8,7 +8,9 @@ else: a CUDA tensor goes to the kernel (which launches or raises), a CPU
 tensor to the plain version. There is no environment knob and no fallback.
 
 Layouts:
-  kv_k / kv_v (per layer): [num_pages, page_size, kv_heads, head_dim]
+  kv_k / kv_v (per layer): [num_pages, page_size, kv_heads, head_dim], or a
+      per-layer `QuantKV` (ops/kv_quant.py) whose pages the plain versions
+      dequantize through `gather_dequant` and the kernels while staging
   page_table: logical page index -> physical page id
 """
 
@@ -17,11 +19,14 @@ from __future__ import annotations
 import torch
 
 from .hopper_paged_attention import paged_attention_decode_hopper
+from .hopper_paged_attention_local import paged_attention_decode_local_hopper
 from .hopper_prefill_attention import prefill_attention_batched_hopper
 from .hopper_ragged_attention import ragged_attention_hopper, ragged_tile_q
+from .kv_quant import QuantKV, gather_dequant
 
 __all__ = [
     "paged_attention_decode", "paged_attention_decode_plain",
+    "paged_attention_decode_mixed", "paged_attention_decode_mixed_plain",
     "prefill_attention_batched", "prefill_attention_batched_plain",
     "ragged_attention", "ragged_attention_plain", "ragged_tile_q",
     "plain_calls",
@@ -30,15 +35,23 @@ __all__ = [
 NEG_INF = -1e30
 
 #: calls of each plain version, so a run on the card can show it made none
-plain_calls = {"decode": 0, "prefill": 0, "ragged": 0}
+plain_calls = {"decode": 0, "decode_mixed": 0, "prefill": 0, "ragged": 0}
 
 
-def _gather_ctx(layer: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """[pages, ps, KH, D] gathered by tables [..., P] -> [..., P*ps, KH, D]
-    in f32. Page ids are clamped to the pool, as the kernels clamp them."""
-    num_pages, page_size, KH, D = layer.shape
-    pages = layer[tables.long().clamp(0, num_pages - 1)]
-    return pages.reshape(*tables.shape[:-1], tables.shape[-1] * page_size, KH, D).float()
+def _ctx_dtype(layer, q: torch.Tensor) -> torch.dtype:
+    """The type the context is read in: the pool's own, or the compute
+    type for a quantized pool (dequantized values are cast to q's type)."""
+    return q.dtype if isinstance(layer, QuantKV) else layer.dtype
+
+
+def _gather_ctx(layer, tables: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Per-layer pages gathered by tables [..., P] -> [..., P*ps, KH, D] in
+    f32, read in `dtype` (dequantized first for a QuantKV). Page ids are
+    clamped to the pool, as the kernels clamp them."""
+    num_pages = (layer.q if isinstance(layer, QuantKV) else layer).shape[0]
+    pages = gather_dequant(layer, tables.long().clamp(0, num_pages - 1), dtype)
+    P, ps, KH, D = pages.shape[-4:]
+    return pages.reshape(*tables.shape[:-1], P * ps, KH, D).float()
 
 
 def _softmax_pv(scores: torch.Tensor, mask: torch.Tensor, ctx_v: torch.Tensor,
@@ -60,18 +73,50 @@ def paged_attention_decode_plain(
     """Plain one-token decode attention over paged KV. Returns [B, H, D]."""
     plain_calls["decode"] += 1
     B, H, D = q.shape
-    KH = kv_k_layer.shape[2]
+    dt = _ctx_dtype(kv_k_layer, q)
+    ctx_k = _gather_ctx(kv_k_layer, page_tables, dt)  # [B, S, KH, D]
+    ctx_v = _gather_ctx(kv_v_layer, page_tables, dt)
+    S, KH = ctx_k.shape[1], ctx_k.shape[2]
     G = H // KH
-    ctx_k = _gather_ctx(kv_k_layer, page_tables)  # [B, S, KH, D]
-    ctx_v = _gather_ctx(kv_v_layer, page_tables)
-    S = ctx_k.shape[1]
     qg = q.reshape(B, KH, G, D).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qg, ctx_k) / (D ** 0.5)
     key_pos = torch.arange(S, device=q.device)
     # an empty lane behaves as length 1, as in the kernel
     mask = key_pos[None, :] < seq_lens.clamp(min=1)[:, None]  # [B, S]
-    out = _softmax_pv(scores, mask[:, None, None, :], ctx_v, "bkgs,bskd->bkgd",
-                      kv_v_layer.dtype)
+    out = _softmax_pv(scores, mask[:, None, None, :], ctx_v, "bkgs,bskd->bkgd", dt)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_attention_decode_mixed_plain(
+    q: torch.Tensor,  # [B, H, D]
+    kv_k_layer,  # [pages, page_size, KH, D] or QuantKV — READ-ONLY pool
+    kv_v_layer,
+    page_tables: torch.Tensor,  # [B, max_pages]
+    pool_lens: torch.Tensor,  # [B] positions valid IN THE POOL
+    loc_k: torch.Tensor,  # [B, K, KH, D] block-local keys (compute dtype)
+    loc_v: torch.Tensor,
+    step_idx: torch.Tensor,  # [1] int32: local entries 0..step_idx are valid
+) -> torch.Tensor:
+    """Plain decode attention over the pool pages plus the block-local
+    buffer: one softmax over both. Pool keys are valid below pool_lens[b]
+    (none for a lane with pool length 0, as in the reference's oracle);
+    local entries j <= step_idx. Returns [B, H, D]."""
+    plain_calls["decode_mixed"] += 1
+    B, H, D = q.shape
+    dt = _ctx_dtype(kv_k_layer, q)
+    ctx_k = _gather_ctx(kv_k_layer, page_tables, dt)  # [B, S, KH, D]
+    ctx_v = _gather_ctx(kv_v_layer, page_tables, dt)
+    S, KH = ctx_k.shape[1], ctx_k.shape[2]
+    K = loc_k.shape[1]
+    G = H // KH
+    cat_k = torch.cat([ctx_k, loc_k.to(dt).float()], dim=1)
+    cat_v = torch.cat([ctx_v, loc_v.to(dt).float()], dim=1)
+    qg = q.reshape(B, KH, G, D).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, cat_k) / (D ** 0.5)
+    pool_valid = torch.arange(S, device=q.device)[None, :] < pool_lens[:, None]
+    loc_valid = (torch.arange(K, device=q.device) <= step_idx.reshape(()))[None, :]
+    mask = torch.cat([pool_valid, loc_valid.expand(B, K)], dim=1)  # [B, S+K]
+    out = _softmax_pv(scores, mask[:, None, None, :], cat_v, "bkgs,bskd->bkgd", dt)
     return out.reshape(B, H, D).to(q.dtype)
 
 
@@ -90,11 +135,11 @@ def prefill_attention_batched_plain(
     rows past the real chunk give finite values nobody reads."""
     plain_calls["prefill"] += 1
     B, T, H, D = q.shape
-    KH = kv_k_layer.shape[2]
+    dt = _ctx_dtype(kv_k_layer, q)
+    ctx_k = _gather_ctx(kv_k_layer, page_tables, dt)  # [B, S, KH, D]
+    ctx_v = _gather_ctx(kv_v_layer, page_tables, dt)
+    S, KH = ctx_k.shape[1], ctx_k.shape[2]
     G = H // KH
-    ctx_k = _gather_ctx(kv_k_layer, page_tables)  # [B, S, KH, D]
-    ctx_v = _gather_ctx(kv_v_layer, page_tables)
-    S = ctx_k.shape[1]
     qg = q.reshape(B, T, KH, G, D).float()
     scores = torch.einsum("btkgd,bskd->btkgs", qg, ctx_k) / (D ** 0.5)
     key_pos = torch.arange(S, device=q.device)
@@ -103,7 +148,7 @@ def prefill_attention_batched_plain(
         key_pos[None, None, :] < total_lens[:, None, None]
     )  # [B, T, S]
     out = _softmax_pv(scores, mask[:, :, None, None, :], ctx_v,
-                      "btkgs,bskd->btkgd", kv_v_layer.dtype)
+                      "btkgs,bskd->btkgd", dt)
     return out.reshape(B, T, H, D).to(q.dtype)
 
 
@@ -126,8 +171,6 @@ def ragged_attention_plain(
     plain_calls["ragged"] += 1
     N, H, D = q.shape
     R = page_tables.shape[0]
-    KH = kv_k_layer.shape[2]
-    G = H // KH
     idx = torch.arange(N, device=q.device)
     # owning row per token: the last row whose start <= idx
     row_ids = ((idx[:, None] >= row_starts[None, :]).sum(dim=1) - 1).clamp(0, R - 1)
@@ -135,9 +178,11 @@ def ragged_attention_plain(
     positions = ctx_lens[row_ids] + local
     totals = ctx_lens[row_ids] + row_lens[row_ids]
     real = (local >= 0) & (local < row_lens[row_ids])
-    ctx_k = _gather_ctx(kv_k_layer, page_tables)  # [R, S, KH, D]
-    ctx_v = _gather_ctx(kv_v_layer, page_tables)
-    S = ctx_k.shape[1]
+    dt = _ctx_dtype(kv_k_layer, q)
+    ctx_k = _gather_ctx(kv_k_layer, page_tables, dt)  # [R, S, KH, D]
+    ctx_v = _gather_ctx(kv_v_layer, page_tables, dt)
+    S, KH = ctx_k.shape[1], ctx_k.shape[2]
+    G = H // KH
     key_pos = torch.arange(S, device=q.device)
     out = torch.zeros_like(q)
     for lo in range(0, N, token_chunk):
@@ -151,7 +196,7 @@ def ragged_attention_plain(
             & real[sl, None]
         )  # [n, S]
         o = _softmax_pv(scores, mask[:, None, None, :], ctx_v[rid],
-                        "nkgs,nskd->nkgd", kv_v_layer.dtype)
+                        "nkgs,nskd->nkgd", dt)
         o = torch.where(real[sl, None, None, None], o, torch.zeros_like(o))
         out[sl] = o.reshape(-1, H, D).to(q.dtype)
     return out
@@ -169,6 +214,17 @@ def paged_attention_decode(q, kv_k_layer, kv_v_layer, page_tables, seq_lens):
             q, kv_k_layer, kv_v_layer, page_tables, seq_lens)
     return paged_attention_decode_plain(
         q, kv_k_layer, kv_v_layer, page_tables, seq_lens)
+
+
+def paged_attention_decode_mixed(q, kv_k_layer, kv_v_layer, page_tables,
+                                 pool_lens, loc_k, loc_v, step_idx):
+    """Decode attention over the read-only pool plus the block-local
+    buffer (the local decode block's attention). Returns [B, H, D]."""
+    if q.is_cuda:
+        return paged_attention_decode_local_hopper(
+            q, kv_k_layer, kv_v_layer, page_tables, pool_lens, loc_k, loc_v, step_idx)
+    return paged_attention_decode_mixed_plain(
+        q, kv_k_layer, kv_v_layer, page_tables, pool_lens, loc_k, loc_v, step_idx)
 
 
 def prefill_attention_batched(q, kv_k_layer, kv_v_layer, positions,

@@ -1,13 +1,20 @@
 """Where one decode step's time goes on the card.
 
     python3 -m dynamo_tpu_torch.tools.decode_profile [--layers 28] [--ctx 512]
+                                                    [--kv-quant none|int8|int4]
+                                                    [--pool-mode scatter|local]
 
 Runs the engine's decode step (models.llama.decode_forward + sampling, as
-`TorchEngine._dev_block` runs it) at the full width of Llama-3.2-3B with
-64 lanes, random weights, under `torch.profiler`, and prints one JSON
+`TorchEngine._dev_block` runs it under decode_pool_mode="scatter"; under
+"local", `decode_forward_local` steps over a read-only pool and one
+`kv_write_all_layers` commit per block of --steps) at the full width of
+Llama-3.2-3B with
+64 lanes, random weights, over a KV pool in the given format (its writes
+quantize in place), under `torch.profiler`, and prints one JSON
 line: host wall time per step, device-busy time per step (sum of kernel
 times), the device's idle share, kernel launches per step and the kernels
-that take the most device time. Needs a CUDA device.
+that take the most device time (under "local" also the commit's own
+device time). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from ..engine.sampling import SamplingParams, sample_lp
 from ..models import llama
+from ..ops.kv_quant import KV_QUANT_MODES, alloc_kv_store, kv_write_all_layers
 
 
 @torch.no_grad()
@@ -32,6 +40,8 @@ def main() -> None:
     ap.add_argument("--ctx", type=int, default=512, help="context length of every lane")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-quant", choices=KV_QUANT_MODES, default="none")
+    ap.add_argument("--pool-mode", choices=("scatter", "local"), default="scatter")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA device")
@@ -42,20 +52,40 @@ def main() -> None:
     params = llama.init_params(cfg, gen, device=dev)
     B, ps, P = args.lanes, 64, 128
     pages = B * ((args.ctx + args.steps * 3) // ps + 1) + 1
-    kv_k = torch.zeros((cfg.num_layers, pages, ps, cfg.num_kv_heads, cfg.head_dim),
-                       dtype=cfg.dtype, device=dev)
-    kv_v = torch.zeros_like(kv_k)
+    kv_k, kv_v = (alloc_kv_store(cfg.num_layers, pages, ps, cfg.num_kv_heads,
+                                 cfg.head_dim, cfg.dtype, args.kv_quant, device=dev)
+                  for _ in range(2))
     per = (pages - 1) // B
     tables = torch.zeros((B, P), dtype=torch.int32, device=dev)
     tables[:, :per] = 1 + torch.arange(B * per, device=dev, dtype=torch.int32).reshape(B, per)
     samp = SamplingParams.full(B, device=dev)._replace(all_greedy=True, no_penalties=True)
 
+    K = args.steps
+    step_idx = [torch.full((1,), j, dtype=torch.int32, device=dev) for j in range(K)]
+
+    def commit(start, loc):
+        pos = start[:, None] + torch.arange(K, device=dev)[None, :]
+        phys, offs = llama._page_slots(pos, tables[:, None, :].expand(-1, K, -1), ps)
+        kv_write_all_layers(kv_k, phys, offs, loc[0])
+        kv_write_all_layers(kv_v, phys, offs, loc[1])
+
     def run(n_steps, tokens, positions):
-        for _ in range(n_steps):
-            logits, _, _ = llama.decode_forward(
-                params, cfg, tokens, positions, kv_k, kv_v, tables, positions + 1)
+        if args.pool_mode == "local":
+            pool_lens, start = positions, positions
+            loc = torch.zeros((2, cfg.num_layers, B, K, cfg.num_kv_heads, cfg.head_dim),
+                              dtype=cfg.dtype, device=dev)
+        for j in range(n_steps):
+            if args.pool_mode == "local":
+                logits, _, _ = llama.decode_forward_local(
+                    params, cfg, tokens, positions, loc[0], loc[1], step_idx[j],
+                    kv_k, kv_v, tables, pool_lens)
+            else:
+                logits, _, _ = llama.decode_forward(
+                    params, cfg, tokens, positions, kv_k, kv_v, tables, positions + 1)
             nxt, _, _, _ = sample_lp(logits, samp, positions, raw=logits)
             tokens, positions = nxt.to(torch.int32), positions + 1
+        if args.pool_mode == "local":
+            commit(start, loc)
         return tokens, positions
 
     tokens = torch.randint(5, cfg.vocab_size, (B,), device=dev, dtype=torch.int32)
@@ -80,8 +110,23 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     busy_ms = busy_us / 1e3 / args.steps
+    commit_ms = None
+    if args.pool_mode == "local":  # the commit alone, device time
+        loc = torch.randn((2, cfg.num_layers, B, K, cfg.num_kv_heads, cfg.head_dim),
+                          device=dev).to(cfg.dtype)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        commit(positions, loc)
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(3):
+            commit(positions, loc)
+        ev[1].record()
+        torch.cuda.synchronize()
+        commit_ms = round(ev[0].elapsed_time(ev[1]) / 3, 3)
     print(json.dumps({
         "card": smi, "layers": args.layers, "lanes": B, "ctx": args.ctx,
+        "kv_quant": args.kv_quant, "pool_mode": args.pool_mode,
+        "commit_ms_per_block": commit_ms,
         "wall_ms_per_step": round(wall_ms, 3),
         "device_busy_ms_per_step": round(busy_ms, 3),
         "device_idle_share": round(max(0.0, 1.0 - busy_ms / wall_ms), 3),

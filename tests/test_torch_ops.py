@@ -182,11 +182,18 @@ def test_kv_write_matches_reference_and_is_in_place():
 
 
 def test_only_the_full_precision_kv_format_is_ported():
+    """The formats the port stores are the reference's three: full
+    precision by default, int8/int4 on request (tests/test_torch_kv_quant.py
+    holds them to the reference); an unknown mode and an int4 pool with an
+    odd page size are refused."""
     assert tkv.resolve_kv_quant(None) == "none"
-    with pytest.raises(NotImplementedError):
-        tkv.alloc_kv_store(1, 2, PS, KH, D, torch.float32, "int8", device="cpu")
+    assert tkv.KV_QUANT_MODES == jkv.KV_QUANT_MODES
     with pytest.raises(ValueError):
         tkv.resolve_kv_quant("fp3")
+    with pytest.raises(ValueError):
+        tkv.alloc_kv_store(1, 2, PS, KH, D, torch.float32, "fp3", device="cpu")
+    with pytest.raises(ValueError, match="even"):
+        tkv.alloc_kv_store(1, 2, PS + 1, KH, D, torch.float32, "int4", device="cpu")
 
 
 def test_plain_versions_count_their_calls():
