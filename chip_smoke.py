@@ -5,7 +5,10 @@
 
 Builds the Hopper kernels from dynamo_tpu_torch/csrc, holds each kernel in
 each KV format (bf16/f32 pages, int8, int4) against its plain PyTorch
-version on the card, holds the card's quantized page writes to the CPU's
+version on the card (prefill and ragged attention in both of their bodies:
+f32 on the FMA body, bf16 on the tensor-core body at tiny width, at full
+width and at 2, 3, 4 and 8 query heads per KV head), holds the card's
+quantized page writes to the CPU's
 bit for bit, holds the model forwards against the same forwards fed the
 plain attention, then serves a few requests through `TorchEngine.generate`
 at the full width of Llama-3.2-3B (random weights from --seed) in each
@@ -60,11 +63,12 @@ TOL_BF16_FULL = 5e-2  # bf16: probabilities/outputs round at other places
 TOL_BF16_ROW_REL = 2e-2
 # bf16 logits / written pages of a 2-layer forward, kernel vs plain attention,
 # per row (one token's logits; one token x one KV head of a page) as
-# |a - b|_2 / |b|_2: the two attentions differ by bf16 rounding (the kernel
-# keeps probabilities in f32, the plain version rounds them to bf16 as the
-# reference does), and a one-ulp flip (2^-8 relative) is carried through the
-# residual stream and the next layer. Layer 0's pages do not depend on
-# attention and must be equal bit for bit.
+# |a - b|_2 / |b|_2: the two attentions differ by bf16 rounding (the decode
+# kernels keep probabilities in f32; the prefill/ragged tensor-core body
+# rounds unnormalised probabilities to bf16, the plain version normalised
+# ones, as the reference does), and a one-ulp flip (2^-8 relative) is
+# carried through the residual stream and the next layer. Layer 0's pages do
+# not depend on attention and must be equal bit for bit.
 TOL_FORWARD_REL = 3e-2
 LAYERS = 28  # Llama-3.2-3B's own depth
 MAX_TOKENS = 64  # output tokens of every served request
@@ -78,12 +82,14 @@ KERNELS = {
         "source": "dynamo_tpu_torch/csrc/paged_decode.cu",
         "replaces": {"none": "dynamo_tpu/ops/pallas_paged_attention.py:514",
                      "quant": "dynamo_tpu/ops/pallas_paged_attention.py:40"},
+        "body": {"bfloat16": "fma", "float32": "fma"},
     },
     "paged_decode_local": {
         "module": hopper_paged_attention_local,
         "source": "dynamo_tpu_torch/csrc/paged_decode_local.cu",
         "replaces": {"none": "dynamo_tpu/ops/pallas_paged_attention.py:422",
                      "quant": "dynamo_tpu/ops/pallas_paged_attention.py:40"},
+        "body": {"bfloat16": "fma", "float32": "fma"},
     },
     "prefill_attention": {
         "module": hopper_prefill_attention,
@@ -92,12 +98,15 @@ KERNELS = {
         # variant extends this one (a port-side addition)
         "replaces": {"none": "dynamo_tpu/ops/pallas_prefill_attention.py:250",
                      "quant": "dynamo_tpu/ops/pallas_prefill_attention.py:250"},
+        # bf16 runs the tensor-core body (csrc/flash_mma.cuh), f32 the FMA one
+        "body": {"bfloat16": "mma", "float32": "fma"},
     },
     "ragged_attention": {
         "module": hopper_ragged_attention,
         "source": "dynamo_tpu_torch/csrc/ragged_attention.cu",
         "replaces": {"none": "dynamo_tpu/ops/pallas_ragged_attention.py:336",
                      "quant": "dynamo_tpu/ops/pallas_ragged_attention.py:142"},
+        "body": {"bfloat16": "mma", "float32": "fma"},
     },
 }
 
@@ -218,12 +227,16 @@ def sdpa_ms(q, k, v, mask) -> float:
     return time_ms(lambda: f(q, k, v, attn_mask=mask), warm=2, reps=10)
 
 
-def check_full(name, fmt, out, ref):
+def check_full(name, fmt, out, ref, case="full"):
     torch.cuda.synchronize()
     err, rel = max_err(out, ref), row_rel_err(out, ref)
-    assert err <= TOL_BF16_FULL, f"{name}[{fmt}] bf16 full: {err}"
-    assert rel <= TOL_BF16_ROW_REL, f"{name}[{fmt}] bf16 full, per row: {rel}"
+    assert err <= TOL_BF16_FULL, f"{name}[{fmt}] bf16 {case}: {err}"
+    assert rel <= TOL_BF16_ROW_REL, f"{name}[{fmt}] bf16 {case}, per row: {rel}"
     return err, rel
+
+
+def tflops(flops: float, ms: float) -> float:
+    return flops / (ms * 1e-3) / 1e12
 
 
 # ---------------------------------------------------------------------- #
@@ -269,10 +282,11 @@ def check_decode(rng, measured):
         kd, vd = dense_ctx(kk, tab, q.dtype), dense_ctx(vv, tab, q.dtype)
         lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
         del kd, vd
+        ms = time_ms(lambda: pa.paged_attention_decode(q, kk, vv, tab, lens_t))
         measured[("paged_decode", fmt)] = {
             "max_abs_err": err_full, "max_row_rel_err": rel_full,
             "max_abs_err_f32_tiny": tiny[fmt],
-            "ms": time_ms(lambda: pa.paged_attention_decode(q, kk, vv, tab, lens_t)),
+            "ms": ms, "tflops": tflops(4.0 * H * D * ctx.sum(), ms),
             "plain_ms": time_ms(
                 lambda: pa.paged_attention_decode_plain(q, kk, vv, tab, lens_t), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
@@ -331,10 +345,11 @@ def check_decode_local(rng, measured):
         vd = torch.cat([dense_ctx(vv, tab, q.dtype), loc_v.transpose(1, 2)], dim=2).contiguous()
         lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
         del kd, vd
+        ms = time_ms(lambda: pa.paged_attention_decode_mixed(*args))
         measured[("paged_decode_local", fmt)] = {
             "max_abs_err": err_full, "max_row_rel_err": rel_full,
             "max_abs_err_f32_tiny": tiny[fmt],
-            "ms": time_ms(lambda: pa.paged_attention_decode_mixed(*args)),
+            "ms": ms, "tflops": tflops(4.0 * H * D * keys, ms),
             "plain_ms": time_ms(lambda: pa.paged_attention_decode_mixed_plain(*args), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "shape": (f"B={B} H={H} KH={KH} D={D} ps={ps} tables=[{B},{P}] "
@@ -351,8 +366,9 @@ def prefill_case(rng, B, T, H, KH, D, ps, P, pages, dtype, starts, reals):
     return q, k, v, pos, rand_tables(rng, B, P, pages), i32(totals), i32(starts)
 
 
-def check_prefill(rng, measured):
-    # tiny f32: history + chunk, page-straddling, a padded tail, a dummy lane
+def check_prefill(rng, measured, rng_bf16):
+    # tiny f32 (the FMA body): history + chunk, page-straddling, a padded
+    # tail, a dummy lane
     q, k, v, *rest = prefill_case(rng, 3, 24, 4, 2, 16, 8, 9, 40, torch.float32,
                                   starts=[0, 13, 0], reals=[24, 17, 1])
     tiny = {}
@@ -362,6 +378,27 @@ def check_prefill(rng, measured):
                             pa.prefill_attention_batched_plain(q, kk, vv, *rest))
         torch.cuda.synchronize()
         assert tiny[fmt] <= TOL_F32_TINY, f"prefill_attention[{fmt}] f32 tiny: {tiny[fmt]}"
+    # bf16 (the tensor-core body) where its packing can break: tiny D=16 at
+    # page 8 (an 8-key tile padded to the 16-key MMA depth) with G=2 (32
+    # tokens a block, so T=40 is two tiles), history + chunk,
+    # page-straddling, a padded tail, a dummy lane; then short full-width
+    # cases at G=4 (16 tokens a block) and G=8 (8 tokens)
+    bf16_cases = {
+        "tiny_G2": prefill_case(rng_bf16, 3, 40, 4, 2, 16, 8, 9, 40, torch.bfloat16,
+                                starts=[0, 13, 0], reals=[40, 27, 1]),
+        "G4": prefill_case(rng_bf16, 2, 100, 32, 8, 128, 64, 5, 64, torch.bfloat16,
+                           starts=[0, 130], reals=[100, 77]),
+        "G8": prefill_case(rng_bf16, 2, 100, 64, 8, 128, 64, 5, 64, torch.bfloat16,
+                           starts=[0, 130], reals=[100, 77]),
+    }
+    checks = {fmt: {} for fmt in FORMATS}
+    for fmt in FORMATS:
+        for case, (qq, k_, v_, *rest) in bf16_cases.items():
+            kk, vv = pool_in(k_, v_, fmt)
+            checks[fmt][case] = check_full(
+                "prefill_attention", fmt, pa.prefill_attention_batched(qq, kk, vv, *rest),
+                pa.prefill_attention_batched_plain(qq, kk, vv, *rest), case)
+    del bf16_cases
     H, KH, D, ps = 24, 8, 128, 64
     # the engine's batch shape: 8 lanes x bucket 128, varied history
     a8 = prefill_case(rng, 8, 128, H, KH, D, ps, 17, 2049, torch.bfloat16,
@@ -393,10 +430,12 @@ def check_prefill(rng, measured):
         kd, vd = dense_ctx(kk, tab, q.dtype), dense_ctx(vv, tab, q.dtype)
         lib = sdpa_ms(q.transpose(1, 2), kd, vd, mask)
         del kd, vd
+        ms = time_ms(lambda: pa.prefill_attention_batched(*args))
         measured[("prefill_attention", fmt)] = {
             "max_abs_err": max(errs.values()), "max_row_rel_err": max(rels.values()),
             "max_abs_err_f32_tiny": tiny[fmt], "errs": errs, "row_rel_errs": rels,
-            "ms": time_ms(lambda: pa.prefill_attention_batched(*args)),
+            "bf16_checks": checks[fmt],
+            "ms": ms, "tflops": tflops(4.0 * H * D * visible, ms),
             "plain_ms": time_ms(lambda: pa.prefill_attention_batched_plain(*args), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "shape": f"B={B} T={T} H={H} KH={KH} D={D} ps={ps} start={start} total={start + T}",
@@ -422,9 +461,9 @@ def ragged_case(rng, N, R, H, KH, D, ps, P, pages, dtype, rows):
             i32(ctx_lens)), real
 
 
-def check_ragged(rng, measured):
-    # tiny f32: decode rows + prefill rows, page-straddling, a padding row,
-    # a decode row with no history, tail padding tokens
+def check_ragged(rng, measured, rng_bf16):
+    # tiny f32 (the FMA body): decode rows + prefill rows, page-straddling,
+    # a padding row, a decode row with no history, tail padding tokens
     rows = [(1, 12), (11, 0), (1, 0), (20, 7), (1, 8), (5, 16)]
     (q, k, v, *rest), real = ragged_case(rng, 64, 8, 4, 2, 16, 8, 6, 40, torch.float32, rows)
     tiny = {}
@@ -436,6 +475,28 @@ def check_ragged(rng, measured):
         tiny[fmt] = max_err(out[real], ref[real])
         assert tiny[fmt] <= TOL_F32_TINY, f"ragged_attention[{fmt}] f32 tiny: {tiny[fmt]}"
         assert torch.isfinite(out.float()).all(), "ragged padding tokens are not finite"
+    # bf16 (the tensor-core body): the same mix at D=16, page 8, G=2, plus a
+    # 40-token row (two tiles of 32 tokens); then short full-width mixes at
+    # G=4 and G=8 (chunk rows over several tiles, decode rows, one with no
+    # history)
+    bf16_cases = {
+        "tiny_G2": ragged_case(rng_bf16, 96, 8, 4, 2, 16, 8, 6, 40, torch.bfloat16,
+                               rows + [(40, 3)]),
+        "G4": ragged_case(rng_bf16, 128, 6, 32, 8, 128, 64, 5, 64, torch.bfloat16,
+                          [(70, 33), (1, 200), (1, 0), (45, 0)]),
+        "G8": ragged_case(rng_bf16, 128, 6, 64, 8, 128, 64, 5, 64, torch.bfloat16,
+                          [(70, 33), (1, 200), (1, 0), (45, 0)]),
+    }
+    checks = {fmt: {} for fmt in FORMATS}
+    for fmt in FORMATS:
+        for case, ((qq, k_, v_, *rest), real_c) in bf16_cases.items():
+            kk, vv = pool_in(k_, v_, fmt)
+            out = pa.ragged_attention(qq, kk, vv, *rest)
+            ref = pa.ragged_attention_plain(qq, kk, vv, *rest)
+            checks[fmt][case] = check_full("ragged_attention", fmt, out[real_c], ref[real_c],
+                                           case)
+            assert not out[~real_c].any(), "ragged padding tokens are not zeros"
+    del bf16_cases
     # full width bf16: one 1024-token chunk with history beside 48 decode lanes
     H, KH, D, ps, P, N, R = 24, 8, 128, 64, 33, 2048, 128
     rows = [(1024, 512), (200, 0)] + [(1, int(c)) for c in rng.integers(0, 2048, size=48)]
@@ -470,10 +531,11 @@ def check_ragged(rng, measured):
         kd, vd = dense_ctx(kk, tab[:Rr], q.dtype), dense_ctx(vv, tab[:Rr], q.dtype)
         lib = sdpa_ms(qp, kd, vd, mask)
         del kd, vd
+        ms = time_ms(lambda: pa.ragged_attention(*args))
         measured[("ragged_attention", fmt)] = {
             "max_abs_err": err_full, "max_row_rel_err": rel_full,
-            "max_abs_err_f32_tiny": tiny[fmt],
-            "ms": time_ms(lambda: pa.ragged_attention(*args)),
+            "max_abs_err_f32_tiny": tiny[fmt], "bf16_checks": checks[fmt],
+            "ms": ms, "tflops": tflops(4.0 * H * D * visible, ms),
             "plain_ms": time_ms(lambda: pa.ragged_attention_plain(*args), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "shape": f"N={N} R={R} H={H} KH={KH} D={D} ps={ps} rows=1024@512+200@0+48 decode",
@@ -484,7 +546,12 @@ def check_ragged(rng, measured):
 def phase_kernels(seed: int) -> dict:
     measured: dict = {}
     rng = np.random.default_rng(seed)
-    for check in (check_decode, check_decode_local, check_prefill, check_ragged):
+    # the bf16 tensor-core checks draw from their own generator, so the timed
+    # shapes (drawn from `rng`) are those of runs without them
+    rng_bf16 = np.random.default_rng(seed + 3)
+    for check in (check_decode, check_decode_local,
+                  lambda r, m: check_prefill(r, m, rng_bf16),
+                  lambda r, m: check_ragged(r, m, rng_bf16)):
         check(rng, measured)
         torch.cuda.empty_cache()
     emit("kernels", tol_f32_tiny=TOL_F32_TINY, tol_bf16_full=TOL_BF16_FULL,
@@ -907,7 +974,9 @@ def main() -> None:
             "replaces": k["replaces"]["none" if fmt == "none" else "quant"],
             "launches": launches[(name, fmt)],
             **{key: measured[(name, fmt)][key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops")},
+            "body": k["body"],
         }
         for name, k in KERNELS.items() for fmt in FORMATS
     ]}

@@ -2,11 +2,13 @@
 
 The kernel (csrc/prefill_attention.cu) replaces the TPU kernel
 `dynamo_tpu/ops/pallas_prefill_attention.py:_prefill_kernel`. It is bound
-by the larger of its products and one pass over each sequence's context;
-each block of 16 query tokens x G heads stops at its own causal limit and
-never reads pages past it. An int8/int4 pool is dequantized while each
-tile is staged (the TPU reference had no quantized prefill kernel). The
-plain PyTorch version is
+by its products at the engine's chunk sizes. bf16 queries run the
+tensor-core body (csrc/flash_mma.cuh: mma.sync with cp.async
+double-buffered K/V tiles, floor(64 / G) query tokens x G heads a block);
+f32 queries the FMA body (csrc/flash_paged.cuh, 16 tokens a block). Each
+block stops at its own causal limit and never reads pages past it. An
+int8/int4 pool is dequantized after each tile is staged (the TPU reference
+had no quantized prefill kernel). The plain PyTorch version is
 `ops.paged_attention.prefill_attention_batched_plain`.
 """
 

@@ -3,11 +3,12 @@
 The kernel (csrc/ragged_attention.cu) replaces the TPU kernel
 `dynamo_tpu/ops/pallas_ragged_attention.py:_ragged_kernel`. Chunk rows are
 bound by their products, one-token rows by the bytes of their context.
-Each block finds its own row from the row lengths, so rows need no
-alignment in the flat buffer: `ragged_tile_q()` is 1 and the engine's
-mixed packer packs densely. An int8/int4 pool is dequantized while each
-tile is staged, in place of the TPU kernel's `dequant_window`. The plain
-PyTorch version is
+bf16 queries run the tensor-core body (csrc/flash_mma.cuh), f32 queries
+the FMA body (csrc/flash_paged.cuh). Each block finds its own row from the
+row lengths, so rows need no alignment in the flat buffer:
+`ragged_tile_q()` is 1 and the engine's mixed packer packs densely. An
+int8/int4 pool is dequantized after each tile is staged, in place of the
+TPU kernel's `dequant_window`. The plain PyTorch version is
 `ops.paged_attention.ragged_attention_plain`.
 """
 

@@ -1,0 +1,104 @@
+"""The port's plain prefill and ragged attention against the JAX reference in
+bf16, at a query-head grouping that is not a power of two (H=6, KH=2: G=3).
+
+The plain versions are what the CPU takes and what the card's tensor-core
+kernels are held to, and the engine serves bf16, so they are checked here
+at the engine's dtype. The same numpy inputs, rounded to bf16 on each
+side, go through `dynamo_tpu_torch.ops.paged_attention` and through the
+reference's XLA paths (`prefill_attention_batched`,
+`ragged_attention_reference`). Tolerance 5e-2 absolute, the bf16 tolerance
+of the reference's own kernel tests: the two round probabilities and
+outputs to bf16 at the same places but sum in other orders. One set of
+shapes per function, so the reference side traces once.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.ops import paged_attention as jops
+from dynamo_tpu_torch.ops import paged_attention as tops
+
+ATOL = 5e-2
+H, KH, D, PS = 6, 2, 16, 8
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _bf16_pair(*arrays):
+    """The float arrays as bf16 torch tensors and bf16 jax arrays."""
+    return ([torch.from_numpy(a).to(torch.bfloat16) for a in arrays],
+            [jnp.asarray(a, jnp.bfloat16) for a in arrays])
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("starts,reals", [
+    ([0, 13, 0], [24, 17, 1]),
+    ([40, 0, 7], [24, 9, 20]),
+], ids=["short_padded_dummy", "history_page_straddle"])
+def test_prefill_plain_bf16_g3_matches_reference(starts, reals):
+    T, P, B = 24, 9, 3
+    rng = np.random.RandomState(sum(reals) + 100)
+    assert max(s + T for s in starts) <= P * PS
+    pages = B * P + 3
+    q = rng.randn(B, T, H, D).astype(np.float32)
+    k = rng.randn(pages, PS, KH, D).astype(np.float32)
+    v = rng.randn(pages, PS, KH, D).astype(np.float32)
+    tables = rng.permutation(pages)[: B * P].reshape(B, P).astype(np.int32)
+    starts_a = np.asarray(starts, np.int32)
+    totals = (starts_a + np.asarray(reals)).astype(np.int32)
+    positions = (starts_a[:, None] + np.arange(T)[None, :]).astype(np.int32)
+    (tq, tk, tv), (jq, jk, jv) = _bf16_pair(q, k, v)
+    got = tops.prefill_attention_batched_plain(
+        tq, tk, tv, *_t(positions, tables, totals, starts_a))
+    want = jops.prefill_attention_batched(jq, jk, jv, *_j(positions, tables, totals, starts_a))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    got, want = _f32(got), _f32(want)
+    assert np.isfinite(got).all()
+    for b, real in enumerate(reals):  # padded rows are discarded by callers
+        np.testing.assert_allclose(got[b, :real], want[b, :real], rtol=0, atol=ATOL)
+
+
+RAGGED_MIXES = {
+    "mixed": [(24, 7), (1, 13), (1, 0), (9, 0), (1, 1), (17, 31)],
+    "decode_heavy": [(1, 7), (1, 8), (1, 40), (5, 15), (11, 16), (3, 0)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(RAGGED_MIXES))
+def test_ragged_plain_bf16_g3_matches_reference(name):
+    rows = RAGGED_MIXES[name]
+    N, R, P = 64, 8, 7
+    assert max(-(-(c + ln) // PS) for ln, c in rows) <= P
+    rng = np.random.RandomState(len(name))
+    pages = R * P + 3
+    q = rng.randn(N, H, D).astype(np.float32)
+    k = rng.randn(pages, PS, KH, D).astype(np.float32)
+    v = rng.randn(pages, PS, KH, D).astype(np.float32)
+    tables = rng.permutation(pages)[: R * P].reshape(R, P).astype(np.int32)
+    row_starts = np.full((R,), N, np.int32)
+    row_lens = np.zeros((R,), np.int32)
+    ctx_lens = np.zeros((R,), np.int32)
+    off = 0
+    for r, (ln, ctx) in enumerate(rows):  # packed densely, as the port packs
+        row_starts[r], row_lens[r], ctx_lens[r] = off, ln, ctx
+        off += ln
+    idx = (tables, row_starts, row_lens, ctx_lens)
+    (tq, tk, tv), (jq, jk, jv) = _bf16_pair(q, k, v)
+    got = _f32(tops.ragged_attention_plain(tq, tk, tv, *_t(*idx)))
+    want = _f32(jops.ragged_attention_reference(jq, jk, jv, *_j(*idx)))
+    assert np.isfinite(got).all() and not got[off:].any()
+    for start, ln in zip(row_starts, row_lens):
+        if ln:
+            np.testing.assert_allclose(got[start:start + ln], want[start:start + ln],
+                                       rtol=0, atol=ATOL)
