@@ -7,7 +7,11 @@ Builds the Hopper kernels from dynamo_tpu_torch/csrc, holds each kernel in
 each KV format (bf16/f32 pages, int8, int4) against its plain PyTorch
 version on the card (prefill and ragged attention in both of their bodies:
 f32 on the FMA body, bf16 on the tensor-core body at tiny width, at full
-width and at 2, 3, 4 and 8 query heads per KV head), holds the card's
+width and at 2, 3, 4 and 8 query heads per KV head; the split-KV decode at
+tiny width across split boundaries in f32 and bf16, with quantized rows
+only 8-byte aligned, at 3, 4 and 8 query heads per KV head, and timed at
+three shapes: 64 lanes, 4 long lanes, 64 lanes of which 12 are live),
+holds the card's
 quantized page writes to the CPU's
 bit for bit, holds the model forwards against the same forwards fed the
 plain attention, then serves a few requests through `TorchEngine.generate`
@@ -75,6 +79,7 @@ MAX_TOKENS = 64  # output tokens of every served request
 STAGGER_S = 0.08  # gap between request arrivals in the serve phase
 FORMATS = ("none", "int8", "int4")
 LOCAL_K, LOCAL_STEP = 8, 7  # the local kernel's timed shape: a full K=8 block
+SLEEP_CYCLES = 20_000_000  # device sleep ahead of a timed run (~10 ms)
 
 KERNELS = {
     "paged_decode": {
@@ -82,7 +87,9 @@ KERNELS = {
         "source": "dynamo_tpu_torch/csrc/paged_decode.cu",
         "replaces": {"none": "dynamo_tpu/ops/pallas_paged_attention.py:514",
                      "quant": "dynamo_tpu/ops/pallas_paged_attention.py:40"},
-        "body": {"bfloat16": "fma", "float32": "fma"},
+        # split-KV over a grid of live items, cp.async ring, register state
+        # (csrc/flash_decode.cuh)
+        "body": {"bfloat16": "splitkv-fma", "float32": "splitkv-fma"},
     },
     "paged_decode_local": {
         "module": hopper_paged_attention_local,
@@ -128,12 +135,15 @@ def emit(phase: str, **fields) -> None:
 
 
 def time_ms(fn, warm: int = 3, reps: int = 20) -> float:
-    """Mean device milliseconds of fn() over `reps` launches (CUDA events)."""
+    """Mean device milliseconds of fn() over `reps` launches (CUDA events).
+    The launches queue behind a device sleep of ~10 ms, so a kernel faster
+    than the host's launch rate is timed by its own work."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -250,7 +260,36 @@ def decode_case(rng, B, H, KH, D, ps, P, pages, dtype, lens):
     return q, k, v, rand_tables(rng, B, P, pages), i32(lens)
 
 
-def check_decode(rng, measured):
+def decode_bound(lens, KH, D, ps, fmt, q, H):
+    """(bound ms, bound_by) of one decode launch over these lengths."""
+    ctx = np.maximum(np.asarray(lens), 1).astype(np.float64)
+    bytes_moved = (ctx.sum() * kv_bytes_per_token(KH, D, fmt, q.element_size())
+                   + scale_bytes(np.ceil(ctx / ps).sum(), KH, fmt) + 2 * q.numel() * q.element_size())
+    return bound(bytes_moved, 4.0 * H * D * ctx.sum())
+
+
+def rows8(layer):
+    """A quantized pool as a view whose rows are only 8-byte aligned (D
+    padded by 8 bytes): the decode kernel copies such rows 8 bytes at a time."""
+    if not isinstance(layer, kv_quant.QuantKV):
+        return layer
+    q = layer.q
+    full = torch.zeros((*q.shape[:-1], q.shape[-1] + 8), dtype=q.dtype, device=q.device)
+    full[..., :q.shape[-1]] = q
+    return kv_quant.QuantKV(full[..., :q.shape[-1]], layer.s, layer.bits, layer.page_size)
+
+
+def decode_timed_shapes(seed: int) -> dict:
+    """The two extra timed decode shapes, from their own generator (so the
+    B=64 shape's draw is unchanged): 4 long lanes, and the serve phases'
+    shape — 64 lanes of which 12 are live at ~1500 keys, the rest length 1."""
+    rng = np.random.default_rng(seed + 4)
+    live = np.ones(64, np.int64)
+    live[rng.choice(64, 12, replace=False)] = rng.integers(1200, 1801, size=12)
+    return {"B4_long": rng.integers(7600, 8193, size=4), "B64_12live": live}
+
+
+def check_decode(rng, measured, rng_dec, shapes):
     # tiny f32: GQA 2, page-straddling lengths, an empty lane
     q, k, v, tab, lens = decode_case(
         rng, 5, 4, 2, 16, 8, 6, 40, torch.float32, [1, 8, 9, 37, 0])
@@ -261,40 +300,88 @@ def check_decode(rng, measured):
                             pa.paged_attention_decode_plain(q, kk, vv, tab, lens))
         torch.cuda.synchronize()
         assert tiny[fmt] <= TOL_F32_TINY, f"paged_decode[{fmt}] f32 tiny: {tiny[fmt]}"
+    # where the split-KV body can break, drawn from their own generator: D=16,
+    # page 8 and G=2 (a split is 64 pages = 512 keys; 130-entry tables make
+    # 3 splits) with lanes of length 0, 1, one split, one split + 1, a
+    # page-straddling length and more than two splits — in f32 (2e-3), in
+    # bf16, and with quantized rows only 8-byte aligned; then full width at
+    # G=4 (H=32/KH=8) and G=8 (H=64/KH=8)
+    split_lens = [0, 1, 512, 513, 37, 1030]
+    cases = {
+        "tiny_split_f32": decode_case(rng_dec, 6, 4, 2, 16, 8, 130, 40, torch.float32,
+                                      split_lens),
+        "tiny_G2": decode_case(rng_dec, 6, 4, 2, 16, 8, 130, 40, torch.bfloat16, split_lens),
+        "G4": decode_case(rng_dec, 8, 32, 8, 128, 64, 128, 2049, torch.bfloat16,
+                          rng_dec.integers(1, 2049, size=8)),
+        "G8": decode_case(rng_dec, 8, 64, 8, 128, 64, 128, 2049, torch.bfloat16,
+                          rng_dec.integers(1, 2049, size=8)),
+    }
+    checks = {fmt: {} for fmt in FORMATS}
+    for fmt in FORMATS:
+        for case, (qq, k_, v_, tb, ln) in cases.items():
+            kk, vv = pool_in(k_, v_, fmt)
+            views = [("", kk, vv)] + ([("_rows8", rows8(kk), rows8(vv))] if fmt != "none" else [])
+            for tag, ka, va in views:
+                out = pa.paged_attention_decode(qq, ka, va, tb, ln)
+                ref = pa.paged_attention_decode_plain(qq, ka, va, tb, ln)
+                if qq.dtype == torch.float32:
+                    torch.cuda.synchronize()
+                    err = max_err(out, ref)
+                    assert err <= TOL_F32_TINY, f"paged_decode[{fmt}] {case}{tag}: {err}"
+                    checks[fmt][case + tag] = err
+                else:
+                    checks[fmt][case + tag] = check_full("paged_decode", fmt, out, ref, case + tag)
+                checks[fmt][case + tag + "_splits"] = hopper_paged_attention.last_splits
+    del cases
     # full width bf16: the engine's decode shape (64 lanes, 128-entry tables)
     B, H, KH, D, ps, P = 64, 24, 8, 128, 64, 128
     lens = rng.integers(1, 2049, size=B)
     lens[:4] = [0, 1, 64, 65]
     q, k, v, tab, lens_t = decode_case(rng, B, H, KH, D, ps, P, 2049, torch.bfloat16, lens)
     ctx = np.maximum(lens, 1).astype(np.float64)
-    pages_read = np.ceil(ctx / ps).sum()
     S = P * ps
     mask = (torch.arange(S, device=DEV)[None, :] < lens_t.clamp(min=1)[:, None])[:, None, None, :]
+    # the extra timed shapes (same widths, same pool)
+    extra = {name: (i32(ln), torch.from_numpy(
+        rng_dec.standard_normal((len(ln), H, D)).astype(np.float32)).to(DEV, torch.bfloat16),
+        rand_tables(rng_dec, len(ln), P, 2049)) for name, ln in shapes.items()}
     for fmt in FORMATS:
         kk, vv = pool_in(k, v, fmt)
         out = pa.paged_attention_decode(q, kk, vv, tab, lens_t)
         ref = pa.paged_attention_decode_plain(q, kk, vv, tab, lens_t)
         err_full, rel_full = check_full("paged_decode", fmt, out, ref)
-        bytes_moved = (ctx.sum() * kv_bytes_per_token(KH, D, fmt)
-                       + scale_bytes(pages_read, KH, fmt) + 2 * q.numel() * 2)
-        b_ms, b_by = bound(bytes_moved, 4.0 * H * D * ctx.sum())
+        splits = hopper_paged_attention.last_splits
+        b_ms, b_by = decode_bound(lens, KH, D, ps, fmt, q, H)
         # library yardstick: SDPA over the dense gathered (dequantized) context
         kd, vd = dense_ctx(kk, tab, q.dtype), dense_ctx(vv, tab, q.dtype)
         lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
         del kd, vd
         ms = time_ms(lambda: pa.paged_attention_decode(q, kk, vv, tab, lens_t))
+        at = {}
+        for name, (ln_t, qx, tb) in extra.items():
+            o = pa.paged_attention_decode(qx, kk, vv, tb, ln_t)
+            r = pa.paged_attention_decode_plain(qx, kk, vv, tb, ln_t)
+            e, rel = check_full("paged_decode", fmt, o, r, name)
+            n_split = hopper_paged_attention.last_splits
+            x_ms, _ = decode_bound(shapes[name], KH, D, ps, fmt, qx, H)
+            at[name] = {"ms": time_ms(lambda: pa.paged_attention_decode(qx, kk, vv, tb, ln_t)),
+                        "bound_ms": x_ms, "splits": n_split, "max_abs_err": e,
+                        "max_row_rel_err": rel,
+                        "live_keys": int(np.maximum(shapes[name], 1).sum())}
+        assert at["B4_long"]["splits"] > 1, f"paged_decode[{fmt}]: the long shape ran unsplit"
         measured[("paged_decode", fmt)] = {
-            "max_abs_err": err_full, "max_row_rel_err": rel_full,
-            "max_abs_err_f32_tiny": tiny[fmt],
-            "ms": ms, "tflops": tflops(4.0 * H * D * ctx.sum(), ms),
+            "max_abs_err": max([err_full] + [a["max_abs_err"] for a in at.values()]),
+            "max_row_rel_err": max([rel_full] + [a["max_row_rel_err"] for a in at.values()]),
+            "max_abs_err_f32_tiny": tiny[fmt], "bf16_checks": checks[fmt],
+            "ms": ms, "tflops": tflops(4.0 * H * D * ctx.sum(), ms), "splits": splits,
             "plain_ms": time_ms(
                 lambda: pa.paged_attention_decode_plain(q, kk, vv, tab, lens_t), 1, 3),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "shapes": at,
             "shape": f"B={B} H={H} KH={KH} D={D} ps={ps} tables=[{B},{P}] mean_len={ctx.mean():.0f}",
         }
 
 
-def check_decode_local(rng, measured):
+def check_decode_local(rng, measured, rng_dec, shapes):
     # tiny f32: GQA 2, page-straddling pool lengths, two empty pools, K=4
     # with entries past step_idx holding garbage that must not be read
     B, H, KH, D = 5, 4, 2, 16
@@ -325,6 +412,9 @@ def check_decode_local(rng, measured):
     n_loc = LOCAL_STEP + 1
     pages_read = np.ceil(pool_lens / ps).sum()
     S = P * ps
+    extra = {name: (i32(np.maximum(ln - 1, 0)), torch.from_numpy(
+        rng_dec.standard_normal((len(ln), H, D)).astype(np.float32)).to(DEV, torch.bfloat16),
+        rand_tables(rng_dec, len(ln), P, 2049)) for name, ln in shapes.items()}
     mask = torch.cat([
         torch.arange(S, device=DEV)[None, :] < pool_t[:, None],
         torch.ones((B, K), dtype=torch.bool, device=DEV),
@@ -346,12 +436,28 @@ def check_decode_local(rng, measured):
         lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
         del kd, vd
         ms = time_ms(lambda: pa.paged_attention_decode_mixed(*args))
+        # the paged_decode's extra timed shapes, as the baseline of a local
+        # kernel on the split-KV body: pool lengths len - 1, the same K rows
+        at = {}
+        for name, (ln_t, qx, tb) in extra.items():
+            xargs = (qx, kk, vv, tb, ln_t, loc_k[:len(qx)], loc_v[:len(qx)], step)
+            e, rel = check_full("paged_decode_local", fmt, pa.paged_attention_decode_mixed(*xargs),
+                                pa.paged_attention_decode_mixed_plain(*xargs), name)
+            pl = np.maximum(shapes[name] - 1, 0)
+            x_bytes = (pl.sum() * kv_bytes_per_token(KH, D, fmt)
+                       + scale_bytes(np.ceil(pl / ps).sum(), KH, fmt)
+                       + len(pl) * n_loc * kv_bytes_per_token(KH, D, "none")
+                       + 2 * qx.numel() * 2)
+            at[name] = {"ms": time_ms(lambda: pa.paged_attention_decode_mixed(*xargs)),
+                        "bound_ms": bound(x_bytes, 4.0 * H * D * (pl.sum() + len(pl) * n_loc))[0],
+                        "max_abs_err": e, "max_row_rel_err": rel}
         measured[("paged_decode_local", fmt)] = {
-            "max_abs_err": err_full, "max_row_rel_err": rel_full,
+            "max_abs_err": max([err_full] + [a["max_abs_err"] for a in at.values()]),
+            "max_row_rel_err": max([rel_full] + [a["max_row_rel_err"] for a in at.values()]),
             "max_abs_err_f32_tiny": tiny[fmt],
             "ms": ms, "tflops": tflops(4.0 * H * D * keys, ms),
             "plain_ms": time_ms(lambda: pa.paged_attention_decode_mixed_plain(*args), 1, 3),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "shapes": at,
             "shape": (f"B={B} H={H} KH={KH} D={D} ps={ps} tables=[{B},{P}] "
                       f"mean_pool_len={pool_lens.mean():.0f} K={K} step={LOCAL_STEP}"),
         }
@@ -549,7 +655,11 @@ def phase_kernels(seed: int) -> dict:
     # the bf16 tensor-core checks draw from their own generator, so the timed
     # shapes (drawn from `rng`) are those of runs without them
     rng_bf16 = np.random.default_rng(seed + 3)
-    for check in (check_decode, check_decode_local,
+    # so do the split-KV decode checks and the extra timed decode shapes
+    rng_dec = np.random.default_rng(seed + 5)
+    shapes = decode_timed_shapes(seed)
+    for check in (lambda r, m: check_decode(r, m, rng_dec, shapes),
+                  lambda r, m: check_decode_local(r, m, rng_dec, shapes),
                   lambda r, m: check_prefill(r, m, rng_bf16),
                   lambda r, m: check_ragged(r, m, rng_bf16)):
         check(rng, measured)
@@ -977,6 +1087,8 @@ def main() -> None:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "tflops")},
             "body": k["body"],
+            **{key: measured[(name, fmt)][key] for key in ("splits", "shapes")
+               if key in measured[(name, fmt)]},
         }
         for name, k in KERNELS.items() for fmt in FORMATS
     ]}

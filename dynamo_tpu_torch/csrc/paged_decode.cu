@@ -1,82 +1,141 @@
-// One-token flash decode over paged KV.
+// One-token flash decode over paged KV, split over the grid.
 //
 // Replaces the TPU kernel `_decode_kernel` of
 // dynamo_tpu/ops/pallas_paged_attention.py (wrapper
-// `paged_attention_decode_pallas`): lane b's query attends its own pages,
-// keys < max(seq_lens[b], 1) (an empty lane behaves as length 1).
+// `paged_attention_decode_pallas`, :514) and, for int8/int4 pools, its
+// `_window_dequant` (:40): lane b's query attends its own pages, keys
+// < max(seq_lens[b], 1) (an empty lane behaves as length 1).
 //
-// Bound on this card: bytes. Each lane's real context K and V are read
-// once (B * seq_len * KH * D * 2 elements); the products are
-// 4 * H * D * seq_len per lane, far under the roofline ridge. The design
-// therefore reads each KV byte from device memory exactly once per block:
-// grid = (B, KH), the G query heads of a KV head share the block's K/V
-// tiles, pages past the lane's length are never touched, and several
-// blocks per SM overlap one block's loads with another's arithmetic.
-// Quantized pools (int8/int4) are dequantized while a tile is staged
-// (flash_paged.cuh), which also replaces the TPU kernel's `_window_dequant`
-// (pallas_paged_attention.py:40) for this kernel: such a pool moves half
-// or a quarter of the bytes, but the kernel is not yet bound by them.
-// Not yet done: split-KV across blocks for small B with long contexts.
-#include "flash_paged.cuh"
+// Bound on this card: bytes — each lane's real context K and V read once
+// in the pool's stored type (bf16/f32, int8 or int4 plus two f32 scales a
+// page and KV head). The body (flash_decode.cuh) cuts each lane's pages
+// into splits and lets a grid of as many blocks as the card holds walk the
+// live (lane, KV head, split) items, so that a few long lanes still fill
+// the SMs and short lanes cost no block; it streams raw tiles through a
+// 2-4 stage cp.async ring so loads overlap the arithmetic, and keeps q, the
+// softmax state and O in registers (CUDA cores, f32). Lanes that needed
+// more than one split are combined by `decode_merge`, a second launch made
+// only when the host's plan has more than one split.
+// Left for later: TMA, folding the local kernel in.
+#include "flash_decode.cuh"
 
 namespace dyn {
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-paged_decode_kernel(T* __restrict__ out, const T* __restrict__ q, PagedKV kv,
-                    const int* __restrict__ page_tables,
-                    const int* __restrict__ seq_lens, int H, int G) {
+// at most 128 registers a thread up to 4 rows (four blocks an SM where the
+// ring's shared memory allows: more warps to hide each one's latency); 8
+// rows keep their registers
+template <typename T, int D, int GC>
+__global__ void __launch_bounds__(NT, GC >= 8 ? 1 : 4) paged_decode_kernel(fd::DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x, kh = blockIdx.y;
-  int len = seq_lens[b];
-  if (len < 1) len = 1;
-  kv.table = page_tables + (long long)b * kv.max_pages;
-  const long long o = ((long long)b * H + (long long)kh * G) * D;
-  flash_tile<T, D>(smem_raw, q + o, out + o, (long long)H * D, 1, G, len - 1, len, kv, kh);
+  fd::decode_items<T, D, GC>(smem_raw, a);
 }
 
-template <typename T, int D>
-int launch_decode(void* out, const void* q, PagedKV kv, const int* page_tables,
-                  const int* seq_lens, int B, int H, int KH, cudaStream_t stream) {
-  const int G = H / KH;
-  size_t smem = flash_smem_bytes<T, D>(G);
-  cudaError_t e = allow_smem(paged_decode_kernel<T, D>, smem);
+// out = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s over a lane's live
+// splits; lanes with one live split were written by the kernel itself.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+decode_merge(T* __restrict__ out, const float* __restrict__ ws_o,
+             const float* __restrict__ ws_ml, const int* __restrict__ seq_lens,
+             int G, int D, int n_splits, int sk) {
+  const int kh = blockIdx.x, b = blockIdx.y, KH = gridDim.x;
+  int len = seq_lens[b];
+  if (len < 1) len = 1;
+  int n_live = (len + sk - 1) / sk;
+  if (n_live > n_splits) n_live = n_splits;
+  if (n_live <= 1) return;
+  const long long part0 = ((long long)b * KH + kh) * n_splits;
+  for (int idx = threadIdx.x; idx < G * D; idx += NT) {
+    const int g = idx / D, d = idx - g * D;
+    float M = NEG;
+    for (int s = 0; s < n_live; ++s) M = fmaxf(M, ws_ml[2 * ((part0 + s) * G + g)]);
+    float L = 0.f, O = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const long long row = (part0 + s) * G + g;
+      const float f = fd::ex2(ws_ml[2 * row] - M);
+      L += ws_ml[2 * row + 1] * f;
+      O += ws_o[row * D + d] * f;
+    }
+    store_out(out + ((long long)b * KH * G + (long long)kh * G + g) * D + d,
+              L > 0.f ? O / L : 0.f);
+  }
+}
+
+template <typename T, int D, int GC>
+int launch_decode(const fd::DecodeArgs& a, int num_sms, cudaStream_t stream) {
+  const size_t smem = fd::smem_bytes<T, D, GC>(a);
+  cudaError_t e = allow_smem(paged_decode_kernel<T, D, GC>, smem);
   if (e != cudaSuccess) return (int)e;
-  paged_decode_kernel<T, D><<<dim3(B, KH), NT, smem, stream>>>(
-      static_cast<T*>(out), static_cast<const T*>(q), kv, page_tables, seq_lens, H, G);
+  // as many blocks as fit the card at once, none idle from the start
+  static size_t occ_smem = 0;
+  static int occ = 0;
+  if (occ_smem != smem) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, paged_decode_kernel<T, D, GC>,
+                                                      NT, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+    occ_smem = smem;
+  }
+  const long long items = (long long)a.B * a.kv.KH * a.n_splits;
+  const int grid = (int)(items < (long long)occ * num_sms ? items : (long long)occ * num_sms);
+  paged_decode_kernel<T, D, GC><<<grid, NT, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_splits == 1) return (int)e;
+  decode_merge<T><<<dim3(a.kv.KH, a.B), NT, 0, stream>>>(
+      static_cast<T*>(a.out), a.ws_o, a.ws_ml, a.seq_lens, a.G, D, a.n_splits,
+      a.split_pages * a.kv.page_size);
   return (int)cudaGetLastError();
+}
+
+// rows up to GC = 2, 3, 4 or 8 live in registers (G = 2, 3, 4, 8 fill
+// them exactly); more loop over groups of 8
+template <typename T, int D>
+int launch_decode_g(const fd::DecodeArgs& a, int num_sms, cudaStream_t stream) {
+  if (a.G <= 2) return launch_decode<T, D, 2>(a, num_sms, stream);
+  if (a.G == 3) return launch_decode<T, D, 3>(a, num_sms, stream);
+  if (a.G <= 4) return launch_decode<T, D, 4>(a, num_sms, stream);
+  return launch_decode<T, D, 8>(a, num_sms, stream);
 }
 
 }  // namespace dyn
 
-#define LAUNCH_DECODE(T, D)                                                    \
-  dyn::launch_decode<T, D>(out, q, kv, page_tables, seq_lens, B, H, KH,        \
-                           static_cast<cudaStream_t>(stream))
+#define LAUNCH_DECODE(T, D) \
+  dyn::launch_decode_g<T, D>(a, num_sms, static_cast<cudaStream_t>(stream))
 
 // out, q: [B, H, D]; kv_k, kv_v: [num_phys, rows, KH, D] with strides
 // (s_page, s_tok, s_head) in elements of the pool's type — T, or int8 with
 // rows = page_size (kv_bits 8) or page_size / 2 (kv_bits 4); k_scale,
 // v_scale: f32 [num_phys, KH] when kv_bits != 0, else null; page_tables:
-// [B, max_pages] int32; seq_lens: [B] int32. Returns cudaGetLastError()
-// (0 = launched), or a negative code for a dtype / head_dim / page_size /
-// format that is not built.
+// [B, max_pages] int32; seq_lens: [B] int32. The caller's split plan:
+// n_splits runs of split_pages logical pages (n_splits * split_pages >=
+// max_pages); when n_splits > 1, ws_o (f32 [B, KH, n_splits, G, D]) and
+// ws_ml (f32 [B, KH, n_splits, G, 2]) are scratch, else null. Returns
+// cudaGetLastError() (0 = launched), or a negative code for a dtype /
+// head_dim / page_size / format / plan that is not built.
 extern "C" int dyn_paged_decode(void* out, const void* q, const void* kv_k,
                                 const void* kv_v, const float* k_scale,
                                 const float* v_scale, int kv_bits,
                                 const int* page_tables, int max_pages, int num_phys,
                                 long long s_page, long long s_tok, long long s_head,
                                 const int* seq_lens, int B, int H, int KH, int D,
-                                int page_size, int dtype, void* stream) {
+                                int page_size, int dtype, int n_splits, int split_pages,
+                                float* ws_o, float* ws_ml, int num_sms, void* stream) {
   if (B <= 0) return 0;
-  if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size, kv_bits))
+  if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size, kv_bits) || n_splits < 1 ||
+      split_pages < 1 || (long long)n_splits * split_pages < max_pages ||
+      (long long)(n_splits - 1) * split_pages >= max_pages || num_sms < 1 ||
+      (n_splits > 1 && (ws_o == nullptr || ws_ml == nullptr)))
     return dyn::ERR_UNSUPPORTED;
-  dyn::PagedKV kv = dyn::make_kv(kv_k, kv_v, k_scale, v_scale, kv_bits, max_pages,
-                                 num_phys, page_size, KH, s_page, s_tok, s_head);
+  dyn::fd::DecodeArgs a{out, q,
+                        dyn::make_kv(kv_k, kv_v, k_scale, v_scale, kv_bits, max_pages,
+                                     num_phys, page_size, KH, s_page, s_tok, s_head),
+                        page_tables, seq_lens, ws_o, ws_ml, B, H, H / KH, n_splits, split_pages,
+                        kv_bits == 0 || ((s_page | s_tok | s_head) % 16) == 0};
   DYN_DISPATCH(dtype, D, LAUNCH_DECODE);
 }
 
 extern "C" const char* dyn_error_string(int code) {
   if (code == dyn::ERR_UNSUPPORTED)
-    return "unsupported dtype, head_dim, head grouping, page_size, KV format or local size";
+    return "unsupported dtype, head_dim, head grouping, page_size, KV format, local size "
+           "or split plan";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

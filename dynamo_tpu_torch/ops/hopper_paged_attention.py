@@ -1,12 +1,17 @@
-"""Hopper kernel wrapper: one-token flash decode over paged KV.
+"""Hopper kernel wrapper: one-token flash decode over paged KV, split over the grid.
 
-The kernel (csrc/paged_decode.cu) replaces the TPU kernel
-`dynamo_tpu/ops/pallas_paged_attention.py:_decode_kernel`. It is bound by
-bytes on this card — each lane's real context K and V read once — so the
-design gives every (lane, KV head) one block that reads only that lane's
-real pages and shares them among the G query heads of the group. An
-int8/int4 pool (a per-layer `QuantKV`) is dequantized while each tile is
-staged, in place of the TPU kernel's `_window_dequant`.
+The kernel (csrc/paged_decode.cu, body csrc/flash_decode.cuh) replaces the
+TPU kernel `dynamo_tpu/ops/pallas_paged_attention.py:_decode_kernel`. It
+is bound by bytes on this card — each lane's real context K and V read
+once — so each lane's pages are cut into splits of a fixed run of pages,
+and a grid sized to what the card holds at once walks the live (split,
+KV head, lane) items, which every block lists from `seq_lens` on the card:
+a few long lanes still fill the SMs, and short lanes cost no block. Raw
+tiles (bf16/f32, or int8/int4 bytes dequantized in registers, in place of
+the TPU kernel's `_window_dequant`) stream through a cp.async ring; lanes
+that used more than one split are combined by a second, small launch.
+The split plan comes from shapes the host holds (never from `seq_lens`),
+and the scratch for partial results comes from torch's caching allocator.
 The plain PyTorch version is `ops.paged_attention.paged_attention_decode_plain`.
 """
 
@@ -18,6 +23,30 @@ from . import _build
 
 launch_count = 0  # kernel launches made through this wrapper
 launches_by_format = dict.fromkeys(_build.KV_FORMATS, 0)  # the same, by KV format
+last_splits = 0  # splits per (lane, KV head) of the last launch
+
+SPLIT_MIN_KEYS = 512  # a split covers at least this many keys
+ITEMS_PER_SM = 64  # and B * KH splits of the whole table at most about this many an SM
+
+_sm_count: dict = {}
+
+
+def split_plan(B: int, KH: int, max_pages: int, page_size: int, sms: int) -> tuple:
+    """(split_pages, n_splits): runs of whole pages of at least
+    SPLIT_MIN_KEYS keys, grown until B * KH full tables' splits (the most
+    items, and partial results, a launch can have) come to at most
+    ITEMS_PER_SM an SM before rounding up to whole splits."""
+    pages = max(1, -(-SPLIT_MIN_KEYS // page_size),
+                -(-(B * KH * max_pages) // (ITEMS_PER_SM * sms)))
+    pages = min(pages, max_pages)
+    return pages, -(-max_pages // pages)
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_count[idx]
 
 
 def paged_attention_decode_hopper(
@@ -28,7 +57,7 @@ def paged_attention_decode_hopper(
     seq_lens: torch.Tensor,  # [B] int32 (including the current token)
 ) -> torch.Tensor:
     """Launch the decode kernel on the current stream; returns [B, H, D]."""
-    global launch_count
+    global launch_count, last_splits
     if q.dim() != 3:
         raise ValueError(f"q must be [B, H, D], is {tuple(q.shape)}")
     B, H, D = q.shape
@@ -36,13 +65,25 @@ def paged_attention_decode_hopper(
     kv, KH, page_size, fmt = _build.kv_args(q, kv_k_layer, kv_v_layer, page_tables, B)
     _build.check_index_vector("seq_lens", seq_lens, B, q.device)
     lib = _build.load_library()
+    if page_tables.shape[1] < 1:
+        raise ValueError("page_tables must have at least one column")
+    sms = _sms(q.device)
+    split_pages, n_splits = split_plan(B, KH, page_tables.shape[1], page_size, sms)
     out = torch.empty_like(q)
+    ws_o = ws_ml = None
+    if n_splits > 1:
+        G = H // KH
+        ws_o = torch.empty((B, KH, n_splits, G, D), dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((B, KH, n_splits, G, 2), dtype=torch.float32, device=q.device)
     rc = lib.dyn_paged_decode(
         out.data_ptr(), q.data_ptr(), *kv, seq_lens.data_ptr(),
-        B, H, KH, D, page_size, code,
+        B, H, KH, D, page_size, code, n_splits, split_pages,
+        None if ws_o is None else ws_o.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(), sms,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_status(lib, rc, "paged decode")
     launch_count += 1
     launches_by_format[fmt] += 1
+    last_splits = n_splits
     return out

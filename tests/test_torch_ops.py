@@ -204,3 +204,22 @@ def test_plain_versions_count_their_calls():
     tops.paged_attention_decode(*_t(q, k, v, np.zeros((1, 2), np.int32),
                                     np.asarray([3], np.int32)))
     assert tops.plain_calls["decode"] == before["decode"] + 1
+
+
+@pytest.mark.parametrize("B,KH,max_pages,page_size,sms,want", [
+    (64, 8, 128, 64, 132, (8, 16)),  # the engine's decode shape: 512-key splits
+    (4, 8, 128, 64, 132, (8, 16)),  # few long lanes: the same plan
+    (6, 2, 130, 8, 132, (64, 3)),  # tiny pages: 64 pages make 512 keys
+    (5, 2, 6, 8, 132, (6, 1)),  # a short table: one split
+    (1024, 8, 512, 16, 132, (497, 2)),  # many lanes: splits grow
+], ids=["engine", "long_lanes", "tiny_pages", "one_split", "items_capped"])
+def test_decode_split_plan(B, KH, max_pages, page_size, sms, want):
+    """The decode kernel's split plan, made on the host from shapes only."""
+    from dynamo_tpu_torch.ops import hopper_paged_attention as hp
+
+    split_pages, n_splits = hp.split_plan(B, KH, max_pages, page_size, sms)
+    assert (split_pages, n_splits) == want
+    # every table column lies in a split, and the last split is not empty
+    assert (n_splits - 1) * split_pages < max_pages <= n_splits * split_pages
+    assert n_splits == 1 or split_pages * page_size >= hp.SPLIT_MIN_KEYS
+    assert B * KH * max_pages / split_pages <= hp.ITEMS_PER_SM * sms or n_splits == 1

@@ -1,12 +1,14 @@
-"""The port's plain prefill and ragged attention against the JAX reference in
-bf16, at a query-head grouping that is not a power of two (H=6, KH=2: G=3).
+"""The port's plain decode, prefill and ragged attention against the JAX
+reference in bf16, at a query-head grouping that is not a power of two
+(H=6, KH=2: G=3).
 
-The plain versions are what the CPU takes and what the card's tensor-core
-kernels are held to, and the engine serves bf16, so they are checked here
-at the engine's dtype. The same numpy inputs, rounded to bf16 on each
-side, go through `dynamo_tpu_torch.ops.paged_attention` and through the
-reference's XLA paths (`prefill_attention_batched`,
-`ragged_attention_reference`). Tolerance 5e-2 absolute, the bf16 tolerance
+The plain versions are what the CPU takes and what the card's kernels are
+held to, and the engine serves bf16, so they are checked here at the
+engine's dtype. The same numpy inputs, rounded to bf16 on each side, go
+through `dynamo_tpu_torch.ops.paged_attention` and through the reference's
+XLA paths (`paged_attention_decode` over bf16, int8 and int4 pools,
+`prefill_attention_batched`, `ragged_attention_reference`). Tolerance 5e-2
+absolute, the bf16 tolerance
 of the reference's own kernel tests: the two round probabilities and
 outputs to bf16 at the same places but sum in other orders. One set of
 shapes per function, so the reference side traces once.
@@ -17,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu.ops import kv_quant as jkv
 from dynamo_tpu.ops import paged_attention as jops
+from dynamo_tpu_torch.ops import kv_quant as tkv
 from dynamo_tpu_torch.ops import paged_attention as tops
 
 ATOL = 5e-2
@@ -40,6 +44,44 @@ def _bf16_pair(*arrays):
 
 def _f32(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else x.astype(jnp.float32))
+
+
+def _pool_pair(rng, fmt, pages):
+    """One pool (K or V) for both packages: bf16 values, or random ints with
+    positive scales (int4 two keys to a byte row) and some fresh pages."""
+    if fmt == "none":
+        x = rng.randn(pages, PS, KH, D).astype(np.float32)
+        return torch.from_numpy(x).to(torch.bfloat16), jnp.asarray(x, jnp.bfloat16)
+    bits = tkv.kv_quant_bits(fmt)
+    rows = PS // 2 if bits == 4 else PS
+    q = rng.randint(-128, 128, size=(pages, rows, KH, D)).astype(np.int8)
+    s = (rng.rand(pages, KH) * 0.02).astype(np.float32)
+    s[::5] = 0.0
+    return (tkv.QuantKV(*_t(q, s), bits, PS),
+            jkv.QuantKV(jnp.asarray(q), jnp.asarray(s), bits, PS))
+
+
+# an empty lane, a length-1 lane, page-straddling lanes, a full table
+DECODE_LENS = [0, 1, 9, 17, 37, 48]
+
+
+@pytest.mark.parametrize("fmt", ["none", "int8", "int4"])
+def test_decode_plain_bf16_g3_matches_reference(fmt):
+    B, P, pages = len(DECODE_LENS), 6, 24
+    rng = np.random.RandomState(7)
+    q = rng.randn(B, H, D).astype(np.float32)
+    (tk, jk), (tv, jv) = _pool_pair(rng, fmt, pages), _pool_pair(rng, fmt, pages)
+    tables = rng.randint(0, pages, size=(B, P)).astype(np.int32)
+    lens = np.asarray(DECODE_LENS, np.int32)
+    (tq,), (jq,) = _bf16_pair(q)
+    got = tops.paged_attention_decode_plain(tq, tk, tv, *_t(tables, lens))
+    # an empty lane behaves as length 1 (the kernels' contract, the TPU
+    # kernel's clamp); the reference's XLA path is handed that length
+    want = jops.paged_attention_decode(jq, jk, jv, *_j(tables, np.maximum(lens, 1)))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    got, want = _f32(got), _f32(want)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("starts,reals", [
