@@ -10,8 +10,9 @@ f32 on the FMA body, bf16 on the tensor-core body at tiny width, at full
 width and at 2, 3, 4 and 8 query heads per KV head; the split-KV decode at
 tiny width across split boundaries in f32 and bf16, with quantized rows
 only 8-byte aligned, at 3, 4 and 8 query heads per KV head, and timed at
-three shapes: 64 lanes, 4 long lanes, 64 lanes of which 12 are live),
-holds the card's
+three shapes: 64 lanes, 4 long lanes, 64 lanes of which 12 are live;
+every kernel timed with its calls queued behind a device sleep and issued
+back to back, with the host's time a call), holds the card's
 quantized page writes to the CPU's
 bit for bit, holds the model forwards against the same forwards fed the
 plain attention, then serves a few requests through `TorchEngine.generate`
@@ -150,6 +151,35 @@ def time_ms(fn, warm: int = 3, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_kernel(fn, reps: int = 20) -> dict:
+    """A kernel wrapper's times over `reps` calls each way: `ms`, device ms
+    a call with the calls queued behind a device sleep (as time_ms);
+    `ms_back_to_back`, the same calls issued straight after a sync, so a
+    call whose host work outlasts its kernel is timed by the host (the
+    engine's eager step issues them so); `host_us`, the host's
+    microseconds a call, measured while the calls queue behind the sleep."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[2].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {"ms": ev[2].elapsed_time(ev[3]) / reps,
+            "ms_back_to_back": ev[0].elapsed_time(ev[1]) / reps,
+            "host_us": 1e6 * host_s / reps}
 
 
 def bound(bytes_moved: float, flops: float) -> tuple:
@@ -332,6 +362,11 @@ def check_decode(rng, measured, rng_dec, shapes):
                 else:
                     checks[fmt][case + tag] = check_full("paged_decode", fmt, out, ref, case + tag)
                 checks[fmt][case + tag + "_splits"] = hopper_paged_attention.last_splits
+            if case in ("G4", "G8"):  # timed: G=4 runs the 8-row instantiation
+                checks[fmt][case + "_ms"] = time_ms(
+                    lambda: pa.paged_attention_decode(qq, kk, vv, tb, ln))
+                checks[fmt][case + "_bound_ms"] = decode_bound(
+                    ln.cpu().numpy(), 8, 128, 64, fmt, qq, qq.shape[1])[0]
     del cases
     # full width bf16: the engine's decode shape (64 lanes, 128-entry tables)
     B, H, KH, D, ps, P = 64, 24, 8, 128, 64, 128
@@ -356,7 +391,7 @@ def check_decode(rng, measured, rng_dec, shapes):
         kd, vd = dense_ctx(kk, tab, q.dtype), dense_ctx(vv, tab, q.dtype)
         lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
         del kd, vd
-        ms = time_ms(lambda: pa.paged_attention_decode(q, kk, vv, tab, lens_t))
+        times = time_kernel(lambda: pa.paged_attention_decode(q, kk, vv, tab, lens_t))
         at = {}
         for name, (ln_t, qx, tb) in extra.items():
             o = pa.paged_attention_decode(qx, kk, vv, tb, ln_t)
@@ -364,7 +399,7 @@ def check_decode(rng, measured, rng_dec, shapes):
             e, rel = check_full("paged_decode", fmt, o, r, name)
             n_split = hopper_paged_attention.last_splits
             x_ms, _ = decode_bound(shapes[name], KH, D, ps, fmt, qx, H)
-            at[name] = {"ms": time_ms(lambda: pa.paged_attention_decode(qx, kk, vv, tb, ln_t)),
+            at[name] = {**time_kernel(lambda: pa.paged_attention_decode(qx, kk, vv, tb, ln_t)),
                         "bound_ms": x_ms, "splits": n_split, "max_abs_err": e,
                         "max_row_rel_err": rel,
                         "live_keys": int(np.maximum(shapes[name], 1).sum())}
@@ -373,7 +408,8 @@ def check_decode(rng, measured, rng_dec, shapes):
             "max_abs_err": max([err_full] + [a["max_abs_err"] for a in at.values()]),
             "max_row_rel_err": max([rel_full] + [a["max_row_rel_err"] for a in at.values()]),
             "max_abs_err_f32_tiny": tiny[fmt], "bf16_checks": checks[fmt],
-            "ms": ms, "tflops": tflops(4.0 * H * D * ctx.sum(), ms), "splits": splits,
+            **times, "tflops": tflops(4.0 * H * D * ctx.sum(), times["ms"]),
+            "splits": splits,
             "plain_ms": time_ms(
                 lambda: pa.paged_attention_decode_plain(q, kk, vv, tab, lens_t), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "shapes": at,
@@ -435,7 +471,7 @@ def check_decode_local(rng, measured, rng_dec, shapes):
         vd = torch.cat([dense_ctx(vv, tab, q.dtype), loc_v.transpose(1, 2)], dim=2).contiguous()
         lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
         del kd, vd
-        ms = time_ms(lambda: pa.paged_attention_decode_mixed(*args))
+        times = time_kernel(lambda: pa.paged_attention_decode_mixed(*args))
         # the paged_decode's extra timed shapes, as the baseline of a local
         # kernel on the split-KV body: pool lengths len - 1, the same K rows
         at = {}
@@ -448,14 +484,14 @@ def check_decode_local(rng, measured, rng_dec, shapes):
                        + scale_bytes(np.ceil(pl / ps).sum(), KH, fmt)
                        + len(pl) * n_loc * kv_bytes_per_token(KH, D, "none")
                        + 2 * qx.numel() * 2)
-            at[name] = {"ms": time_ms(lambda: pa.paged_attention_decode_mixed(*xargs)),
+            at[name] = {**time_kernel(lambda: pa.paged_attention_decode_mixed(*xargs)),
                         "bound_ms": bound(x_bytes, 4.0 * H * D * (pl.sum() + len(pl) * n_loc))[0],
                         "max_abs_err": e, "max_row_rel_err": rel}
         measured[("paged_decode_local", fmt)] = {
             "max_abs_err": max([err_full] + [a["max_abs_err"] for a in at.values()]),
             "max_row_rel_err": max([rel_full] + [a["max_row_rel_err"] for a in at.values()]),
             "max_abs_err_f32_tiny": tiny[fmt],
-            "ms": ms, "tflops": tflops(4.0 * H * D * keys, ms),
+            **times, "tflops": tflops(4.0 * H * D * keys, times["ms"]),
             "plain_ms": time_ms(lambda: pa.paged_attention_decode_mixed_plain(*args), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "shapes": at,
             "shape": (f"B={B} H={H} KH={KH} D={D} ps={ps} tables=[{B},{P}] "
@@ -536,12 +572,12 @@ def check_prefill(rng, measured, rng_bf16):
         kd, vd = dense_ctx(kk, tab, q.dtype), dense_ctx(vv, tab, q.dtype)
         lib = sdpa_ms(q.transpose(1, 2), kd, vd, mask)
         del kd, vd
-        ms = time_ms(lambda: pa.prefill_attention_batched(*args))
+        times = time_kernel(lambda: pa.prefill_attention_batched(*args))
         measured[("prefill_attention", fmt)] = {
             "max_abs_err": max(errs.values()), "max_row_rel_err": max(rels.values()),
             "max_abs_err_f32_tiny": tiny[fmt], "errs": errs, "row_rel_errs": rels,
             "bf16_checks": checks[fmt],
-            "ms": ms, "tflops": tflops(4.0 * H * D * visible, ms),
+            **times, "tflops": tflops(4.0 * H * D * visible, times["ms"]),
             "plain_ms": time_ms(lambda: pa.prefill_attention_batched_plain(*args), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "shape": f"B={B} T={T} H={H} KH={KH} D={D} ps={ps} start={start} total={start + T}",
@@ -637,11 +673,11 @@ def check_ragged(rng, measured, rng_bf16):
         kd, vd = dense_ctx(kk, tab[:Rr], q.dtype), dense_ctx(vv, tab[:Rr], q.dtype)
         lib = sdpa_ms(qp, kd, vd, mask)
         del kd, vd
-        ms = time_ms(lambda: pa.ragged_attention(*args))
+        times = time_kernel(lambda: pa.ragged_attention(*args))
         measured[("ragged_attention", fmt)] = {
             "max_abs_err": err_full, "max_row_rel_err": rel_full,
             "max_abs_err_f32_tiny": tiny[fmt], "bf16_checks": checks[fmt],
-            "ms": ms, "tflops": tflops(4.0 * H * D * visible, ms),
+            **times, "tflops": tflops(4.0 * H * D * visible, times["ms"]),
             "plain_ms": time_ms(lambda: pa.ragged_attention_plain(*args), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "shape": f"N={N} R={R} H={H} KH={KH} D={D} ps={ps} rows=1024@512+200@0+48 decode",
@@ -1085,7 +1121,7 @@ def main() -> None:
             "launches": launches[(name, fmt)],
             **{key: measured[(name, fmt)][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "tflops")},
+                "tflops", "ms_back_to_back", "host_us")},
             "body": k["body"],
             **{key: measured[(name, fmt)][key] for key in ("splits", "shapes")
                if key in measured[(name, fmt)]},

@@ -23,8 +23,10 @@
 //   counts) and walks its share, so a split past a lane's length costs
 //   nothing and a few long lanes still fill the SMs. A lane whose keys fit
 //   in one split gets its normalised output; the others write f32 partials
-//   (running max m in log2 units, running sum l, unnormalised O) that
-//   `decode_merge` combines by the log-sum-exp rule.
+//   (running max m in log2 units, running sum l, unnormalised O), and the
+//   last of a (lane, KV head)'s splits to finish combines them by the
+//   log-sum-exp rule (a self-resetting arrival counter a (lane, KV head)):
+//   one launch a call, no second kernel.
 // - A cp.async ring of 2-4 raw tiles: K and V rows in the pool's stored
 //   type (16-byte cp.async.cg copies, or 8-byte .ca copies for quantized
 //   pools whose rows are only 8-byte aligned), zero-filled past the
@@ -54,7 +56,7 @@
 // shuffles and exponentials is long enough that the kernel waits on
 // latency before it reaches the byte bound (more independent work per
 // warp without more registers); overlapping one item's first loads with
-// the last one's merge; TMA; folding the block-local rows of
+// the previous item's merge; TMA; folding the block-local rows of
 // paged_decode_local.cu in as one more tile of the last split.
 #pragma once
 
@@ -80,6 +82,7 @@ struct DecodeArgs {
   const int* seq_lens;
   float* ws_o;   // [B, KH, n_splits, G, D] partial O (null when n_splits == 1)
   float* ws_ml;  // [B, KH, n_splits, G, 2] partial (m, l)
+  int* counters;  // [B, KH] splits arrived, zero between launches
   int B, H, G, n_splits, split_pages;
   int a16;  // stored rows 16-byte aligned: one cp.async.cg per 16 bytes
 };
@@ -526,6 +529,62 @@ __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
   __syncthreads();  // before the next group of rows refills the ring
 }
 
+// Called by every block that wrote a split's partials of (b, kh): the one
+// whose arrival completes the lane's n_live splits merges them,
+// out = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s, and sets the counter
+// back to 0 for the next launch. Partials are published by a fence before
+// the arrival and read back through L2 (__ldcg). A warp a row: lanes
+// reduce M and L over the splits, then each lane sums 4 columns of O over
+// the splits (loads of 4 splits in flight).
+template <typename T, int D>
+__device__ void merge_if_last(const DecodeArgs& a, int b, int kh, int n_live) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  int* cnt = a.counters + (long long)b * a.kv.KH + kh;
+  if (threadIdx.x == 0) last = atomicAdd(cnt, 1) == n_live - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row0 = ((long long)b * a.kv.KH + kh) * a.n_splits * a.G;
+  for (int g = warp; g < a.G; g += WARPS) {
+    // split s of row g: (m, l) at ml[s * G], O at o + s * G * D
+    const float2* ml = reinterpret_cast<const float2*>(a.ws_ml) + row0 + g;
+    const float* o = a.ws_o + (row0 + g) * D;
+    float M = NEG;
+    for (int s = lane; s < n_live; s += 32) M = fmaxf(M, __ldcg(ml + (long long)s * a.G).x);
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) M = fmaxf(M, __shfl_xor_sync(FULL, M, x));
+    float L = 0.f;
+    for (int s = lane; s < n_live; s += 32) {
+      const float2 v = __ldcg(ml + (long long)s * a.G);
+      L += ex2(v.x - M) * v.y;
+    }
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) L += __shfl_xor_sync(FULL, L, x);
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    T* out = static_cast<T*>(a.out) + ((long long)b * a.H + (long long)kh * a.G + g) * D;
+    for (int c = lane; c < D / 4; c += 32) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int s = 0; s < n_live; ++s) {
+        const float f = ex2(__ldcg(ml + (long long)s * a.G).x - M);
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(o + (long long)s * a.G * D) + c);
+        acc.x = fmaf(f, v.x, acc.x);
+        acc.y = fmaf(f, v.y, acc.y);
+        acc.z = fmaf(f, v.z, acc.z);
+        acc.w = fmaf(f, v.w, acc.w);
+      }
+      store_out(out + 4 * c, acc.x * inv);
+      store_out(out + 4 * c + 1, acc.y * inv);
+      store_out(out + 4 * c + 2, acc.z * inv);
+      store_out(out + 4 * c + 3, acc.w * inv);
+    }
+  }
+  if (threadIdx.x == 0) *cnt = 0;
+}
+
 // The block's share of the live (lane, KV head, split) items: item i is
 // split i / KH - pref[b] of lane b (pref[b] <= i / KH < pref[b + 1]) and
 // KV head i % KH. Dead splits are never listed, so a short lane costs no
@@ -567,6 +626,7 @@ __device__ void decode_items(unsigned char* smem, const DecodeArgs& a) {
     const bool direct = n_live == 1;
     for (int g0 = 0; g0 < a.G; g0 += GC)
       split_rows<T, D, GC>(smem, pages, a, kv, b, kh, s, g0, k_lo, k_hi, direct);
+    if (!direct) merge_if_last<T, D>(a, b, kh, n_live);
   }
 }
 

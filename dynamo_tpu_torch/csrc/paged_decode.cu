@@ -14,50 +14,20 @@
 // the SMs and short lanes cost no block; it streams raw tiles through a
 // 2-4 stage cp.async ring so loads overlap the arithmetic, and keeps q, the
 // softmax state and O in registers (CUDA cores, f32). Lanes that needed
-// more than one split are combined by `decode_merge`, a second launch made
-// only when the host's plan has more than one split.
+// more than one split are combined by the last of their splits' blocks to
+// finish, inside the same launch.
 // Left for later: TMA, folding the local kernel in.
 #include "flash_decode.cuh"
 
 namespace dyn {
 
-// at most 128 registers a thread up to 4 rows (four blocks an SM where the
+// at most 128 registers a thread at 3 rows (four blocks an SM where the
 // ring's shared memory allows: more warps to hide each one's latency); 8
 // rows keep their registers
 template <typename T, int D, int GC>
 __global__ void __launch_bounds__(NT, GC >= 8 ? 1 : 4) paged_decode_kernel(fd::DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   fd::decode_items<T, D, GC>(smem_raw, a);
-}
-
-// out = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s over a lane's live
-// splits; lanes with one live split were written by the kernel itself.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-decode_merge(T* __restrict__ out, const float* __restrict__ ws_o,
-             const float* __restrict__ ws_ml, const int* __restrict__ seq_lens,
-             int G, int D, int n_splits, int sk) {
-  const int kh = blockIdx.x, b = blockIdx.y, KH = gridDim.x;
-  int len = seq_lens[b];
-  if (len < 1) len = 1;
-  int n_live = (len + sk - 1) / sk;
-  if (n_live > n_splits) n_live = n_splits;
-  if (n_live <= 1) return;
-  const long long part0 = ((long long)b * KH + kh) * n_splits;
-  for (int idx = threadIdx.x; idx < G * D; idx += NT) {
-    const int g = idx / D, d = idx - g * D;
-    float M = NEG;
-    for (int s = 0; s < n_live; ++s) M = fmaxf(M, ws_ml[2 * ((part0 + s) * G + g)]);
-    float L = 0.f, O = 0.f;
-    for (int s = 0; s < n_live; ++s) {
-      const long long row = (part0 + s) * G + g;
-      const float f = fd::ex2(ws_ml[2 * row] - M);
-      L += ws_ml[2 * row + 1] * f;
-      O += ws_o[row * D + d] * f;
-    }
-    store_out(out + ((long long)b * KH * G + (long long)kh * G + g) * D + d,
-              L > 0.f ? O / L : 0.f);
-  }
 }
 
 template <typename T, int D, int GC>
@@ -78,21 +48,16 @@ int launch_decode(const fd::DecodeArgs& a, int num_sms, cudaStream_t stream) {
   const long long items = (long long)a.B * a.kv.KH * a.n_splits;
   const int grid = (int)(items < (long long)occ * num_sms ? items : (long long)occ * num_sms);
   paged_decode_kernel<T, D, GC><<<grid, NT, smem, stream>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || a.n_splits == 1) return (int)e;
-  decode_merge<T><<<dim3(a.kv.KH, a.B), NT, 0, stream>>>(
-      static_cast<T*>(a.out), a.ws_o, a.ws_ml, a.seq_lens, a.G, D, a.n_splits,
-      a.split_pages * a.kv.page_size);
   return (int)cudaGetLastError();
 }
 
-// rows up to GC = 2, 3, 4 or 8 live in registers (G = 2, 3, 4, 8 fill
-// them exactly); more loop over groups of 8
+// two row counts live in registers: GC = 3 (Llama-3.2-3B's G, the served
+// and timed one; G = 1, 2 leave rows idle) and GC = 8 (G = 4..8 in one
+// group; more loop over groups of 8). Each GC is 6 more instantiations
+// (dtype x D) to build.
 template <typename T, int D>
 int launch_decode_g(const fd::DecodeArgs& a, int num_sms, cudaStream_t stream) {
-  if (a.G <= 2) return launch_decode<T, D, 2>(a, num_sms, stream);
-  if (a.G == 3) return launch_decode<T, D, 3>(a, num_sms, stream);
-  if (a.G <= 4) return launch_decode<T, D, 4>(a, num_sms, stream);
+  if (a.G <= 3) return launch_decode<T, D, 3>(a, num_sms, stream);
   return launch_decode<T, D, 8>(a, num_sms, stream);
 }
 
@@ -108,7 +73,13 @@ int launch_decode_g(const fd::DecodeArgs& a, int num_sms, cudaStream_t stream) {
 // [B, max_pages] int32; seq_lens: [B] int32. The caller's split plan:
 // n_splits runs of split_pages logical pages (n_splits * split_pages >=
 // max_pages); when n_splits > 1, ws_o (f32 [B, KH, n_splits, G, D]) and
-// ws_ml (f32 [B, KH, n_splits, G, 2]) are scratch, else null. Returns
+// ws_ml (f32 [B, KH, n_splits, G, 2]) are scratch and counters (int32
+// [B, KH]) must hold zeros, which the launch leaves behind for the next
+// one on the same stream; else all three may be null. B is bounded
+// by shared memory: every block holds 8 bytes a lane (the lanes' lengths
+// and live-split prefix) beside its ring, so at D = 128 a launch takes up
+// to about 20,000 lanes on a bf16 pool and 12,000 on an f32 one; past
+// that the launch fails with the kernel's shared-memory error. Returns
 // cudaGetLastError() (0 = launched), or a negative code for a dtype /
 // head_dim / page_size / format / plan that is not built.
 extern "C" int dyn_paged_decode(void* out, const void* q, const void* kv_k,
@@ -118,17 +89,19 @@ extern "C" int dyn_paged_decode(void* out, const void* q, const void* kv_k,
                                 long long s_page, long long s_tok, long long s_head,
                                 const int* seq_lens, int B, int H, int KH, int D,
                                 int page_size, int dtype, int n_splits, int split_pages,
-                                float* ws_o, float* ws_ml, int num_sms, void* stream) {
+                                float* ws_o, float* ws_ml, int* counters, int num_sms,
+                                void* stream) {
   if (B <= 0) return 0;
   if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size, kv_bits) || n_splits < 1 ||
       split_pages < 1 || (long long)n_splits * split_pages < max_pages ||
       (long long)(n_splits - 1) * split_pages >= max_pages || num_sms < 1 ||
-      (n_splits > 1 && (ws_o == nullptr || ws_ml == nullptr)))
+      (n_splits > 1 && (ws_o == nullptr || ws_ml == nullptr || counters == nullptr)))
     return dyn::ERR_UNSUPPORTED;
   dyn::fd::DecodeArgs a{out, q,
                         dyn::make_kv(kv_k, kv_v, k_scale, v_scale, kv_bits, max_pages,
                                      num_phys, page_size, KH, s_page, s_tok, s_head),
-                        page_tables, seq_lens, ws_o, ws_ml, B, H, H / KH, n_splits, split_pages,
+                        page_tables, seq_lens, ws_o, ws_ml, counters, B, H, H / KH, n_splits,
+                        split_pages,
                         kv_bits == 0 || ((s_page | s_tok | s_head) % 16) == 0};
   DYN_DISPATCH(dtype, D, LAUNCH_DECODE);
 }

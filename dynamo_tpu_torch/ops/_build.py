@@ -129,7 +129,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # kv_k, kv_v, k_scale, v_scale, kv_bits, tables, max_pages, num_phys, strides
     kv = [_P, _P, _P, _P, _I, _P, _I, _I, _L, _L, _L]
     lib.dyn_paged_decode.argtypes = [
-        _P, _P, *kv, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P]
+        _P, _P, *kv, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
     lib.dyn_paged_decode_local.argtypes = [
         _P, _P, *kv, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.dyn_prefill_attention.argtypes = [

@@ -9,9 +9,13 @@ KV head, lane) items, which every block lists from `seq_lens` on the card:
 a few long lanes still fill the SMs, and short lanes cost no block. Raw
 tiles (bf16/f32, or int8/int4 bytes dequantized in registers, in place of
 the TPU kernel's `_window_dequant`) stream through a cp.async ring; lanes
-that used more than one split are combined by a second, small launch.
-The split plan comes from shapes the host holds (never from `seq_lens`),
-and the scratch for partial results comes from torch's caching allocator.
+that used more than one split are combined, in the same launch, by the
+last of their splits' blocks to finish. The split plan comes from shapes
+the host holds (never from `seq_lens`), and is kept per shape; the scratch
+for partial results and the arrival counters come from torch's caching
+allocator, once per stream (a stream's calls run in order, and every
+launch leaves the counters at zero), so a call allocates nothing but its
+output.
 The plain PyTorch version is `ops.paged_attention.paged_attention_decode_plain`.
 """
 
@@ -29,6 +33,8 @@ SPLIT_MIN_KEYS = 512  # a split covers at least this many keys
 ITEMS_PER_SM = 64  # and B * KH splits of the whole table at most about this many an SM
 
 _sm_count: dict = {}
+_plans: dict = {}  # (device, B, KH, max_pages, page_size) -> (split_pages, n_splits, sms)
+_scratch: dict = {}  # (device, stream) -> (f32 partials, int32 arrival counters)
 
 
 def split_plan(B: int, KH: int, max_pages: int, page_size: int, sms: int) -> tuple:
@@ -49,6 +55,26 @@ def _sms(device: torch.device) -> int:
     return _sm_count[idx]
 
 
+def _plan(device: torch.device, B: int, KH: int, max_pages: int, page_size: int) -> tuple:
+    key = (device.index, B, KH, max_pages, page_size)
+    plan = _plans.get(key)
+    if plan is None:
+        sms = _sms(device)
+        plan = _plans[key] = (*split_plan(B, KH, max_pages, page_size, sms), sms)
+    return plan
+
+
+def _scratch_for(device: torch.device, stream: int, n_ws: int, n_counters: int) -> tuple:
+    """This stream's scratch, grown to n_ws floats and n_counters zeros."""
+    ws, counters = _scratch.get((device.index, stream), (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _scratch[(device.index, stream)] = (ws, counters)
+    return ws, counters
+
+
 def paged_attention_decode_hopper(
     q: torch.Tensor,  # [B, H, D]
     kv_k_layer,  # [pages, page_size, KH, D] tensor, or per-layer QuantKV
@@ -67,20 +93,21 @@ def paged_attention_decode_hopper(
     lib = _build.load_library()
     if page_tables.shape[1] < 1:
         raise ValueError("page_tables must have at least one column")
-    sms = _sms(q.device)
-    split_pages, n_splits = split_plan(B, KH, page_tables.shape[1], page_size, sms)
+    split_pages, n_splits, sms = _plan(q.device, B, KH, page_tables.shape[1], page_size)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
-    ws_o = ws_ml = None
+    ws_o = ws_ml = counters = None
     if n_splits > 1:
-        G = H // KH
-        ws_o = torch.empty((B, KH, n_splits, G, D), dtype=torch.float32, device=q.device)
-        ws_ml = torch.empty((B, KH, n_splits, G, 2), dtype=torch.float32, device=q.device)
+        # partial O [B, KH, n_splits, G, D], then (m, l) [B, KH, n_splits, G, 2]
+        rows = B * H * n_splits
+        ws, cnt = _scratch_for(q.device, stream, rows * (D + 2), B * KH)
+        ws_o = ws.data_ptr()
+        ws_ml = ws_o + 4 * rows * D
+        counters = cnt.data_ptr()
     rc = lib.dyn_paged_decode(
         out.data_ptr(), q.data_ptr(), *kv, seq_lens.data_ptr(),
-        B, H, KH, D, page_size, code, n_splits, split_pages,
-        None if ws_o is None else ws_o.data_ptr(),
-        None if ws_ml is None else ws_ml.data_ptr(), sms,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        B, H, KH, D, page_size, code, n_splits, split_pages, ws_o, ws_ml, counters, sms,
+        stream,
     )
     _build.check_status(lib, rc, "paged decode")
     launch_count += 1

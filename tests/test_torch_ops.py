@@ -223,3 +223,28 @@ def test_decode_split_plan(B, KH, max_pages, page_size, sms, want):
     assert (n_splits - 1) * split_pages < max_pages <= n_splits * split_pages
     assert n_splits == 1 or split_pages * page_size >= hp.SPLIT_MIN_KEYS
     assert B * KH * max_pages / split_pages <= hp.ITEMS_PER_SM * sms or n_splits == 1
+
+
+def test_decode_scratch_is_kept_per_stream_and_grows():
+    """The decode wrapper's scratch: one (partials, arrival counters) pair a
+    stream, reused while it is large enough, grown with counters at zero."""
+    import torch
+
+    from dynamo_tpu_torch.ops import hopper_paged_attention as hp
+
+    dev = torch.device("cpu")
+    saved = dict(hp._scratch)
+    try:
+        hp._scratch.clear()
+        ws, cnt = hp._scratch_for(dev, 7, 100, 8)
+        assert ws.numel() >= 100 and ws.dtype == torch.float32
+        assert cnt.numel() >= 8 and cnt.dtype == torch.int32 and not cnt.any()
+        again = hp._scratch_for(dev, 7, 50, 4)
+        assert again[0] is ws and again[1] is cnt
+        other = hp._scratch_for(dev, 8, 50, 4)
+        assert other[0] is not ws and other[1] is not cnt
+        grown = hp._scratch_for(dev, 7, 200, 16)
+        assert grown[0].numel() >= 200 and grown[1].numel() >= 16 and not grown[1].any()
+    finally:
+        hp._scratch.clear()
+        hp._scratch.update(saved)
