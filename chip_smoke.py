@@ -7,10 +7,12 @@ Builds the Hopper kernels from dynamo_tpu_torch/csrc, holds each kernel in
 each KV format (bf16/f32 pages, int8, int4) against its plain PyTorch
 version on the card (prefill and ragged attention in both of their bodies:
 f32 on the FMA body, bf16 on the tensor-core body at tiny width, at full
-width and at 2, 3, 4 and 8 query heads per KV head; the split-KV decode at
-tiny width across split boundaries in f32 and bf16, with quantized rows
-only 8-byte aligned, at 3, 4 and 8 query heads per KV head, and timed at
-three shapes: 64 lanes, 4 long lanes, 64 lanes of which 12 are live;
+width and at 2, 3, 4 and 8 query heads per KV head; both split-KV decode
+kernels at tiny width across split boundaries in f32 and bf16, with
+quantized rows only 8-byte aligned (the local one at 1, 8 and 64
+block-local rows, first and last step), at 3 and 16 query heads per KV
+head (plain decode also at 4 and 8), and timed at three shapes: 64 lanes,
+4 long lanes, 64 lanes of which 12 are live;
 every kernel timed with its calls queued behind a device sleep and issued
 back to back, with the host's time a call), holds the card's
 quantized page writes to the CPU's
@@ -97,7 +99,8 @@ KERNELS = {
         "source": "dynamo_tpu_torch/csrc/paged_decode_local.cu",
         "replaces": {"none": "dynamo_tpu/ops/pallas_paged_attention.py:422",
                      "quant": "dynamo_tpu/ops/pallas_paged_attention.py:40"},
-        "body": {"bfloat16": "fma", "float32": "fma"},
+        # the same split-KV body, block-local rows one more tile of the last split
+        "body": {"bfloat16": "splitkv-fma", "float32": "splitkv-fma"},
     },
     "prefill_attention": {
         "module": hopper_prefill_attention,
@@ -309,6 +312,19 @@ def rows8(layer):
     return kv_quant.QuantKV(full[..., :q.shape[-1]], layer.s, layer.bits, layer.page_size)
 
 
+# lanes of the tiny split-KV decode checks: D=16, page 8, 130-entry tables
+# cut into 3 splits of 64 pages (512 keys): empty, length 1, one split, one
+# split + 1, page-straddling, more than two splits
+SPLIT_LENS = [0, 1, 512, 513, 37, 1030]
+
+
+def g16_case(rng):
+    """Full width at G=16 (H=32, KH=2): the decode body loops over two
+    groups of 8 rows. 8 lanes, 128-entry tables, lengths 1..2048."""
+    return decode_case(rng, 8, 32, 2, 128, 64, 128, 2049, torch.bfloat16,
+                       rng.integers(1, 2049, size=8))
+
+
 def decode_timed_shapes(seed: int) -> dict:
     """The two extra timed decode shapes, from their own generator (so the
     B=64 shape's draw is unchanged): 4 long lanes, and the serve phases'
@@ -319,7 +335,7 @@ def decode_timed_shapes(seed: int) -> dict:
     return {"B4_long": rng.integers(7600, 8193, size=4), "B64_12live": live}
 
 
-def check_decode(rng, measured, rng_dec, shapes):
+def check_decode(rng, measured, rng_dec, shapes, rng_g16):
     # tiny f32: GQA 2, page-straddling lengths, an empty lane
     q, k, v, tab, lens = decode_case(
         rng, 5, 4, 2, 16, 8, 6, 40, torch.float32, [1, 8, 9, 37, 0])
@@ -335,16 +351,17 @@ def check_decode(rng, measured, rng_dec, shapes):
     # 3 splits) with lanes of length 0, 1, one split, one split + 1, a
     # page-straddling length and more than two splits — in f32 (2e-3), in
     # bf16, and with quantized rows only 8-byte aligned; then full width at
-    # G=4 (H=32/KH=8) and G=8 (H=64/KH=8)
-    split_lens = [0, 1, 512, 513, 37, 1030]
+    # G=4 (H=32/KH=8) and G=8 (H=64/KH=8); and G=16 (H=32/KH=2: two groups
+    # of 8 rows), drawn from a generator of its own
     cases = {
         "tiny_split_f32": decode_case(rng_dec, 6, 4, 2, 16, 8, 130, 40, torch.float32,
-                                      split_lens),
-        "tiny_G2": decode_case(rng_dec, 6, 4, 2, 16, 8, 130, 40, torch.bfloat16, split_lens),
+                                      SPLIT_LENS),
+        "tiny_G2": decode_case(rng_dec, 6, 4, 2, 16, 8, 130, 40, torch.bfloat16, SPLIT_LENS),
         "G4": decode_case(rng_dec, 8, 32, 8, 128, 64, 128, 2049, torch.bfloat16,
                           rng_dec.integers(1, 2049, size=8)),
         "G8": decode_case(rng_dec, 8, 64, 8, 128, 64, 128, 2049, torch.bfloat16,
                           rng_dec.integers(1, 2049, size=8)),
+        "G16": g16_case(rng_g16),
     }
     checks = {fmt: {} for fmt in FORMATS}
     for fmt in FORMATS:
@@ -362,11 +379,11 @@ def check_decode(rng, measured, rng_dec, shapes):
                 else:
                     checks[fmt][case + tag] = check_full("paged_decode", fmt, out, ref, case + tag)
                 checks[fmt][case + tag + "_splits"] = hopper_paged_attention.last_splits
-            if case in ("G4", "G8"):  # timed: G=4 runs the 8-row instantiation
+            if case in ("G4", "G8", "G16"):  # timed: G=4 runs the 8-row instantiation
                 checks[fmt][case + "_ms"] = time_ms(
                     lambda: pa.paged_attention_decode(qq, kk, vv, tb, ln))
                 checks[fmt][case + "_bound_ms"] = decode_bound(
-                    ln.cpu().numpy(), 8, 128, 64, fmt, qq, qq.shape[1])[0]
+                    ln.cpu().numpy(), k_.shape[2], 128, 64, fmt, qq, qq.shape[1])[0]
     del cases
     # full width bf16: the engine's decode shape (64 lanes, 128-entry tables)
     B, H, KH, D, ps, P = 64, 24, 8, 128, 64, 128
@@ -417,7 +434,18 @@ def check_decode(rng, measured, rng_dec, shapes):
         }
 
 
-def check_decode_local(rng, measured, rng_dec, shapes):
+def local_rows(rng, B, K, KH, D, dtype, step):
+    """Block-local K/V [B, K, KH, D]; rows past `step` hold 1e4, which would
+    swamp any score they reached."""
+    out = []
+    for _ in range(2):
+        x = rng.standard_normal((B, K, KH, D)).astype(np.float32)
+        x[:, step + 1:] = 1e4
+        out.append(torch.from_numpy(x).to(DEV, dtype))
+    return out
+
+
+def check_decode_local(rng, measured, rng_dec, shapes, rng_loc):
     # tiny f32: GQA 2, page-straddling pool lengths, two empty pools, K=4
     # with entries past step_idx holding garbage that must not be read
     B, H, KH, D = 5, 4, 2, 16
@@ -435,6 +463,44 @@ def check_decode_local(rng, measured, rng_dec, shapes):
                             pa.paged_attention_decode_mixed_plain(*args))
         torch.cuda.synchronize()
         assert tiny[fmt] <= TOL_F32_TINY, f"paged_decode_local[{fmt}] f32 tiny: {tiny[fmt]}"
+    # where the split-KV body's local tile can break, from a generator of
+    # its own: the split edges of check_decode (D=16, page 8, G=2, 3
+    # splits) plus a full table (1040 keys), in f32 (2e-3), in bf16 and with
+    # quantized rows only 8-byte aligned; then full width at G=16. Each at
+    # K=8 (first and last step), K=1 and K=64 (its last step: 64 rows of
+    # T are 1-4 ring stages)
+    lens = SPLIT_LENS + [1040]
+    cases = {
+        "tiny_split_f32": decode_case(rng_loc, len(lens), 4, 2, 16, 8, 130, 40,
+                                      torch.float32, lens),
+        "tiny_G2": decode_case(rng_loc, len(lens), 4, 2, 16, 8, 130, 40, torch.bfloat16, lens),
+        "G16": g16_case(rng_loc),
+    }
+    steps = [(8, 0), (8, 7), (1, 0), (64, 63)]
+    checks = {fmt: {} for fmt in FORMATS}
+    for case, (qq, k_, v_, tb, ln) in cases.items():
+        rows = {(K_, st): local_rows(rng_loc, qq.shape[0], K_, k_.shape[2], qq.shape[2],
+                                     qq.dtype, st) for K_, st in steps}
+        for fmt in FORMATS:
+            kk, vv = pool_in(k_, v_, fmt)
+            views = [("", kk, vv)]
+            if fmt != "none" and case != "G16":
+                views.append(("_rows8", rows8(kk), rows8(vv)))
+            for tag, ka, va in views:
+                for (K_, st), (lk, lv) in rows.items():
+                    name = f"{case}{tag}_K{K_}_s{st}"
+                    args = (qq, ka, va, tb, ln, lk, lv, i32([st]))
+                    out = pa.paged_attention_decode_mixed(*args)
+                    ref = pa.paged_attention_decode_mixed_plain(*args)
+                    if qq.dtype == torch.float32:
+                        torch.cuda.synchronize()
+                        err = max_err(out, ref)
+                        assert err <= TOL_F32_TINY, f"paged_decode_local[{fmt}] {name}: {err}"
+                        checks[fmt][name] = err
+                    else:
+                        checks[fmt][name] = check_full("paged_decode_local", fmt, out, ref, name)
+                    checks[fmt][name + "_splits"] = hopper_paged_attention_local.last_splits
+    del cases
     # full width bf16: the decode shape, K=8 local rows, the block's last step
     B, H, KH, D, ps, P, K = 64, 24, 8, 128, 64, 128, LOCAL_K
     lens = rng.integers(1, 2049, size=B)
@@ -461,6 +527,7 @@ def check_decode_local(rng, measured, rng_dec, shapes):
         out = pa.paged_attention_decode_mixed(*args)
         ref = pa.paged_attention_decode_mixed_plain(*args)
         err_full, rel_full = check_full("paged_decode_local", fmt, out, ref)
+        splits = hopper_paged_attention_local.last_splits
         keys = pool_lens.sum() + B * n_loc
         bytes_moved = (pool_lens.sum() * kv_bytes_per_token(KH, D, fmt)
                        + scale_bytes(pages_read, KH, fmt)
@@ -472,13 +539,14 @@ def check_decode_local(rng, measured, rng_dec, shapes):
         lib = sdpa_ms(q[:, :, None, :], kd, vd, mask)
         del kd, vd
         times = time_kernel(lambda: pa.paged_attention_decode_mixed(*args))
-        # the paged_decode's extra timed shapes, as the baseline of a local
-        # kernel on the split-KV body: pool lengths len - 1, the same K rows
+        # paged_decode's extra timed shapes: pool lengths len - 1, the same
+        # K rows
         at = {}
         for name, (ln_t, qx, tb) in extra.items():
             xargs = (qx, kk, vv, tb, ln_t, loc_k[:len(qx)], loc_v[:len(qx)], step)
             e, rel = check_full("paged_decode_local", fmt, pa.paged_attention_decode_mixed(*xargs),
                                 pa.paged_attention_decode_mixed_plain(*xargs), name)
+            n_split = hopper_paged_attention_local.last_splits
             pl = np.maximum(shapes[name] - 1, 0)
             x_bytes = (pl.sum() * kv_bytes_per_token(KH, D, fmt)
                        + scale_bytes(np.ceil(pl / ps).sum(), KH, fmt)
@@ -486,12 +554,14 @@ def check_decode_local(rng, measured, rng_dec, shapes):
                        + 2 * qx.numel() * 2)
             at[name] = {**time_kernel(lambda: pa.paged_attention_decode_mixed(*xargs)),
                         "bound_ms": bound(x_bytes, 4.0 * H * D * (pl.sum() + len(pl) * n_loc))[0],
-                        "max_abs_err": e, "max_row_rel_err": rel}
+                        "splits": n_split, "max_abs_err": e, "max_row_rel_err": rel}
+        assert at["B4_long"]["splits"] > 1, \
+            f"paged_decode_local[{fmt}]: the long shape ran unsplit"
         measured[("paged_decode_local", fmt)] = {
             "max_abs_err": max([err_full] + [a["max_abs_err"] for a in at.values()]),
             "max_row_rel_err": max([rel_full] + [a["max_row_rel_err"] for a in at.values()]),
-            "max_abs_err_f32_tiny": tiny[fmt],
-            **times, "tflops": tflops(4.0 * H * D * keys, times["ms"]),
+            "max_abs_err_f32_tiny": tiny[fmt], "bf16_checks": checks[fmt],
+            **times, "tflops": tflops(4.0 * H * D * keys, times["ms"]), "splits": splits,
             "plain_ms": time_ms(lambda: pa.paged_attention_decode_mixed_plain(*args), 1, 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "shapes": at,
             "shape": (f"B={B} H={H} KH={KH} D={D} ps={ps} tables=[{B},{P}] "
@@ -691,11 +761,13 @@ def phase_kernels(seed: int) -> dict:
     # the bf16 tensor-core checks draw from their own generator, so the timed
     # shapes (drawn from `rng`) are those of runs without them
     rng_bf16 = np.random.default_rng(seed + 3)
-    # so do the split-KV decode checks and the extra timed decode shapes
+    # so do the split-KV decode checks and the extra timed decode shapes,
+    # and the G=16 and local split-edge checks
     rng_dec = np.random.default_rng(seed + 5)
+    rng_new = np.random.default_rng(seed + 7)
     shapes = decode_timed_shapes(seed)
-    for check in (lambda r, m: check_decode(r, m, rng_dec, shapes),
-                  lambda r, m: check_decode_local(r, m, rng_dec, shapes),
+    for check in (lambda r, m: check_decode(r, m, rng_dec, shapes, rng_new),
+                  lambda r, m: check_decode_local(r, m, rng_dec, shapes, rng_new),
                   lambda r, m: check_prefill(r, m, rng_bf16),
                   lambda r, m: check_ragged(r, m, rng_bf16)):
         check(rng, measured)

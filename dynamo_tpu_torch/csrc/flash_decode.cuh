@@ -1,10 +1,15 @@
-// Split-KV flash decode over paged KV: the body of paged_decode.cu.
+// Split-KV flash decode over paged KV: the body of paged_decode.cu and
+// paged_decode_local.cu.
 //
-// Replaces the TPU kernel `_decode_kernel` of
-// dynamo_tpu/ops/pallas_paged_attention.py (wrapper
-// `paged_attention_decode_pallas`, :514) together with its page dequant
-// `_window_dequant` (:40): one query token per lane b, its G query heads
-// per KV head attend the lane's own pages, keys < max(seq_lens[b], 1).
+// Replaces the TPU kernels `_decode_kernel` and `_decode_local_kernel` of
+// dynamo_tpu/ops/pallas_paged_attention.py (wrappers
+// `paged_attention_decode_pallas`, :514, and
+// `paged_attention_decode_pallas_local`, :422) together with their page
+// dequant `_window_dequant` (:40): one query token per lane b, its G query
+// heads per KV head attend the lane's own pages, keys < max(seq_lens[b], 1);
+// the local variant (LOCAL) attends pool keys < pool_lens[b] (none when it
+// is 0) plus the block-local rows j <= step_idx of loc_k / loc_v
+// [B, K, KH, D] (q's type), in one softmax.
 //
 // Bound on this card: bytes. Each lane's real context K and V are read
 // once (stored type: bf16/f32, or int8 / int4 plus two f32 scales a page
@@ -16,11 +21,11 @@
 // - Split-KV. A lane's pages are cut into splits of at most `split_pages`
 //   logical pages, chosen on the host from B, KH, max_pages and page_size
 //   (never from seq_lens, which stays on the card): a lane of len keys has
-//   ceil(len / (split_pages * page_size)) live splits, and they share its
-//   pages evenly, so that no split is a sliver. The grid is as many blocks as
-//   the card holds at once; each block lists the live (lane, KV head,
-//   split) items from seq_lens (a prefix sum over the lanes' live split
-//   counts) and walks its share, so a split past a lane's length costs
+//   max(ceil(len / (split_pages * page_size)), 1) live splits, and they
+//   share its pages evenly, so that no split is a sliver. The grid is as
+//   many blocks as the card holds at once; each block lists the live (lane,
+//   KV head, split) items from seq_lens (a prefix sum over the lanes' live
+//   split counts) and walks its share, so a split past a lane's length costs
 //   nothing and a few long lanes still fill the SMs. A lane whose keys fit
 //   in one split gets its normalised output; the others write f32 partials
 //   (running max m in log2 units, running sum l, unnormalised O), and the
@@ -37,6 +42,12 @@
 //   A tile is min(rows of a page, 64) stored rows and never straddles a
 //   page; an int4 row holds keys o and o + page_size/2 (low nibble first),
 //   read once for both.
+// - Block-local rows (LOCAL) are more tiles of the lane's last split, after
+//   its pool tiles, through the same ring: pieces of as many rows of T as
+//   one stage holds (64 over a bf16 pool, 32 int8, 16 int4 at D = 128), only
+//   rows < min(step_idx + 1, K) copied, masked by that count and not by the
+//   pool's length. A lane with an empty pool keeps one item that holds only
+//   its local rows and issues no pool load.
 // - Register-resident state. The G rows of q (times log2(e)/sqrt(D)) live
 //   in registers as f32; a key's D elements are split over D/8 lanes
 //   (8 each), so a warp works on 32*8/D keys at once and a score is a
@@ -49,15 +60,15 @@
 //
 // Contract kept from flash_paged.cuh: f32 softmax state, masked scores NEG
 // with the guard against exp(NEG - NEG), an empty lane behaves as length
-// 1, page ids clamped to the pool, table entries past the lane's length
-// never read.
+// 1 (not under LOCAL: there it attends no pool key, as the reference's
+// plain path), page ids clamped to the pool, table entries past the lane's
+// length never read. A row that sees no key returns zeros.
 //
 // Left for later: with 12-16 warps an SM each warp's chain of products,
 // shuffles and exponentials is long enough that the kernel waits on
 // latency before it reaches the byte bound (more independent work per
 // warp without more registers); overlapping one item's first loads with
-// the previous item's merge; TMA; folding the block-local rows of
-// paged_decode_local.cu in as one more tile of the last split.
+// the previous item's merge; TMA.
 #pragma once
 
 #include <type_traits>
@@ -85,6 +96,13 @@ struct DecodeArgs {
   int* counters;  // [B, KH] splits arrived, zero between launches
   int B, H, G, n_splits, split_pages;
   int a16;  // stored rows 16-byte aligned: one cp.async.cg per 16 bytes
+  // LOCAL only (else null / 0): block-local rows [B, K, KH, D] of T, rows
+  // 0..step_idx[0] valid (clamped to [0, K]); seq_lens then holds the pool
+  // lengths, which may be 0
+  const void* loc_k;
+  const void* loc_v;
+  int K;
+  const int* step_idx;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -178,15 +196,22 @@ struct Tiles {
   int rows_page;  // stored rows a page: page_size, or page_size / 2 (int4)
   int tr;         // stored rows a tile
   int esz;        // bytes a stored element
+  int tsz;        // bytes an element of T
+  int lr;         // block-local rows of T a stage holds (at least 1)
   __host__ __device__ Tiles(int page_size, int bits, int t_size)
       : rows_page(bits == 4 ? page_size / 2 : page_size),
         tr(rows_page < KT_MAX ? rows_page : KT_MAX),
-        esz(bits ? 1 : t_size) {}
+        esz(bits ? 1 : t_size),
+        tsz(t_size),
+        lr(tr * esz >= t_size ? tr * esz / t_size : 1) {}
 };
 
 template <int D>
 __host__ __device__ inline size_t stage_bytes(const Tiles& t) {
-  return (size_t)2 * t.tr * D * t.esz + 16;  // K rows, V rows, two scales
+  // K rows, V rows (pool rows, or the local rows of T in their place: as
+  // many bytes, or one row where a pool tile is smaller), two scales
+  const int rows_bytes = t.tr * t.esz > t.lr * t.tsz ? t.tr * t.esz : t.lr * t.tsz;
+  return (size_t)2 * rows_bytes * D + 16;
 }
 
 // tiles in the ring: as many as fit RING_BUDGET, 2 to MAX_STAGES (bf16 at
@@ -213,13 +238,17 @@ __host__ __device__ inline size_t smem_bytes(const DecodeArgs& a) {
          sizeof(int) * ((size_t)a.split_pages + 2 * (size_t)a.B + 1);
 }
 
-// lens[b] = max(seq_lens[b], 1); pref[b] = live splits of lanes < b
-// (a lane has ceil(len / keys a split) of them, at most n_splits)
+// lens[b] = max(seq_lens[b], 1) (LOCAL: max(pool_lens[b], 0)); pref[b] =
+// live splits of lanes < b (a lane has max(ceil(len / keys a split), 1) of
+// them, at most n_splits: an empty pool's one holds its local rows)
+template <bool LOCAL>
 __device__ inline void live_prefix(const DecodeArgs& a, int* lens, int* pref) {
   const int sk = a.split_pages * a.kv.page_size;
+  constexpr int MIN_LEN = LOCAL ? 0 : 1;
   for (int b = threadIdx.x; b < a.B; b += NT) {
-    const int len = a.seq_lens[b] < 1 ? 1 : a.seq_lens[b];
-    const int n = (len + sk - 1) / sk;
+    const int len = a.seq_lens[b] < MIN_LEN ? MIN_LEN : a.seq_lens[b];
+    int n = (len + sk - 1) / sk;
+    if (n < 1) n = 1;
     lens[b] = len;
     pref[b + 1] = n < a.n_splits ? n : a.n_splits;
   }
@@ -243,11 +272,12 @@ __device__ inline void live_prefix(const DecodeArgs& a, int* lens, int* pref) {
   __syncthreads();
 }
 
-// Rows [g0, g0 + GC) of one (split, KV head, lane): keys [k_lo, k_hi).
-template <typename T, int D, int GC>
+// Rows [g0, g0 + GC) of one (split, KV head, lane): keys [k_lo, k_hi),
+// then (LOCAL, the lane's last split) block-local rows [0, n_loc).
+template <typename T, int D, int GC, bool LOCAL>
 __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
                            const PagedKV& kv, int b, int kh, int s, int g0, int k_lo,
-                           int k_hi, bool direct) {
+                           int k_hi, int n_loc, bool direct) {
   constexpr int LPK = D / EPL;     // lanes a key
   constexpr int KPW = 32 / LPK;    // keys a warp reads at once
   constexpr int NSLOT = WARPS * KPW;
@@ -302,6 +332,11 @@ __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
   const int stages = ring_stages(stageb);
   const int n_tiles = bits == 4 ? ((k_hi - k_lo + ps - 1) / ps) * tpp
                                 : (k_hi - k_lo + TR - 1) / TR;
+  // block-local pieces after the pool tiles: LR rows of T each
+  const int LR = tg.lr;
+  constexpr int rowb_l = D * (int)sizeof(T);
+  const int tileb_l = LR * rowb_l;
+  const int n_all = LOCAL ? n_tiles + (n_loc + LR - 1) / LR : n_tiles;
   const long long head_off = (long long)kh * kv.s_head;
   const int cpr = rowb / 16;  // 16-byte pieces a row (a power of two)
   const int cpr_sh = __ffs(cpr) - 1;
@@ -314,6 +349,27 @@ __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
 
   auto fetch = [&](int t) {
     unsigned char* dst = smem + (t % stages) * stageb;
+    if constexpr (LOCAL) {
+      if (t >= n_tiles) {
+        // rows [r0, r0 + nr) of loc[b, :, kh, :], 16-byte pieces (rows of T
+        // at D >= 16 are whole pieces, 16-byte aligned); no row >= n_loc
+        constexpr int CPL = rowb_l / 16;
+        const int r0 = (t - n_tiles) * LR;
+        const int nr = n_loc - r0 < LR ? n_loc - r0 : LR;
+        const long long off = (((long long)b * a.K + r0) * kv.KH + kh) * D;
+        const T* lk = static_cast<const T*>(a.loc_k) + off;
+        const T* lv = static_cast<const T*>(a.loc_v) + off;
+        for (int c = tid; c < 2 * nr * CPL; c += NT) {
+          const int which = c >= nr * CPL;  // 0: K, 1: V
+          const int rem = c - which * nr * CPL;
+          const int r = rem / CPL, ch = rem % CPL;
+          const char* src = reinterpret_cast<const char*>((which ? lv : lk) +
+                                                          (long long)r * kv.KH * D);
+          cp16(dst + which * tileb_l + r * rowb_l + ch * 16, src + ch * 16, true);
+        }
+        return;
+      }
+    }
     const int pt = t / tpp;
     const int row0 = (t - pt * tpp) * TR;
     const int kbase = (p_lo + pt) * ps + row0;
@@ -357,14 +413,17 @@ __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
     }
   };
 
-  // One chunk of NC keys of the staged tile: CR rows of this slot (KPR
-  // keys a row). Every lane runs the same straight-line code: a row past
-  // the tile reads the tile's last row and is masked like a key past the
-  // split, so scores and shuffles of all (key, row) pairs interleave.
+  // One chunk of NC keys of the staged tile (tr rows of rb bytes; keys <
+  // limit valid): CR rows of this slot (KPR keys a row). Every lane runs the
+  // same straight-line code: a row past the tile reads the tile's last row
+  // and is masked like a key past the split, so scores and shuffles of all
+  // (key, row) pairs interleave.
   auto chunk = [&](const unsigned char* kt, const unsigned char* vt, float ksc, float vsc,
-                   int kbase, int c, auto fmt_tag) {
-    constexpr int KPR = decltype(fmt_tag)::value == 2 ? 2 : 1;
+                   int kbase, int limit, int tr, int rb, int c, auto fmt_tag) {
+    constexpr int FMT = decltype(fmt_tag)::value;
+    constexpr int KPR = FMT == 2 ? 2 : 1;
     constexpr int CR = NC / KPR;  // rows a chunk
+    constexpr int ESZ = FMT == 0 ? (int)sizeof(T) : 1;
     float kf[NC][EPL];
     float sc[NC][GC];
     int rows[CR];
@@ -372,9 +431,9 @@ __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
 #pragma unroll
     for (int i = 0; i < CR; ++i) {
       const int r = (c * CR + i) * NSLOT + slot;
-      in_tile[i] = r < TR;
-      rows[i] = r < TR ? r : TR - 1;
-      load_row(kt + rows[i] * rowb + d0 * esz, ksc, fmt_tag, &kf[i * KPR]);
+      in_tile[i] = r < tr;
+      rows[i] = r < tr ? r : tr - 1;
+      load_row(kt + rows[i] * rb + d0 * ESZ, ksc, fmt_tag, &kf[i * KPR]);
     }
     // scores: lane-partial products over its 8 elements, summed over the
     // key's LPK lanes
@@ -397,7 +456,7 @@ __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int key = kbase + rows[j / KPR] + (j % KPR) * RP;
-      const bool valid = in_tile[j / KPR] && key < k_hi;
+      const bool valid = in_tile[j / KPR] && key < limit;
 #pragma unroll
       for (int g = 0; g < GC; ++g) sc[j][g] = valid ? sc[j][g] : NEG;
     }
@@ -426,7 +485,7 @@ __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
 #pragma unroll
     for (int i = 0; i < CR; ++i) {
       float vf[KPR][EPL];
-      load_row(vt + rows[i] * rowb + d0 * esz, vsc, fmt_tag, vf);
+      load_row(vt + rows[i] * rb + d0 * ESZ, vsc, fmt_tag, vf);
 #pragma unroll
       for (int n = 0; n < KPR; ++n)
 #pragma unroll
@@ -436,35 +495,46 @@ __device__ void split_rows(unsigned char* smem, int* pages, const DecodeArgs& a,
     }
   };
 
-  // all chunks of one staged tile, the format fixed for the whole tile
-  auto tile = [&](const unsigned char* kt, float ksc, float vsc, int kbase, auto fmt_tag) {
+  // all chunks of one staged tile of tr rows (K rows, then V rows tb
+  // bytes on), the format fixed for the whole tile
+  auto tile = [&](const unsigned char* kt, int tb, float ksc, float vsc, int kbase,
+                  int limit, int tr, int rb, auto fmt_tag) {
     constexpr int CR = NC / (decltype(fmt_tag)::value == 2 ? 2 : 1);
-    for (int c = 0; c * CR * NSLOT < TR; ++c)
-      chunk(kt, kt + tileb, ksc, vsc, kbase, c, fmt_tag);
+    for (int c = 0; c * CR * NSLOT < tr; ++c)
+      chunk(kt, kt + tb, ksc, vsc, kbase, limit, tr, rb, c, fmt_tag);
   };
 
   // the ring: stages - 1 tiles ahead
   for (int t = 0; t < stages - 1; ++t) {
-    if (t < n_tiles) fetch(t);
+    if (t < n_all) fetch(t);
     commit();
   }
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = 0; t < n_all; ++t) {
     if (stages == 2) wait_group<0>();
     else if (stages == 3) wait_group<1>();
     else wait_group<2>();
     __syncthreads();  // tile t landed for all; tile t - 1's stage is free
-    if (t + stages - 1 < n_tiles) fetch(t + stages - 1);
+    if (t + stages - 1 < n_all) fetch(t + stages - 1);
     commit();
     const unsigned char* kt = smem + (t % stages) * stageb;
+    const bool pool_t = !LOCAL || t < n_tiles;
     float ksc = 1.f, vsc = 1.f;
-    if (bits) {
+    if (bits && pool_t) {
       ksc = reinterpret_cast<const float*>(kt + 2 * tileb)[0];
       vsc = reinterpret_cast<const float*>(kt + 2 * tileb)[1];
     }
-    const int kbase = tile_key(t);
-    if (bits == 4) tile(kt, ksc, vsc, kbase, std::integral_constant<int, 2>());
-    else if (bits == 8) tile(kt, ksc, vsc, kbase, std::integral_constant<int, 1>());
-    else tile(kt, ksc, vsc, kbase, std::integral_constant<int, 0>());
+    if (pool_t && bits == 4) {
+      tile(kt, tileb, ksc, vsc, tile_key(t), k_hi, TR, rowb, std::integral_constant<int, 2>());
+    } else if (pool_t && bits == 8) {
+      tile(kt, tileb, ksc, vsc, tile_key(t), k_hi, TR, rowb, std::integral_constant<int, 1>());
+    } else if (pool_t) {
+      tile(kt, tileb, ksc, vsc, tile_key(t), k_hi, TR, rowb, std::integral_constant<int, 0>());
+    } else {
+      // a block-local piece: its nr rows are local keys r0.., all valid
+      const int r0 = (t - n_tiles) * LR;
+      const int nr = n_loc - r0 < LR ? n_loc - r0 : LR;
+      tile(kt, tileb_l, 1.f, 1.f, r0, n_loc, nr, rowb_l, std::integral_constant<int, 0>());
+    }
   }
   wait_group<0>();
   __syncthreads();  // the ring is idle: reuse it for the merge
@@ -588,13 +658,20 @@ __device__ void merge_if_last(const DecodeArgs& a, int b, int kh, int n_live) {
 // The block's share of the live (lane, KV head, split) items: item i is
 // split i / KH - pref[b] of lane b (pref[b] <= i / KH < pref[b + 1]) and
 // KV head i % KH. Dead splits are never listed, so a short lane costs no
-// block.
-template <typename T, int D, int GC>
+// block. Under LOCAL the last split of each lane also takes its block-local
+// rows (n_loc of them, the same for every lane).
+template <typename T, int D, int GC, bool LOCAL>
 __device__ void decode_items(unsigned char* smem, const DecodeArgs& a) {
   int* pages = reinterpret_cast<int*>(smem + ring_bytes<T, D, GC>(a.kv.page_size, a.kv.bits));
   int* lens = pages + a.split_pages;
   int* pref = lens + a.B;
-  live_prefix(a, lens, pref);
+  int n_loc = 0;
+  if constexpr (LOCAL) {
+    n_loc = a.step_idx[0] + 1;  // local rows 0..step_idx
+    if (n_loc > a.K) n_loc = a.K;
+    if (n_loc < 0) n_loc = 0;
+  }
+  live_prefix<LOCAL>(a, lens, pref);
   const int KH = a.kv.KH, ps = a.kv.page_size;
   const int sk = a.split_pages * ps;
   const int n_items = pref[a.B] * KH;
@@ -624,10 +701,61 @@ __device__ void decode_items(unsigned char* smem, const DecodeArgs& a) {
     PagedKV kv = a.kv;
     kv.table = a.tables + (long long)b * kv.max_pages;
     const bool direct = n_live == 1;
+    const int nl = LOCAL && s == n_live - 1 ? n_loc : 0;
     for (int g0 = 0; g0 < a.G; g0 += GC)
-      split_rows<T, D, GC>(smem, pages, a, kv, b, kh, s, g0, k_lo, k_hi, direct);
+      split_rows<T, D, GC, LOCAL>(smem, pages, a, kv, b, kh, s, g0, k_lo, k_hi, nl, direct);
     if (!direct) merge_if_last<T, D>(a, b, kh, n_live);
   }
+}
+
+// at most 128 registers a thread at 3 rows (four blocks an SM where the
+// ring's shared memory allows: more warps to hide each one's latency); 8
+// rows keep their registers
+template <typename T, int D, int GC, bool LOCAL>
+__global__ void __launch_bounds__(NT, GC >= 8 ? 1 : 4) decode_kernel(DecodeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  decode_items<T, D, GC, LOCAL>(smem_raw, a);
+}
+
+template <typename T, int D, int GC, bool LOCAL>
+int launch_rows(const DecodeArgs& a, int num_sms, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, D, GC>(a);
+  cudaError_t e = allow_smem(decode_kernel<T, D, GC, LOCAL>, smem);
+  if (e != cudaSuccess) return (int)e;
+  // as many blocks as fit the card at once, none idle from the start
+  static size_t occ_smem = 0;
+  static int occ = 0;
+  if (occ_smem != smem) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, decode_kernel<T, D, GC, LOCAL>,
+                                                      NT, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+    occ_smem = smem;
+  }
+  const long long items = (long long)a.B * a.kv.KH * a.n_splits;
+  const int grid = (int)(items < (long long)occ * num_sms ? items : (long long)occ * num_sms);
+  decode_kernel<T, D, GC, LOCAL><<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// two row counts live in registers: GC = 3 (Llama-3.2-3B's G, the served
+// and timed one; G = 1, 2 leave rows idle) and GC = 8 (G = 4..8 in one
+// group; more loop over groups of 8). Each GC is 6 more instantiations
+// (dtype x D) a kernel to build.
+template <typename T, int D, bool LOCAL>
+int launch(const DecodeArgs& a, int num_sms, cudaStream_t stream) {
+  if (a.G <= 3) return launch_rows<T, D, 3, LOCAL>(a, num_sms, stream);
+  return launch_rows<T, D, 8, LOCAL>(a, num_sms, stream);
+}
+
+// The checks both C entries make of a call's shapes and split plan.
+inline bool plan_ok(int B, int H, int KH, int page_size, int kv_bits, int max_pages,
+                    int n_splits, int split_pages, const float* ws_o, const float* ws_ml,
+                    const int* counters, int num_sms) {
+  return KH > 0 && H % KH == 0 && page_size_ok(page_size, kv_bits) && n_splits >= 1 &&
+         split_pages >= 1 && (long long)n_splits * split_pages >= max_pages &&
+         (long long)(n_splits - 1) * split_pages < max_pages && num_sms >= 1 &&
+         (n_splits == 1 || (ws_o != nullptr && ws_ml != nullptr && counters != nullptr));
 }
 
 }  // namespace fd

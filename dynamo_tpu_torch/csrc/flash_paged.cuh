@@ -1,6 +1,7 @@
-// Flash attention over one sequence's paged KV: the device code the four
-// Hopper kernels (paged_decode.cu, paged_decode_local.cu,
-// prefill_attention.cu, ragged_attention.cu) share.
+// Flash attention over one sequence's paged KV on the CUDA cores (the FMA
+// body): what f32 prefill and f32 ragged attention run
+// (prefill_attention.cu, ragged_attention.cu), and the pool layout, dequant
+// formula, constants and C-interface helpers every kernel shares.
 //
 // One thread block serves ONE KV head and a tile of up to TQ_TILE
 // consecutive query tokens of one sequence, i.e. R = n_tok * G query rows
@@ -253,24 +254,6 @@ struct Flash {
           *reinterpret_cast<uint4*>(vs + j * KS + dc) = make_uint4(0u, 0u, 0u, 0u);
         }
       }
-    }
-    __syncthreads();
-  }
-
-  // Stage n_valid rows of a dense [.., D] buffer (row stride `row_stride`
-  // elements) as keys 0..kt-1; rows at or past n_valid become zeros.
-  __device__ void stage_dense(const T* __restrict__ k, const T* __restrict__ v,
-                              long long row_stride, int kt, int n_valid) {
-    for (int c = threadIdx.x; c < kt * CPR; c += NT) {
-      int j = c / CPR, dc = (c - j * CPR) * VN;
-      uint4 kraw = make_uint4(0u, 0u, 0u, 0u), vraw = kraw;
-      if (j < n_valid) {
-        long long src = (long long)j * row_stride + dc;
-        kraw = *reinterpret_cast<const uint4*>(k + src);
-        vraw = *reinterpret_cast<const uint4*>(v + src);
-      }
-      *reinterpret_cast<uint4*>(ks + j * KS + dc) = kraw;
-      *reinterpret_cast<uint4*>(vs + j * KS + dc) = vraw;
     }
     __syncthreads();
   }

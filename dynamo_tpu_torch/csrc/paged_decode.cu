@@ -16,55 +16,11 @@
 // softmax state and O in registers (CUDA cores, f32). Lanes that needed
 // more than one split are combined by the last of their splits' blocks to
 // finish, inside the same launch.
-// Left for later: TMA, folding the local kernel in.
+// Left for later: TMA.
 #include "flash_decode.cuh"
 
-namespace dyn {
-
-// at most 128 registers a thread at 3 rows (four blocks an SM where the
-// ring's shared memory allows: more warps to hide each one's latency); 8
-// rows keep their registers
-template <typename T, int D, int GC>
-__global__ void __launch_bounds__(NT, GC >= 8 ? 1 : 4) paged_decode_kernel(fd::DecodeArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  fd::decode_items<T, D, GC>(smem_raw, a);
-}
-
-template <typename T, int D, int GC>
-int launch_decode(const fd::DecodeArgs& a, int num_sms, cudaStream_t stream) {
-  const size_t smem = fd::smem_bytes<T, D, GC>(a);
-  cudaError_t e = allow_smem(paged_decode_kernel<T, D, GC>, smem);
-  if (e != cudaSuccess) return (int)e;
-  // as many blocks as fit the card at once, none idle from the start
-  static size_t occ_smem = 0;
-  static int occ = 0;
-  if (occ_smem != smem) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, paged_decode_kernel<T, D, GC>,
-                                                      NT, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-    occ_smem = smem;
-  }
-  const long long items = (long long)a.B * a.kv.KH * a.n_splits;
-  const int grid = (int)(items < (long long)occ * num_sms ? items : (long long)occ * num_sms);
-  paged_decode_kernel<T, D, GC><<<grid, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// two row counts live in registers: GC = 3 (Llama-3.2-3B's G, the served
-// and timed one; G = 1, 2 leave rows idle) and GC = 8 (G = 4..8 in one
-// group; more loop over groups of 8). Each GC is 6 more instantiations
-// (dtype x D) to build.
-template <typename T, int D>
-int launch_decode_g(const fd::DecodeArgs& a, int num_sms, cudaStream_t stream) {
-  if (a.G <= 3) return launch_decode<T, D, 3>(a, num_sms, stream);
-  return launch_decode<T, D, 8>(a, num_sms, stream);
-}
-
-}  // namespace dyn
-
 #define LAUNCH_DECODE(T, D) \
-  dyn::launch_decode_g<T, D>(a, num_sms, static_cast<cudaStream_t>(stream))
+  dyn::fd::launch<T, D, false>(a, num_sms, static_cast<cudaStream_t>(stream))
 
 // out, q: [B, H, D]; kv_k, kv_v: [num_phys, rows, KH, D] with strides
 // (s_page, s_tok, s_head) in elements of the pool's type — T, or int8 with
@@ -92,17 +48,16 @@ extern "C" int dyn_paged_decode(void* out, const void* q, const void* kv_k,
                                 float* ws_o, float* ws_ml, int* counters, int num_sms,
                                 void* stream) {
   if (B <= 0) return 0;
-  if (KH <= 0 || H % KH != 0 || !dyn::page_size_ok(page_size, kv_bits) || n_splits < 1 ||
-      split_pages < 1 || (long long)n_splits * split_pages < max_pages ||
-      (long long)(n_splits - 1) * split_pages >= max_pages || num_sms < 1 ||
-      (n_splits > 1 && (ws_o == nullptr || ws_ml == nullptr || counters == nullptr)))
+  if (!dyn::fd::plan_ok(B, H, KH, page_size, kv_bits, max_pages, n_splits, split_pages, ws_o,
+                        ws_ml, counters, num_sms))
     return dyn::ERR_UNSUPPORTED;
   dyn::fd::DecodeArgs a{out, q,
                         dyn::make_kv(kv_k, kv_v, k_scale, v_scale, kv_bits, max_pages,
                                      num_phys, page_size, KH, s_page, s_tok, s_head),
                         page_tables, seq_lens, ws_o, ws_ml, counters, B, H, H / KH, n_splits,
                         split_pages,
-                        kv_bits == 0 || ((s_page | s_tok | s_head) % 16) == 0};
+                        kv_bits == 0 || ((s_page | s_tok | s_head) % 16) == 0,
+                        nullptr, nullptr, 0, nullptr};
   DYN_DISPATCH(dtype, D, LAUNCH_DECODE);
 }
 

@@ -131,7 +131,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dyn_paged_decode.argtypes = [
         _P, _P, *kv, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
     lib.dyn_paged_decode_local.argtypes = [
-        _P, _P, *kv, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]
+        _P, _P, *kv, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
     lib.dyn_prefill_attention.argtypes = [
         _P, _P, *kv, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.dyn_ragged_attention.argtypes = [

@@ -15,7 +15,8 @@ the host holds (never from `seq_lens`), and is kept per shape; the scratch
 for partial results and the arrival counters come from torch's caching
 allocator, once per stream (a stream's calls run in order, and every
 launch leaves the counters at zero), so a call allocates nothing but its
-output.
+output. The local decode kernel (`hopper_paged_attention_local`) runs the
+same body and plans, and takes its scratch, through `split_args` here.
 The plain PyTorch version is `ops.paged_attention.paged_attention_decode_plain`.
 """
 
@@ -75,6 +76,26 @@ def _scratch_for(device: torch.device, stream: int, n_ws: int, n_counters: int) 
     return ws, counters
 
 
+def split_args(device: torch.device, stream: int, B: int, H: int, KH: int, D: int,
+               max_pages: int, page_size: int) -> tuple:
+    """The split plan and scratch of one launch of a split-KV decode
+    kernel: (n_splits, split_pages, ws_o, ws_ml, counters, sms), the three
+    scratch pointers None when one split covers the table. Only shapes go
+    in, so nothing depends on a value held on the card."""
+    if max_pages < 1:
+        raise ValueError("page_tables must have at least one column")
+    split_pages, n_splits, sms = _plan(device, B, KH, max_pages, page_size)
+    ws_o = ws_ml = counters = None
+    if n_splits > 1:
+        # partial O [B, KH, n_splits, G, D], then (m, l) [B, KH, n_splits, G, 2]
+        rows = B * H * n_splits
+        ws, cnt = _scratch_for(device, stream, rows * (D + 2), B * KH)
+        ws_o = ws.data_ptr()
+        ws_ml = ws_o + 4 * rows * D
+        counters = cnt.data_ptr()
+    return n_splits, split_pages, ws_o, ws_ml, counters, sms
+
+
 def paged_attention_decode_hopper(
     q: torch.Tensor,  # [B, H, D]
     kv_k_layer,  # [pages, page_size, KH, D] tensor, or per-layer QuantKV
@@ -91,26 +112,15 @@ def paged_attention_decode_hopper(
     kv, KH, page_size, fmt = _build.kv_args(q, kv_k_layer, kv_v_layer, page_tables, B)
     _build.check_index_vector("seq_lens", seq_lens, B, q.device)
     lib = _build.load_library()
-    if page_tables.shape[1] < 1:
-        raise ValueError("page_tables must have at least one column")
-    split_pages, n_splits, sms = _plan(q.device, B, KH, page_tables.shape[1], page_size)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan = split_args(q.device, stream, B, H, KH, D, page_tables.shape[1], page_size)
     out = torch.empty_like(q)
-    ws_o = ws_ml = counters = None
-    if n_splits > 1:
-        # partial O [B, KH, n_splits, G, D], then (m, l) [B, KH, n_splits, G, 2]
-        rows = B * H * n_splits
-        ws, cnt = _scratch_for(q.device, stream, rows * (D + 2), B * KH)
-        ws_o = ws.data_ptr()
-        ws_ml = ws_o + 4 * rows * D
-        counters = cnt.data_ptr()
     rc = lib.dyn_paged_decode(
         out.data_ptr(), q.data_ptr(), *kv, seq_lens.data_ptr(),
-        B, H, KH, D, page_size, code, n_splits, split_pages, ws_o, ws_ml, counters, sms,
-        stream,
+        B, H, KH, D, page_size, code, *plan, stream,
     )
     _build.check_status(lib, rc, "paged decode")
     launch_count += 1
     launches_by_format[fmt] += 1
-    last_splits = n_splits
+    last_splits = plan[0]
     return out

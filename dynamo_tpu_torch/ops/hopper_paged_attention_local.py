@@ -2,11 +2,15 @@
 
 The kernel (csrc/paged_decode_local.cu) replaces the TPU kernel
 `dynamo_tpu/ops/pallas_paged_attention.py:_decode_local_kernel`. It is
-bound by bytes on this card, as the decode kernel: one block per (lane, KV
-head) reads the lane's pool pages (dequantized while staged for an
-int8/int4 pool) and then its K block-local rows, in one online softmax.
-`step_idx` stays on the device, so the launch needs no host value that
-changes from step to step. The plain PyTorch version is
+bound by bytes on this card, as the decode kernel, and runs the same
+split-KV body (csrc/flash_decode.cuh): a lane's pool pages are cut into
+splits that a grid sized to the card walks (dequantized in registers for
+an int8/int4 pool), and its K block-local rows are one more tile of its
+last split, all in one online softmax and one launch. The split plan and
+the scratch come from `hopper_paged_attention.split_args`, from shapes
+alone: `step_idx` and `pool_lens` stay on the device, so the launch needs
+no host value that changes from step to step, and a call allocates only its
+output. The plain PyTorch version is
 `ops.paged_attention.paged_attention_decode_mixed_plain`.
 """
 
@@ -15,9 +19,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .hopper_paged_attention import split_args
 
 launch_count = 0  # kernel launches made through this wrapper
 launches_by_format = dict.fromkeys(_build.KV_FORMATS, 0)  # the same, by KV format
+last_splits = 0  # splits per (lane, KV head) of the last launch
 
 
 def paged_attention_decode_local_hopper(
@@ -31,7 +37,7 @@ def paged_attention_decode_local_hopper(
     step_idx: torch.Tensor,  # [1] int32 on the device: entries 0..step_idx valid
 ) -> torch.Tensor:
     """Launch the local decode kernel on the current stream; returns [B, H, D]."""
-    global launch_count
+    global launch_count, last_splits
     if q.dim() != 3:
         raise ValueError(f"q must be [B, H, D], is {tuple(q.shape)}")
     B, H, D = q.shape
@@ -50,14 +56,16 @@ def paged_attention_decode_local_hopper(
             and step_idx.device == q.device):
         raise ValueError("step_idx must be a one-element int32 tensor on q's device")
     lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan = split_args(q.device, stream, B, H, KH, D, page_tables.shape[1], page_size)
     out = torch.empty_like(q)
     rc = lib.dyn_paged_decode_local(
         out.data_ptr(), q.data_ptr(), *kv, pool_lens.data_ptr(),
         loc_k.data_ptr(), loc_v.data_ptr(), K, step_idx.data_ptr(),
-        B, H, KH, D, page_size, code,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        B, H, KH, D, page_size, code, *plan, stream,
     )
     _build.check_status(lib, rc, "paged decode local")
     launch_count += 1
     launches_by_format[fmt] += 1
+    last_splits = plan[0]
     return out

@@ -1,22 +1,24 @@
-"""Time paged_decode of one checkout of the port, to set two trees side by side.
+"""Time both decode kernels of one checkout of the port, to set two trees side by side.
 
     python3 dynamo_tpu_torch/tools/decode_ab.py --tree PATH [--seed 0] [--reps 50]
 
 Imports `dynamo_tpu_torch` from the checkout at PATH (which may be an older
-tree without this script), builds its kernels, and times its
-`paged_attention_decode` on the card at chip_smoke.py's three timed decode
-shapes in each KV format (Llama-3.2-3B widths: H=24, KH=8, D=128, page 64,
-tables [B, 128]): `B64`, chip_smoke's 64-lane draw (mean length 965);
-`B4_long` and `B64_12live`, its two extra shapes' lengths (their q and
-tables are drawn here). `paged_attention_decode_mixed` at `B64` (pool
-lengths len - 1, K=8 local rows, step 7) rides along as a control whose
-source two trees may share. Each timing is reported two ways over the
-same calls: `ms`, device ms a call with the calls queued behind a ~10 ms
-device sleep; `ms_back_to_back`, the calls issued straight after a sync,
-which a host slower than the kernel stretches; and `host_us`, the host's
-microseconds a call. Run it on each tree in turns within one session
-(A, B, B, A): numbers from different sessions or cards do not compare.
-Prints the card, then one JSON line.
+tree without this script), builds its kernels (`build_s`: the load's wall
+time, `nvcc_s`: the build's, None when the library was already built), and
+times its `paged_attention_decode` and `paged_attention_decode_mixed` on
+the card at chip_smoke.py's three timed decode shapes in each KV format
+(Llama-3.2-3B widths: H=24, KH=8, D=128, page 64, tables [B, 128]): `B64`,
+chip_smoke's 64-lane draw (mean length 965); `B4_long` and `B64_12live`,
+its two extra shapes' lengths (their q and tables are drawn here). The
+local kernel sees pool lengths len - 1 and K=8 block-local rows at step 7.
+Each timing is reported two ways over the same calls: `ms`, device ms a
+call with the calls queued behind a ~10 ms device sleep;
+`ms_back_to_back`, the calls issued straight after a sync, which a host
+slower than the kernel stretches; and `host_us`, the host's microseconds a
+call; beside them the largest difference from the plain version and the
+split count where the tree's wrapper reports one. Run it on each tree in
+turns within one session (A, B, B, A): numbers from different sessions or
+cards do not compare. Prints the card, then one JSON line.
 """
 
 from __future__ import annotations
@@ -98,7 +100,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("decode_ab needs a CUDA device")
     from dynamo_tpu_torch.models.quant import QMAX, pack_int4
-    from dynamo_tpu_torch.ops import _build, kv_quant, paged_attention as pa
+    from dynamo_tpu_torch.ops import (
+        _build,
+        hopper_paged_attention as hp,
+        hopper_paged_attention_local as hpl,
+        kv_quant,
+        paged_attention as pa,
+    )
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -127,26 +135,33 @@ def main() -> None:
                      torch.from_numpy(q).to(dev, torch.bfloat16),
                      torch.from_numpy(tb.astype(np.int32)).to(dev))
               for name, (ln, q, tb) in draws["shapes"].items()}
-    lens64, q64, tab64 = shapes["B64"]
+    lens64 = shapes["B64"][0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     loc = [torch.randn((64, 8, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
            for _ in range(2)]
     step = torch.tensor([7], dtype=torch.int32, device=dev)
-    pool64 = (lens64 - 1).clamp(min=0)
-    out = {"tree": tree, "build_s": build_s, "reps": args.reps,
-           "mean_len_B64": float(lens64.clamp(min=1).float().mean()), "decode": {}, "local": {}}
+    out = {"tree": tree, "build_s": build_s, "nvcc_s": _build.build_seconds,
+           "reps": args.reps, "mean_len_B64": float(lens64.clamp(min=1).float().mean()),
+           "decode": {}, "local": {}}
+
+    def run(fn, plain, wrapper):
+        err = (fn().float() - plain().float()).abs().max().item()
+        return {**timed(torch, fn, args.reps), "max_abs_err": err,
+                "splits": getattr(wrapper, "last_splits", None)}
+
     for fmt in FORMATS:
         kk, vv = quantize(k, fmt), quantize(v, fmt)
         for name, (ln, q, tb) in shapes.items():
-            err = (pa.paged_attention_decode(q, kk, vv, tb, ln).float()
-                   - pa.paged_attention_decode_plain(q, kk, vv, tb, ln).float()).abs().max().item()
-            out["decode"][f"{name}/{fmt}"] = {
-                **timed(torch, lambda: pa.paged_attention_decode(q, kk, vv, tb, ln), args.reps),
-                "max_abs_err": err}
-        largs = (q64, kk, vv, tab64, pool64, loc[0], loc[1], step)
-        out["local"][f"B64/{fmt}"] = timed(
-            torch, lambda: pa.paged_attention_decode_mixed(*largs), args.reps)
+            dargs = (q, kk, vv, tb, ln)
+            out["decode"][f"{name}/{fmt}"] = run(
+                lambda: pa.paged_attention_decode(*dargs),
+                lambda: pa.paged_attention_decode_plain(*dargs), hp)
+            B = q.shape[0]
+            largs = (q, kk, vv, tb, (ln - 1).clamp(min=0), loc[0][:B], loc[1][:B], step)
+            out["local"][f"{name}/{fmt}"] = run(
+                lambda: pa.paged_attention_decode_mixed(*largs),
+                lambda: pa.paged_attention_decode_mixed_plain(*largs), hpl)
         del kk, vv
     print(json.dumps(out), flush=True)
 

@@ -225,6 +225,45 @@ def test_decode_split_plan(B, KH, max_pages, page_size, sms, want):
     assert B * KH * max_pages / split_pages <= hp.ITEMS_PER_SM * sms or n_splits == 1
 
 
+@pytest.mark.parametrize("B,KH,max_pages,page_size,want", [
+    (64, 8, 128, 64, (16, 8)),  # the local block's decode shape: 512-key splits
+    (6, 2, 130, 8, (3, 64)),  # tiny pages: three splits
+    (5, 2, 6, 8, (1, 6)),  # a short table: one split, no scratch
+], ids=["engine", "tiny_pages", "one_split"])
+def test_local_decode_plans_with_the_decode_kernel(monkeypatch, B, KH, max_pages, page_size,
+                                                   want):
+    """The local decode wrapper plans its splits and takes its scratch
+    through paged_decode's `split_args` (shapes only), so the two kernels
+    share one stream's scratch and arrival counters."""
+    import torch
+
+    from dynamo_tpu_torch.ops import hopper_paged_attention as hp
+    from dynamo_tpu_torch.ops import hopper_paged_attention_local as hpl
+
+    assert hpl.split_args is hp.split_args
+    monkeypatch.setattr(hp, "_sms", lambda device: 132)
+    monkeypatch.setattr(hp, "_plans", {})
+    monkeypatch.setattr(hp, "_scratch", {})
+    dev = torch.device("cpu")
+    H, D = 3 * KH, 16
+    n_splits, split_pages, ws_o, ws_ml, counters, sms = hp.split_args(
+        dev, 7, B, H, KH, D, max_pages, page_size)
+    assert (n_splits, split_pages, sms) == (*want, 132)
+    assert (split_pages, n_splits) == hp.split_plan(B, KH, max_pages, page_size, 132)
+    if n_splits == 1:
+        assert ws_o is ws_ml is counters is None and not hp._scratch
+        return
+    ws, cnt = hp._scratch[(None, 7)]
+    rows = B * H * n_splits
+    assert ws_o == ws.data_ptr() and ws_ml == ws_o + 4 * rows * D
+    assert ws.numel() >= rows * (D + 2) and counters == cnt.data_ptr() and not cnt.any()
+    # a second call on the stream (either kernel) reuses the same scratch
+    assert hp.split_args(dev, 7, B, H, KH, D, max_pages, page_size)[2:5] == (
+        ws_o, ws_ml, counters)
+    with pytest.raises(ValueError, match="column"):
+        hp.split_args(dev, 7, B, H, KH, D, 0, page_size)
+
+
 def test_decode_scratch_is_kept_per_stream_and_grows():
     """The decode wrapper's scratch: one (partials, arrival counters) pair a
     stream, reused while it is large enough, grown with counters at zero."""

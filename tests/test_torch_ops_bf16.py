@@ -6,8 +6,9 @@ The plain versions are what the CPU takes and what the card's kernels are
 held to, and the engine serves bf16, so they are checked here at the
 engine's dtype. The same numpy inputs, rounded to bf16 on each side, go
 through `dynamo_tpu_torch.ops.paged_attention` and through the reference's
-XLA paths (`paged_attention_decode` over bf16, int8 and int4 pools,
-`prefill_attention_batched`, `ragged_attention_reference`). Tolerance 5e-2
+XLA paths (`paged_attention_decode` and `paged_attention_decode_mixed` over
+bf16, int8 and int4 pools, `prefill_attention_batched`,
+`ragged_attention_reference`). Tolerance 5e-2
 absolute, the bf16 tolerance
 of the reference's own kernel tests: the two round probabilities and
 outputs to bf16 at the same places but sum in other orders. One set of
@@ -78,6 +79,39 @@ def test_decode_plain_bf16_g3_matches_reference(fmt):
     # an empty lane behaves as length 1 (the kernels' contract, the TPU
     # kernel's clamp); the reference's XLA path is handed that length
     want = jops.paged_attention_decode(jq, jk, jv, *_j(tables, np.maximum(lens, 1)))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    got, want = _f32(got), _f32(want)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+# pool lengths of the local decode block: empty pools (they attend no pool
+# key, in the port and in the reference's XLA path alike), a one-key pool,
+# page-straddling pools, a full table
+MIXED_POOL_LENS = [0, 1, 8, 17, 0, 48]
+
+
+@pytest.mark.parametrize("step", [0, 3], ids=["first_step", "last_step"])
+@pytest.mark.parametrize("fmt", ["none", "int8", "int4"])
+def test_decode_mixed_plain_bf16_g3_matches_reference(fmt, step):
+    """The local decode block's plain attention (pool plus K=4 block-local
+    rows, one softmax) against the reference's XLA path in bf16: what the
+    card's local kernel is held to. Rows past step_idx hold garbage."""
+    B, P, pages, K = len(MIXED_POOL_LENS), 6, 24, 4
+    rng = np.random.RandomState(11)
+    q = rng.randn(B, H, D).astype(np.float32)
+    (tk, jk), (tv, jv) = _pool_pair(rng, fmt, pages), _pool_pair(rng, fmt, pages)
+    tables = rng.randint(0, pages, size=(B, P)).astype(np.int32)
+    pool_lens = np.asarray(MIXED_POOL_LENS, np.int32)
+    loc_k = rng.randn(B, K, KH, D).astype(np.float32)
+    loc_v = rng.randn(B, K, KH, D).astype(np.float32)
+    loc_k[:, step + 1:] = 1e4
+    loc_v[:, step + 1:] = 1e4
+    (tq, tlk, tlv), (jq, jlk, jlv) = _bf16_pair(q, loc_k, loc_v)
+    got = tops.paged_attention_decode_mixed_plain(
+        tq, tk, tv, *_t(tables, pool_lens), tlk, tlv, torch.tensor([step], dtype=torch.int32))
+    want = jops.paged_attention_decode_mixed(
+        jq, jk, jv, *_j(tables, pool_lens), jlk, jlv, jnp.asarray(step, jnp.int32))
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     got, want = _f32(got), _f32(want)
     assert np.isfinite(got).all()
