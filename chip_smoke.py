@@ -20,7 +20,16 @@ bit for bit, holds the model forwards against the same forwards fed the
 plain attention, then serves a few requests through `TorchEngine.generate`
 at the full width of Llama-3.2-3B (random weights from --seed) in each
 decode-pool mode and KV format, and checks that every served path went
-through the kernels. Every phase prints one JSON line; any failure raises
+through the kernels. The worker phase then serves the same model over the
+wire: in one event loop the port's discovery server, a port worker
+(`dynamo_tpu_torch.worker.serve`) around the engine and a PushRouter
+client, at (scatter, bf16) and (local, int8), 8 requests each in process
+and over the wire (tok/s, TTFT, ITL side by side; each request alone must
+stream the same tokens both ways; the kernels must carry the wire's
+traffic; KV events and worker metrics must reach their topics), and
+finally `python -m dynamo_tpu_torch.worker --model llama3-3b` as a
+subprocess with its pool auto-sized, which must register, answer a request
+and drain on SIGTERM. Every phase prints one JSON line; any failure raises
 (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -31,6 +40,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -58,6 +68,7 @@ from dynamo_tpu_torch.ops import (  # noqa: E402
     paged_attention as pa,
 )
 from dynamo_tpu_torch.runtime.engine import Context  # noqa: E402
+from dynamo_tpu_torch.tools import hash_cost  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
@@ -977,11 +988,20 @@ def pct(xs, p):
 async def run_request(engine, req: dict, record: dict, after=None) -> None:
     """Stream one request into `record`; `after` (an asyncio.Event) delays
     the submission until another request has produced its first token."""
+    async def open_stream(r):
+        return engine.generate(r, Context())
+
+    await run_stream(open_stream, req, record, after)
+
+
+async def run_stream(open_stream, req: dict, record: dict, after=None) -> None:
+    """As run_request, with the stream opened by `await open_stream(req)`
+    (in process: the engine's generate; over the wire: a PushRouter's)."""
     if after is not None:
         await after.wait()
     t0 = time.perf_counter()
     last = t0
-    async for item in engine.generate(req, Context()):
+    async for item in await open_stream(req):
         if item.get("event") == "error":
             raise RuntimeError(f"engine error: {item}")
         data = item.get("data")
@@ -1011,6 +1031,41 @@ def reset_counts() -> None:
         pa.plain_calls[name] = 0
 
 
+WORDS = ["paged", "attention", "kernel", "hopper", "decode", "prefill",
+         "ragged", "token", "cache", "block", "stream", "engine"]
+
+
+def make_requests(seed: int, vocab: int, lengths, shared_idx, seeded_idx, tag: str):
+    """Byte-tokenized prompts of the given lengths; the requests at
+    `shared_idx` start with the same four pages, those at `seeded_idx`
+    sample at temperature 0.7 with their own seed. Returns the request
+    dicts and the prompt maker (for further prompts from the same stream)."""
+    tok = ByteTokenizer(vocab)
+    rng = np.random.default_rng(seed)
+
+    def text(n_tokens: int, salt: int) -> list:
+        out = f"request {salt}: "
+        while len(out) < n_tokens:
+            out += WORDS[int(rng.integers(len(WORDS)))] + " "
+        return tok.encode(out[:n_tokens])
+
+    shared = text(256, 99)  # four full pages of common prefix
+    reqs = []
+    for i, n in enumerate(lengths):
+        ids = text(n, i)
+        sampling = {}
+        if i in shared_idx:
+            ids = shared + ids[256:] if n > 256 else shared + ids
+        if i in seeded_idx:
+            sampling = {"temperature": 0.7, "seed": 1000 + i}
+        reqs.append(PreprocessedRequest(
+            token_ids=ids, request_id=f"{tag}-{i}",
+            stop_conditions={"max_tokens": MAX_TOKENS},
+            sampling_options=sampling,
+        ).to_dict())
+    return reqs, text
+
+
 async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params) -> dict:
     model_cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=layers)
     if layers != LAYERS:  # a cut depth: the full model's first layers
@@ -1022,32 +1077,11 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
     t0 = time.perf_counter()
     n_warm = await engine.warmup()
     warm_s = time.perf_counter() - t0
-    tok = ByteTokenizer(model_cfg.vocab_size)
-    rng = np.random.default_rng(seed)
-    words = ["paged", "attention", "kernel", "hopper", "decode", "prefill",
-             "ragged", "token", "cache", "block", "stream", "engine"]
-
-    def text(n_tokens: int, salt: int) -> list:
-        out = f"request {salt}: "
-        while len(out) < n_tokens:
-            out += words[int(rng.integers(len(words)))] + " "
-        return tok.encode(out[:n_tokens])
-
-    shared = text(256, 99)  # four full pages of common prefix
-    lengths = [40, 300, 1500, 120, 700, 64, 1100, 40, 500, 900, 220, 1300]
-    reqs = []
-    for i, n in enumerate(lengths):
-        ids = text(n, i)
-        sampling = {}
-        if i in (1, 8):
-            ids = shared + ids[256:] if n > 256 else shared + ids
-        if i in (3, 10):  # two differently seeded sampled streams in the traffic
-            sampling = {"temperature": 0.7, "seed": 1000 + i}
-        reqs.append(PreprocessedRequest(
-            token_ids=ids, request_id=f"smoke-{i}",
-            stop_conditions={"max_tokens": MAX_TOKENS},
-            sampling_options=sampling,
-        ).to_dict())
+    # two differently seeded sampled streams in the traffic (3, 10)
+    reqs, text = make_requests(
+        seed, model_cfg.vocab_size,
+        [40, 300, 1500, 120, 700, 64, 1100, 40, 500, 900, 220, 1300],
+        shared_idx=(1, 8), seeded_idx=(3, 10), tag="smoke")
 
     # counts to zero just before the main path is driven
     reset_counts()
@@ -1138,14 +1172,272 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
     return launches
 
 
-async def serve_all(seed: int) -> dict:
-    """Every served path, one engine at a time, on one set of weights."""
+def model_params(seed: int) -> dict:
+    """Llama-3.2-3B's random weights from `seed`, on the card."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
-    params = llama.init_params(llama.LlamaConfig.llama3_2_3b(), gen, device=DEV)
+    return llama.init_params(llama.LlamaConfig.llama3_2_3b(), gen, device=DEV)
+
+
+async def serve_all(seed: int, params) -> dict:
+    """Every served path, one engine at a time, on one set of weights."""
     total: dict = {}
     for phase, mode, kvq, layers in SERVE_PHASES:
         for key, n in (await serve(seed, phase, mode, kvq, layers, params)).items():
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+# ---------------------------------------------------------------------- #
+# phase: worker (the same engine served over the request plane)
+# ---------------------------------------------------------------------- #
+
+# (phase, decode_pool_mode, kv_quant), both at the model's full depth
+WORKER_PHASES = [("worker", "scatter", "none"), ("worker_local_int8", "local", "int8")]
+WORKER_LENGTHS = [40, 300, 1500, 120, 700, 64, 1100, 500]
+
+
+def stream_metrics(records, wall: float) -> dict:
+    n_out = sum(len(r["tokens"]) for r in records)
+    itl = [x for r in records for x in r["itl_s"]]
+    ttft = [r["ttft_s"] for r in records]
+    return {
+        "wall_s": round(wall, 3), "output_tok_s": round(n_out / wall, 1),
+        "ttft_ms": {"p50": round(1e3 * pct(ttft, 50), 2), "p99": round(1e3 * pct(ttft, 99), 2)},
+        "itl_ms": {"p50": round(1e3 * pct(itl, 50), 3), "p99": round(1e3 * pct(itl, 99), 3)},
+    }
+
+
+def new_record() -> dict:
+    return {"tokens": [], "itl_s": [], "finish": None, "first": asyncio.Event()}
+
+
+async def drive(open_stream, reqs, shared_after: tuple) -> tuple:
+    """The requests staggered by STAGGER_S (request shared_after[1] waits
+    for request shared_after[0]'s first token): records and wall seconds."""
+    records = [new_record() for _ in reqs]
+    t0 = time.perf_counter()
+    tasks = []
+    for i, (req, rec) in enumerate(zip(reqs, records)):
+        after = records[shared_after[0]]["first"] if i == shared_after[1] else None
+        tasks.append(asyncio.create_task(run_stream(open_stream, req, rec, after)))
+        await asyncio.sleep(STAGGER_S)
+    await asyncio.gather(*tasks)
+    return records, time.perf_counter() - t0
+
+
+async def alone(open_stream, clear, reqs) -> list:
+    """Each request alone on an engine with an empty prefix cache, so its
+    dispatch shapes (and so its bf16 arithmetic) do not depend on the
+    others: the token streams."""
+    out = []
+    for req in reqs:
+        await clear()
+        rec = new_record()
+        await run_stream(open_stream, req, rec)
+        assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, (req["request_id"], rec)
+        out.append(rec["tokens"])
+    return out
+
+
+async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, params) -> dict:
+    """The engine in process, then the same engine behind a port worker on
+    this process's discovery server, reached through a PushRouter."""
+    from dynamo_tpu_torch.llm.kv_router.publisher import EVENT_TOPIC_FMT, METRICS_TOPIC_FMT
+    from dynamo_tpu_torch.runtime import DiscoveryServer, DistributedRuntime, PushRouter, RuntimeConfig
+    from dynamo_tpu_torch.runtime import codec
+    from dynamo_tpu_torch.worker.__main__ import parse_args, serve as serve_worker
+
+    model_cfg = llama.LlamaConfig.llama3_2_3b()
+    engine = TorchEngine(
+        EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode=mode, kv_quant=kvq),
+        model_config=model_cfg, params=params, device="cuda",
+    )
+    await engine.warmup()
+    reqs, text = make_requests(seed, model_cfg.vocab_size, WORKER_LENGTHS,
+                               shared_idx=(1, 6), seeded_idx=(3,), tag=phase)
+    seeded = PreprocessedRequest(
+        token_ids=text(40, 777), request_id=f"{phase}-seeded",
+        stop_conditions={"max_tokens": MAX_TOKENS},
+        sampling_options={"temperature": 0.7, "seed": 4242},
+    ).to_dict()
+
+    async def local_stream(r):
+        return engine.generate(r, Context())
+
+    async def local_clear():
+        engine.clear_kv_blocks()
+
+    local_recs, local_wall = await drive(local_stream, reqs, (1, 6))
+    local_alone = await alone(local_stream, local_clear, reqs + [seeded, seeded])
+    assert local_alone[-1] == local_alone[-2], f"{phase}: the seeded pair differs in process"
+
+    server = DiscoveryServer(port=0)
+    _, port = await server.start()
+    disc = f"tcp://127.0.0.1:{port}"
+    args = parse_args(["--model", "llama3-3b", "--discovery", disc, "--kv-events",
+                       "--decode-pool-mode", mode, "--kv-quant", kvq, "--warmup", "none"])
+    started = asyncio.get_running_loop().create_future()
+    task = asyncio.create_task(serve_worker(args, engine, started))
+    await asyncio.wait({task, started}, timeout=60, return_when=asyncio.FIRST_COMPLETED)
+    if task.done():
+        task.result()
+    worker = started.result()
+    cfg = RuntimeConfig.from_settings()
+    cfg.discovery_endpoint = disc
+    drt = await DistributedRuntime.create(cfg)
+    try:
+        kv_sub = await drt.discovery.subscribe(
+            EVENT_TOPIC_FMT.format(namespace="dynamo", component="backend"))
+        met_sub = await drt.discovery.subscribe(
+            METRICS_TOPIC_FMT.format(namespace="dynamo", component="backend"))
+        client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
+        await client.wait_for_instances(30)
+        router = PushRouter(client)
+
+        async def wire_clear():
+            items = [it async for it in await router.generate(
+                {"token_ids": [1], "annotations": ["clear_kv_blocks"]})]
+            assert items and items[0]["event"] == "clear_kv_blocks", items
+
+        await wire_clear()
+        # counts to zero just before the main path is driven over the wire
+        reset_counts()
+        base = engine.stats()
+        wire_recs, wire_wall = await drive(router.generate, reqs, (1, 6))
+        wire_alone = await alone(router.generate, wire_clear, reqs + [seeded, seeded])
+        launches = {(name, fmt): n for name, k in KERNELS.items()
+                    for fmt, n in k["module"].launches_by_format.items()}
+        plain = dict(pa.plain_calls)
+        stats = engine.stats()
+        ep = worker.served.stats
+        kv_msgs = []
+        while (m := await kv_sub.get(timeout=0.5)) is not None:
+            kv_msgs.append(codec.unpack(m))
+        met = codec.unpack(await met_sub.get(timeout=5))
+        await client.close()
+    finally:
+        await drt.close()
+        worker.drt.shutdown()
+        await asyncio.wait_for(task, 60)
+        await engine.close()
+        await server.stop()
+
+    for recs in (local_recs, wire_recs):
+        for i, rec in enumerate(recs):
+            assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, (phase, i)
+            assert all(0 <= t < model_cfg.vocab_size for t in rec["tokens"]), (phase, i)
+    for i, (a, b) in enumerate(zip(local_alone, wire_alone)):
+        assert a == b, f"{phase}: request {i} streams other tokens over the wire than in process"
+    decode_kernel = "paged_decode_local" if mode == "local" else "paged_decode"
+    used = [(name, kvq) for name in (decode_kernel, "prefill_attention", "ragged_attention")]
+    assert all(launches[u] > 0 for u in used), f"{phase}: a path kernel never launched: {launches}"
+    assert sum(launches.values()) == sum(launches[u] for u in used), \
+        f"{phase}: a kernel outside the path launched: {launches}"
+    assert not any(plain.values()), f"{phase}: plain attention ran on the card's main path: {plain}"
+    assert stats["mixed_steps"] - base["mixed_steps"] >= 1, f"{phase}: no mixed step ran"
+    stored = sum(1 for m in kv_msgs for ev in m["events"] if ev["event_type"] == "stored")
+    assert stored > 0, f"{phase}: no stored KV event reached the topic"
+    assert met["worker_id"] == worker.drt.instance_id and "num_running_reqs" in met["stats"]
+    wire_tokens = sum(len(r["tokens"]) for r in wire_recs) + MAX_TOKENS * len(wire_alone)
+    emit(
+        phase, model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16", decode_pool_mode=mode,
+        kv_quant=kvq, requests=len(reqs), prompt_tokens=[len(r["token_ids"]) for r in reqs],
+        max_tokens=MAX_TOKENS, in_process=stream_metrics(local_recs, local_wall),
+        over_the_wire=stream_metrics(wire_recs, wire_wall),
+        streams_equal=len(wire_alone), seeded_pair_equal=True,
+        frames={"total": ep.frames_total, "binary": ep.frames_binary, "items": ep.items_total,
+                "tokens": wire_tokens,
+                "frames_per_token": round(ep.frames_total / wire_tokens, 4),
+                "binary_frames_per_token": round(ep.frames_binary / wire_tokens, 4)},
+        kv_event_messages=len(kv_msgs), kv_stored_events=stored,
+        launches={f"{n}/{f}": c for (n, f), c in launches.items() if c}, plain_calls=plain,
+    )
+    del worker, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+async def worker_subprocess(seed: int) -> None:
+    """`python -m dynamo_tpu_torch.worker --model llama3-3b` as a user runs
+    it (device cuda, pool auto-sized): it must register, answer one request
+    over the wire, and drain on SIGTERM."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from dynamo_tpu_torch.llm.kv_router.publisher import METRICS_TOPIC_FMT
+    from dynamo_tpu_torch.runtime import DiscoveryServer, DistributedRuntime, PushRouter, RuntimeConfig
+    from dynamo_tpu_torch.runtime import codec
+
+    server = DiscoveryServer(port=0)
+    _, port = await server.start()
+    disc = f"tcp://127.0.0.1:{port}"
+    cfg = RuntimeConfig.from_settings()
+    cfg.discovery_endpoint = disc
+    drt = await DistributedRuntime.create(cfg)
+    root = Path(__file__).resolve().parent
+    log = tempfile.NamedTemporaryFile(prefix="torch_worker_", suffix=".log", delete=False)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = None
+    try:
+        cards = await drt.discovery.watch_prefix("v1/mdc/dynamo/backend/generate/")
+        met_sub = await drt.discovery.subscribe(
+            METRICS_TOPIC_FMT.format(namespace="dynamo", component="backend"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
+             "--num-pages", "0", "--seed", str(seed), "--discovery", disc],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT,
+        )
+        while True:
+            ev = await cards.get(timeout=1.0)
+            if ev is not None and ev.type == "put":
+                break
+            if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                raise RuntimeError(f"the worker never registered (rc {proc.poll()}): "
+                                   f"{Path(log.name).read_text()[-3000:]}")
+        t_reg = time.perf_counter() - t0
+        stats = codec.unpack(await met_sub.get(timeout=10))["stats"]
+        client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
+        await client.wait_for_instances(30)
+        req = {"token_ids": list(range(100, 140)), "stop_conditions": {"max_tokens": 16}}
+        items = [it async for it in await PushRouter(client).generate(req)]
+        toks = [t for it in items for t in (it.get("data") or {}).get("token_ids", [])]
+        finish = [it["data"].get("finish_reason") for it in items if it.get("data")][-1]
+        assert len(toks) == 16 and finish == "length", items
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
+        t_drain = time.perf_counter() - t1
+        assert rc == 0, f"the worker exited {rc} on SIGTERM: {Path(log.name).read_text()[-3000:]}"
+        for _ in range(100):  # the lease's keys go with the drain
+            if not client.instance_ids():
+                break
+            await asyncio.sleep(0.05)
+        assert not client.instance_ids(), "the drained worker is still registered"
+        await client.close()
+        emit("worker_subprocess", model="llama-3.2-3b", layers=LAYERS,
+             seconds_to_registration=round(t_reg, 2), num_pages=stats["kv_total_blocks"],
+             kv_pool_bytes=stats["kv_pool_bytes"], kv_pool_gib=round(stats["kv_pool_bytes"] / 2**30, 2),
+             request_tokens=len(toks), seconds_to_exit_after_sigterm=round(t_drain, 2),
+             exit_code=rc,
+             smoke_process_gib=round(torch.cuda.memory_reserved() / 2**30, 2))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        os.unlink(log.name)
+        await drt.close()
+        await server.stop()
+
+
+async def worker_all(seed: int, params) -> dict:
+    total: dict = {}
+    for phase, mode, kvq in WORKER_PHASES:
+        for key, n in (await worker_in_process(seed, phase, mode, kvq, params)).items():
             total[key] = total.get(key, 0) + n
     return total
 
@@ -1166,7 +1458,9 @@ def main() -> None:
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-2:]
     emit("env", nvidia_smi=smi.splitlines(), torch=torch.__version__,
-         cuda=torch.version.cuda, nvcc=nvcc, python=sys.version.split()[0])
+         cuda=torch.version.cuda, nvcc=nvcc, python=sys.version.split()[0],
+         host_cpu=hash_cost.cpu_name(),
+         block_hash_us_per_256_bytes=round(hash_cost.us_per_block(), 2))
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -1183,8 +1477,20 @@ def main() -> None:
     phase_forward(args.seed)
     seconds["quant_write_forward"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches = asyncio.run(serve_all(args.seed))
+    params = model_params(args.seed)
+    launches = asyncio.run(serve_all(args.seed, params))
     seconds["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for key, n in asyncio.run(worker_all(args.seed, params)).items():
+        launches[key] = launches.get(key, 0) + n
+    # the subprocess worker sizes its pool from the card's free memory:
+    # this process lets go of what it holds first (engines that sat in
+    # reference cycles with their tasks included)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    asyncio.run(worker_subprocess(args.seed))
+    seconds["worker"] = time.perf_counter() - t0
 
     line = {"kernels": [
         {

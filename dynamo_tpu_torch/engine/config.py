@@ -24,7 +24,9 @@ class EngineConfig:
     model: str = "tiny"  # models registry key
     max_num_seqs: int = 64  # decode slot batch
     page_size: int = 64  # tokens per KV page == router block size
-    num_pages: int = 2048  # device page pool size
+    # device page pool size; <= 0 sizes it from the device's free memory
+    # once the weights are resident (engine.py:_auto_num_pages)
+    num_pages: int = 2048
     max_model_len: int = 8192
     max_prefill_chunk: int = 1024  # chunked-prefill bucket cap
     prefill_buckets: tuple = (128, 256, 512, 1024)
@@ -119,8 +121,6 @@ class EngineConfig:
             bad.append("kvbm_*")
         if self.lora_pool_slots:
             bad.append("lora_pool_slots")
-        if self.num_pages <= 0:
-            bad.append("num_pages")  # auto-sizing from free memory
         if self.role not in ("decode", "both"):
             bad.append("role")
         return bad

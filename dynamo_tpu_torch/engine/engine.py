@@ -47,6 +47,7 @@ import asyncio
 import concurrent.futures
 import dataclasses
 import logging
+import os
 import secrets
 import threading
 import time
@@ -63,7 +64,7 @@ from ..llm.protocols import Annotated, LLMEngineOutput, PreprocessedRequest
 from ..llm.tokens import TokenBlockSequence
 from ..models import llama
 from ..ops.hopper_ragged_attention import ragged_tile_q
-from ..ops.kv_quant import QuantKV, kv_write_all_layers, resolve_kv_quant
+from ..ops.kv_quant import QuantKV, kv_page_bytes, kv_write_all_layers, resolve_kv_quant
 from ..runtime.engine import Context
 from .bucketing import next_pow2 as _next_pow2
 from .config import EngineConfig, UnsupportedConfigError
@@ -175,6 +176,11 @@ class TorchEngine:
             gen.manual_seed(config.seed)
             params = llama.init_params(c, gen, device=self.device)
         self.params = params
+        if config.num_pages <= 0:
+            config = dataclasses.replace(
+                config, num_pages=_auto_num_pages(params, c, config, self.device)
+            )
+            self.config = config
         # +1: physical page 0 is scratch; allocator page i -> physical i + 1
         self.kv_k, self.kv_v = alloc_kv_arrays(
             c.num_layers, config.num_pages + 1, config.page_size,
@@ -1699,6 +1705,66 @@ MODEL_REGISTRY = {
     "llama3-8b": llama.LlamaConfig.llama3_8b,
     "llama3-70b": llama.LlamaConfig.llama3_70b,
 }
+
+
+def _auto_num_pages(params, model_cfg: llama.LlamaConfig, config: EngineConfig,
+                    device: torch.device) -> int:
+    """Size the KV page pool from free device memory (the role vLLM's
+    gpu_memory_utilization plays), by the rules of the reference's
+    `_auto_num_pages` (`dynamo_tpu/engine/engine.py:106`). Called with the
+    weights already resident, so on CUDA `torch.cuda.mem_get_info` gives
+    total and free bytes: free = total * DYN_HBM_UTILIZATION - in use -
+    DYN_HBM_RESERVE_MB, split between DYN_WORKERS_PER_DEVICE co-located
+    workers, over the bytes of one page across layers (K and V; quantized
+    pages count their ints and scales). Off CUDA, DYN_HBM_BYTES stands for
+    the device's size (with the weights' bytes in use) when set, else the
+    reference's fixed test pool of 2048 pages.
+
+    The reference doubles a page's bytes under "scatter" for the pool copy
+    its fused block makes; this port's scatter block writes the pool in
+    place (`index_put_`, and the quantized write's per-page requantize
+    touches only the pages written), so both modes size the same.
+    """
+    util = float(os.environ.get("DYN_HBM_UTILIZATION", "0.85"))
+    reserve = int(float(os.environ.get("DYN_HBM_RESERVE_MB", "512")) * 2**20)
+    workers = max(int(os.environ.get("DYN_WORKERS_PER_DEVICE", "1")), 1)
+    limit = in_use = None
+    if device.type == "cuda":
+        # blocks the caching allocator holds but no tensor uses (the weight
+        # init's temporaries) are free for the pool: hand them back first,
+        # so "in use" counts live bytes, as the reference's bytes_in_use does
+        torch.cuda.empty_cache()
+        free_b, limit = torch.cuda.mem_get_info(device)
+        in_use = limit - free_b
+    elif os.environ.get("DYN_HBM_BYTES"):
+        limit = int(float(os.environ["DYN_HBM_BYTES"]))
+        in_use = sum(
+            t.numel() * t.element_size()
+            for t in [params["embed"], params["final_norm"], params["lm_head"],
+                      *params["layers"].values()]
+            if t is not None
+        )
+    if limit is None:
+        n = 2048  # CPU/test fallback: the reference's fixed pool
+    else:
+        page_bytes = 2 * model_cfg.num_layers * kv_page_bytes(
+            config.page_size, model_cfg.num_kv_heads, model_cfg.head_dim,
+            model_cfg.dtype, resolve_kv_quant(config.kv_quant),
+        )
+        free = (int(limit * util) - int(in_use) - reserve) // workers
+        n = free // page_bytes
+        logger.info(
+            "auto-sized KV pool: %d pages (%.2f GiB resident of %.2f GiB free, "
+            "workers/dev=%d)", n, n * page_bytes / 2**30, free / 2**30, workers,
+        )
+    floor = config.max_num_seqs + 2  # at least one page per decode slot
+    if n < floor:
+        raise RuntimeError(
+            f"KV pool auto-sizing found room for only {n} pages; reduce "
+            "model size, quantize the KV cache (DYN_KV_QUANT=int8/int4 — "
+            "halves/quarters bytes per page), or lower max_num_seqs"
+        )
+    return int(n)
 
 
 def _resolve_model(name: str) -> llama.LlamaConfig:

@@ -1,0 +1,278 @@
+"""Hierarchical runtime metrics registry, in the standard library.
+
+Port of `dynamo_tpu/runtime/metrics.py` without `prometheus_client`: every
+level of the DRT -> namespace -> component -> endpoint hierarchy mints
+counters, gauges and histograms labelled with its position
+(dynamo_namespace / dynamo_component / dynamo_endpoint) in one process-wide
+registry, and `render()` writes them in the Prometheus text format.
+Callback gauges are evaluated at render time. The metric-key registry
+`METRICS` holds the reference's entries for the engine stats this port
+publishes, spelled as the reference spells them.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+HIERARCHY_LABELS = ("dynamo_namespace", "dynamo_component", "dynamo_endpoint")
+
+# Cross-process metric keys: spelled at the worker's stats() publisher and
+# read by routers, gates and planners in other processes.
+NUM_WAITING_REQS = "num_waiting_reqs"
+NUM_RUNNING_REQS = "num_running_reqs"
+KV_ACTIVE_BLOCKS = "kv_active_blocks"
+KV_TOTAL_BLOCKS = "kv_total_blocks"
+
+#: The reference's registry entries (`dynamo_tpu/runtime/metrics.py:METRICS`)
+#: for the stats `TorchEngine.stats()` publishes. `export=True` entries
+#: become `dynamo_worker_<name>` gauges in the worker.
+METRICS = {
+    NUM_WAITING_REQS: {"kind": "gauge", "layer": "engine", "unit": "requests", "help": "Requests queued for prefill admission.", "wire": True, "export": True},
+    NUM_RUNNING_REQS: {"kind": "gauge", "layer": "engine", "unit": "requests", "help": "Requests occupying decode slots.", "wire": True, "export": True},
+    "gpu_cache_usage_perc": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Active KV pages / total pages.", "wire": True, "export": True},
+    "request_total_slots": {"kind": "gauge", "layer": "engine", "unit": "slots", "help": "Configured max concurrent sequences.", "wire": True, "export": True},
+    "kv_pool_bytes": {"kind": "gauge", "layer": "engine", "unit": "bytes", "help": "Resident KV pool bytes including scales.", "export": True},
+    KV_ACTIVE_BLOCKS: {"kind": "gauge", "layer": "engine", "unit": "blocks", "help": "KV blocks referenced by live sequences.", "wire": True, "export": True},
+    KV_TOTAL_BLOCKS: {"kind": "gauge", "layer": "engine", "unit": "blocks", "help": "Total KV blocks in the device pool.", "wire": True, "export": True},
+    "kv_cached_blocks": {"kind": "gauge", "layer": "engine", "unit": "blocks", "help": "Unreferenced blocks held for prefix reuse.", "export": True},
+    "kv_prefix_hit_blocks_total": {"kind": "counter", "layer": "engine", "unit": "blocks", "help": "Prefix-cache block hits at admission.", "export": True},
+    "kv_skip_ahead_blocks": {"kind": "counter", "layer": "engine", "unit": "blocks", "help": "Prefill blocks skipped via prefix skip-ahead.", "export": True},
+    "emit_batches": {"kind": "counter", "layer": "engine", "help": "Token delta batches emitted to streams.", "export": True},
+    "emit_tokens": {"kind": "counter", "layer": "engine", "unit": "tokens", "help": "Tokens emitted to streams.", "export": True},
+    "mixed_steps": {"kind": "counter", "layer": "engine", "help": "Fused mixed prefill+decode dispatch steps.", "export": True},
+    "split_steps": {"kind": "counter", "layer": "engine", "help": "Split prefill/decode dispatch steps.", "export": True},
+    "mixed_padding_frac": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Padding fraction paid by the mixed path.", "export": True},
+    "split_padding_frac": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Padding fraction paid by the split path.", "export": True},
+    "mixed_rows_plain": {"kind": "counter", "layer": "engine", "unit": "rows", "help": "Plain prefill/decode rows packed into fused mixed steps.", "export": True},
+    "mixed_coverage_frac": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Fused steps / (fused + split) dispatch steps (1.0 before any step).", "export": True},
+    "sched_ttft_target_ms": {"kind": "gauge", "layer": "sched", "unit": "ms", "help": "Configured TTFT SLA target.", "export": True},
+    "sched_itl_target_ms": {"kind": "gauge", "layer": "sched", "unit": "ms", "help": "Configured ITL SLA target.", "export": True},
+    "sched_granted_chunks": {"kind": "counter", "layer": "sched", "help": "Prefill chunks granted by the budgeter.", "export": True},
+    "sched_granted_tokens": {"kind": "counter", "layer": "sched", "unit": "tokens", "help": "Prefill tokens granted by the budgeter.", "export": True},
+    "sched_deferred_steps": {"kind": "counter", "layer": "sched", "help": "Steps where prefill was deferred for ITL.", "export": True},
+    "sched_itl_shrunk_steps": {"kind": "counter", "layer": "sched", "help": "Steps where the chunk budget was shrunk for ITL.", "export": True},
+    "sched_deadline_overrides": {"kind": "counter", "layer": "sched", "help": "Deadline-driven priority overrides.", "export": True},
+    "sched_starvation_overrides": {"kind": "counter", "layer": "sched", "help": "Starvation-guard priority overrides.", "export": True},
+    "sched_pending_deadlines": {"kind": "gauge", "layer": "sched", "help": "Requests with an armed TTFT deadline.", "export": True},
+    "sched_cost_observations": {"kind": "counter", "layer": "sched", "help": "Cost-model samples observed.", "export": True},
+    "sched_tenants_served": {"kind": "gauge", "layer": "sched", "help": "Distinct tenants the fairness tiebreak has served.", "export": True},
+}
+
+DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75,
+                   1.0, 2.5, 5.0, 7.5, 10.0, math.inf)
+
+
+def worker_exported_stats() -> Tuple[str, ...]:
+    """Stats the worker republishes as `dynamo_worker_<name>` gauges."""
+    return tuple(name for name, spec in METRICS.items() if spec.get("export"))
+
+
+def metric_spec(name: str) -> Optional[dict]:
+    return METRICS.get(name)
+
+
+def _fmt(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    if v != v:
+        return "NaN"
+    return repr(float(v))
+
+
+def _escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+
+
+class _Child:
+    """One labelled series of a metric (what `.labels(...)` returns)."""
+
+    def __init__(self, metric: "_Metric", key: Tuple[str, ...]):
+        self._metric = metric
+        self._key = key
+
+    def inc(self, amount: float = 1.0):
+        if self._metric.kind == "counter" and amount < 0:
+            raise ValueError("counters can only be incremented by non-negative amounts")
+        with self._metric.lock:
+            self._metric.values[self._key] = self._metric.values.get(self._key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0):
+        if self._metric.kind == "counter":
+            self._refuse("dec")
+        self.inc(-amount)
+
+    def set(self, value: float):
+        if self._metric.kind != "gauge":
+            self._refuse("set")
+        with self._metric.lock:
+            self._metric.values[self._key] = float(value)
+
+    def observe(self, value: float):
+        if self._metric.kind != "histogram":
+            self._refuse("observe")
+        m = self._metric
+        with m.lock:
+            counts, total = m.values.get(self._key, ([0] * len(m.buckets), 0.0))
+            counts = list(counts)
+            for i, le in enumerate(m.buckets):
+                if value <= le:
+                    counts[i] += 1
+            m.values[self._key] = (counts, total + value)
+
+    def get(self):
+        return self._metric.values.get(self._key)
+
+    def _refuse(self, op: str):
+        raise TypeError(f"{self._metric.kind} {self._metric.name} has no {op}()")
+
+
+class _Metric:
+    def __init__(self, kind: str, name: str, doc: str, label_names: Tuple[str, ...],
+                 buckets: Optional[Sequence[float]] = None):
+        self.kind, self.name, self.doc = kind, name, doc
+        self.label_names = label_names
+        self.buckets = tuple(buckets or DEFAULT_BUCKETS)
+        if self.buckets[-1] != math.inf:
+            self.buckets += (math.inf,)
+        self.values: Dict[Tuple[str, ...], object] = {}
+        self.lock = threading.Lock()
+
+    def labels(self, *values: str) -> _Child:
+        if len(values) != len(self.label_names):
+            raise ValueError(f"{self.name}: expected labels {self.label_names}, got {values}")
+        return _Child(self, tuple(str(v) for v in values))
+
+    def render(self, out: List[str]):
+        sample = self.name + "_total" if self.kind == "counter" else self.name
+        out.append(f"# HELP {self.name} {self.doc}")
+        out.append(f"# TYPE {self.name} {self.kind}")
+        with self.lock:
+            items = sorted(self.values.items())
+        for key, val in items:
+            labels = ",".join(f'{n}="{_escape(v)}"' for n, v in zip(self.label_names, key))
+            if self.kind != "histogram":
+                out.append(f"{sample}{{{labels}}} {_fmt(val)}")
+                continue
+            counts, total = val
+            for le, c in zip(self.buckets, counts):
+                out.append(f'{self.name}_bucket{{{labels},le="{_fmt(le)}"}} {_fmt(c)}')
+            out.append(f"{self.name}_count{{{labels}}} {_fmt(counts[-1])}")
+            out.append(f"{self.name}_sum{{{labels}}} {_fmt(total)}")
+
+
+class MetricsRegistry:
+    """Per-hierarchy-level view over one process-wide registry (reference
+    MetricsRegistry): children share it and add labels."""
+
+    def __init__(
+        self,
+        prefix: str = "dynamo",
+        _labels: Optional[Dict[str, str]] = None,
+        _root: Optional["MetricsRegistry"] = None,
+    ):
+        self.prefix = prefix
+        self.labels = dict(_labels or {})
+        self._root = _root or self
+        if _root is None:
+            self._metrics: Dict[str, _Metric] = {}
+            self._lock = threading.Lock()
+            self._callbacks: List[Callable[[], None]] = []
+
+    # -- hierarchy ----------------------------------------------------------
+    def child(self, level: str, name: str) -> "MetricsRegistry":
+        labels = dict(self.labels)
+        labels[level] = name
+        return MetricsRegistry(self.prefix, _labels=labels, _root=self._root)
+
+    def for_namespace(self, name: str) -> "MetricsRegistry":
+        return self.child("dynamo_namespace", name)
+
+    def for_component(self, name: str) -> "MetricsRegistry":
+        return self.child("dynamo_component", name)
+
+    def for_endpoint(self, name: str) -> "MetricsRegistry":
+        return self.child("dynamo_endpoint", name)
+
+    # -- metric constructors -------------------------------------------------
+    # every metric carries ALL hierarchy labels ("" when minted above that
+    # level), so one metric can serve the same name from any depth
+    def _label_values(self) -> Tuple[str, ...]:
+        return tuple(self.labels.get(k, "") for k in HIERARCHY_LABELS)
+
+    def _get_or_create(self, kind: str, name: str, doc: str,
+                       extra_labels: Sequence[str], buckets=None):
+        root = self._root
+        full = f"{self.prefix}_{name}"
+        names = HIERARCHY_LABELS + tuple(extra_labels)
+        with root._lock:
+            m = root._metrics.get(full)
+            if m is None:
+                m = _Metric(kind, full, doc, names, buckets)
+                root._metrics[full] = m
+            elif m.kind != kind or m.label_names != names:
+                raise ValueError(
+                    f"metric {full} already registered as {m.kind} with labels "
+                    f"{m.label_names}, requested {kind} with {names}"
+                )
+            elif buckets is not None and m.buckets != _Metric(kind, full, doc, names, buckets).buckets:
+                raise ValueError(f"metric {full} already registered with other buckets")
+        return m
+
+    def _series(self, m: _Metric, extra_labels: Sequence[str]):
+        hier = self._label_values()
+        return m.labels(*hier) if not extra_labels else _Partial(m, hier)
+
+    def counter(self, name: str, doc: str = "", extra_labels: Sequence[str] = ()):
+        return self._series(self._get_or_create("counter", name, doc or name, extra_labels),
+                            extra_labels)
+
+    def gauge(self, name: str, doc: str = "", extra_labels: Sequence[str] = ()):
+        return self._series(self._get_or_create("gauge", name, doc or name, extra_labels),
+                            extra_labels)
+
+    def histogram(self, name: str, doc: str = "", extra_labels: Sequence[str] = (),
+                  buckets: Optional[Sequence[float]] = None):
+        m = self._get_or_create("histogram", name, doc or name, extra_labels, buckets)
+        return self._series(m, extra_labels)
+
+    def callback_gauge(self, name: str, doc: str, fn: Callable[[], float]):
+        """Gauge whose value is `fn()` at render time (reference metrics
+        callbacks). A callback that raises leaves the last value."""
+        g = self.gauge(name, doc)
+
+        def update():
+            try:
+                g.set(fn())
+            except Exception:  # noqa: BLE001 — a render must not die
+                pass
+
+        self._root._callbacks.append(update)
+        return g
+
+    # -- export ---------------------------------------------------------------
+    def render(self) -> bytes:
+        """Every metric in the Prometheus text exposition format."""
+        root = self._root
+        for cb in root._callbacks:
+            cb()
+        out: List[str] = []
+        with root._lock:
+            metrics = [root._metrics[k] for k in sorted(root._metrics)]
+        for m in metrics:
+            m.render(out)
+        return ("\n".join(out) + "\n").encode()
+
+
+class _Partial:
+    """A metric with extra labels: `.labels(*extra)` completes the series."""
+
+    def __init__(self, metric: _Metric, hier_values: Tuple[str, ...]):
+        self._metric = metric
+        self._hier = hier_values
+
+    def labels(self, *values: str):
+        return self._metric.labels(*self._hier, *values)

@@ -1,0 +1,287 @@
+"""PyTorch/CUDA engine worker: `python -m dynamo_tpu_torch.worker`.
+
+Port of `dynamo_tpu/jax_worker/__main__.py`, aggregated role: build the
+engine, warm it up BEFORE joining the control plane, create the
+`DistributedRuntime`, publish KV events (`--kv-events`) and engine load
+metrics, serve `generate`, register the model card, then wait for
+SIGTERM/SIGINT and drain gracefully. It registers on the same discovery
+service and speaks the same frames as a JAX worker, so the unmodified
+`python -m dynamo_tpu.frontend` routes to it.
+
+Flags keep the reference's names. Those whose feature the port lacks
+(parallelism, multi-host, speculative decoding, LoRA, weight quantization,
+checkpoint loading, KVBM tiers, the disaggregated roles with their remote
+prefill and morph endpoints, the KV data plane) raise
+`UnsupportedConfigError` when set. `--device` (default `cuda`) picks the
+card; with no CUDA device the worker raises instead of running on the CPU,
+unless `--device cpu` asks for it. Weights are random, drawn from
+`--seed`, as the reference draws them when `--model-path` is omitted.
+
+    python -m dynamo_tpu_torch.worker --model llama3-3b --discovery tcp://HOST:PORT
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..engine import EngineConfig, TorchEngine, UnsupportedConfigError
+from ..llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
+from ..llm.model_card import ModelDeploymentCard, register_llm
+from ..runtime import DistributedRuntime, RuntimeConfig, init_logging
+from ..runtime.component import Endpoint, ServedEndpoint
+from ..runtime.metrics import worker_exported_stats
+
+logger = logging.getLogger("dynamo_tpu_torch.worker")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="dynamo-tpu PyTorch/CUDA engine worker")
+    ap.add_argument("--model", default="tiny", help="model registry key (tiny/llama3-3b/llama3-8b/llama3-70b)")
+    ap.add_argument("--model-name", default=None, help="served model name (defaults to --model)")
+    ap.add_argument("--model-path", default=None,
+                    help="HF safetensors checkpoint dir (not ported: random init from --seed)")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; cuda raises when no CUDA device is present")
+    ap.add_argument("--namespace", default="dynamo")
+    ap.add_argument("--component", default="backend")
+    ap.add_argument("--endpoint", default="generate")
+    ap.add_argument("--discovery", default=None)
+    ap.add_argument("--page-size", type=int, default=64)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="KV page pool; 0 = auto-size from free device memory "
+                    "(DYN_HBM_UTILIZATION; CPU falls back to a fixed 2048)")
+    ap.add_argument("--max-num-seqs", type=int, default=64)
+    ap.add_argument("--max-model-len", type=int, default=8192)
+    ap.add_argument("--decode-pool-mode", choices=["scatter", "local"], default=None,
+                    help="KV-write strategy in the fused decode block (default scatter)")
+    ap.add_argument("--decode-block-unroll", type=int, default=0,
+                    help="accepted for the reference's sake; no effect here")
+    ap.add_argument("--lora", action="append", default=[], metavar="NAME=PATH",
+                    help="LoRA adapter (not ported)")
+    ap.add_argument("--spec", choices=["ngram"], default=None,
+                    help="speculative decoding (not ported)")
+    ap.add_argument("--spec-draft-len", type=int, default=4)
+    ap.add_argument("--spec-ngram", type=int, default=2)
+    ap.add_argument("--spec-rounds", type=int, default=4)
+    ap.add_argument("--kv-quant", choices=["none", "int8", "int4"], default=None,
+                    help="quantized KV cache page format (default: DYN_KV_QUANT, none)")
+    ap.add_argument("--quantize", choices=["int8"], default=None,
+                    help="weight-only quantization (not ported)")
+    ap.add_argument("--tp-size", type=int, default=1)
+    ap.add_argument("--ep-size", type=int, default=1)
+    ap.add_argument("--pp-size", type=int, default=1)
+    ap.add_argument("--sp-size", type=int, default=1)
+    ap.add_argument("--ring-prefill-threshold", type=int, default=512)
+    ap.add_argument("--dp-attention", action="store_true")
+    ap.add_argument("--kv-events", action="store_true")
+    ap.add_argument("--kvbm-host-blocks", type=int, default=0)
+    ap.add_argument("--kvbm-disk-blocks", type=int, default=0)
+    ap.add_argument("--kvbm-disk-path", default=None)
+    ap.add_argument("--migration-limit", type=int, default=3)
+    ap.add_argument("--sched-policy", choices=["fifo", "sla"], default=None)
+    ap.add_argument("--ttft-target-ms", type=float, default=None)
+    ap.add_argument("--itl-target-ms", type=float, default=None)
+    ap.add_argument("--warmup", choices=["auto", "full", "none"], default="auto",
+                    help="drive every dispatch kind (and build the kernels) before "
+                    "joining the control plane (auto: on for CUDA, off on the CPU)")
+    ap.add_argument("--context-length", type=int, default=None)
+    ap.add_argument("--role", choices=["aggregated", "prefill", "decode"], default="aggregated")
+    ap.add_argument("--prefill-component", default="prefill")
+    ap.add_argument("--disagg-threshold", type=int, default=64)
+    ap.add_argument("--num-hosts", type=int, default=1)
+    ap.add_argument("--host-id", type=int, default=0)
+    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--spmd-port", type=int, default=17300)
+    ap.add_argument("--kv-data-plane-port", type=int, default=0)
+    ap.add_argument("--kv-data-plane-host", default=None)
+    ap.add_argument("--no-kv-data-plane", action="store_true")
+    return ap.parse_args(argv)
+
+
+def unsupported_flags(args) -> list:
+    """The flags set to a value the port cannot honour."""
+    bad = [f"--{n.replace('_', '-')}" for n in ("tp_size", "ep_size", "pp_size", "sp_size",
+                                               "num_hosts") if getattr(args, n) > 1]
+    bad += [f"--{n.replace('_', '-')}" for n in (
+        "spec", "lora", "quantize", "model_path", "dp_attention", "kvbm_host_blocks",
+        "kvbm_disk_blocks", "kvbm_disk_path", "host_id", "coordinator",
+        "kv_data_plane_port", "kv_data_plane_host") if getattr(args, n)]
+    if args.role != "aggregated":
+        # prefill and decode roles carry the disaggregation wiring (remote
+        # prefill, the prefill-queue watch) and the morph endpoint
+        bad.append(f"--role {args.role}")
+    return bad
+
+
+def build_engine(args) -> TorchEngine:
+    """The engine the flags describe, random weights from `--seed`."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda needs a CUDA device and none is present; pass "
+            "--device cpu to run on the CPU"
+        )
+    cfg = EngineConfig(
+        model=args.model,
+        page_size=args.page_size,
+        num_pages=args.num_pages,
+        max_num_seqs=args.max_num_seqs,
+        max_model_len=args.max_model_len,
+        decode_pool_mode=args.decode_pool_mode,
+        decode_block_unroll=args.decode_block_unroll,
+        kv_quant=args.kv_quant,
+        sched_policy=args.sched_policy,
+        ttft_target_ms=args.ttft_target_ms,
+        itl_target_ms=args.itl_target_ms,
+        seed=args.seed,
+        # aggregated serving drives both surfaces, as the reference's "decode"
+        role="decode",
+    )
+    return TorchEngine(cfg, device=device)
+
+
+@dataclass
+class Worker:
+    """A serving worker, handed to `serve`'s `started` future."""
+
+    drt: DistributedRuntime
+    engine: TorchEngine
+    endpoint: Endpoint
+    served: ServedEndpoint
+    kv_publisher: Optional[KvEventPublisher]
+    metrics_publisher: WorkerMetricsPublisher
+    card_key: str
+
+
+async def serve(args, engine: Optional[TorchEngine] = None,
+                started: Optional[asyncio.Future] = None) -> None:
+    """Run one worker until shutdown (SIGTERM/SIGINT, or `drt.shutdown()`).
+
+    `engine`: serve this engine instead of building one from the flags
+    (tests hand in an engine built from converted weights); the caller then
+    keeps it and closes it. `started`: set to the `Worker` once the endpoint
+    serves and the card is registered."""
+    bad = unsupported_flags(args)
+    if bad:
+        raise UnsupportedConfigError(
+            f"worker flags not supported by the PyTorch/CUDA port yet: {bad}"
+        )
+    owns_engine = engine is None
+    if owns_engine:
+        engine = build_engine(args)
+    # events of the warmup are held until the publisher exists
+    pending_events: list = []
+    engine.allocator.event_sink = pending_events.append
+    drt = None
+    try:
+        # drive every dispatch kind — and so build the kernels with nvcc —
+        # BEFORE joining the control plane: a first-request build after
+        # registration would starve the lease keepalives, and the frontend
+        # would drop the worker mid-stream
+        if args.warmup == "full" or (args.warmup == "auto" and engine.device.type == "cuda"):
+            t0 = time.monotonic()
+            n_warm = await engine.warmup()
+            logger.info("engine warmup: %d dispatches in %.1fs", n_warm, time.monotonic() - t0)
+
+        cfg = RuntimeConfig.from_settings()
+        if args.discovery:
+            cfg.discovery_endpoint = args.discovery
+        drt = await DistributedRuntime.create(cfg)
+        drt.install_signal_handlers()
+        endpoint = drt.namespace(args.namespace).component(args.component).endpoint(args.endpoint)
+
+        publisher = None
+        if args.kv_events:
+            publisher = KvEventPublisher(drt, endpoint, drt.instance_id)
+            await publisher.start()
+            for ev in pending_events:
+                publisher.publish(ev)
+            # the allocator runs on the event loop's thread (admission,
+            # commits and releases happen in the step loop; only the
+            # `_dev_*` programs run on the device executor), so the plain
+            # publish is the right sink
+            engine.allocator.event_sink = publisher.publish
+        else:
+            engine.allocator.event_sink = None
+        pending_events.clear()
+
+        metrics_pub = WorkerMetricsPublisher(drt, endpoint, drt.instance_id, engine.stats)
+        await metrics_pub.start()
+
+        snap = {"t": 0.0, "v": {}}
+
+        def snap_stat(k):
+            # one engine.stats() per render, shared by the gauges
+            now = time.monotonic()
+            if now - snap["t"] > 0.5:
+                snap["v"] = engine.stats()
+                snap["t"] = now
+            return float(snap["v"].get(k, 0) or 0)
+
+        for stat in worker_exported_stats():
+            drt.metrics.callback_gauge(
+                f"worker_{stat}", f"engine stat {stat}", (lambda k=stat: snap_stat(k))
+            )
+
+        async def handler(request, context):
+            annotations = request.get("annotations") or []
+            if "worker_instance_id" in annotations:
+                yield {"event": "worker_instance_id", "comment": [f"{drt.instance_id:x}"]}
+            if "clear_kv_blocks" in annotations:
+                # admin flush (reference service_v2.rs:319-339 clear-kv-blocks)
+                yield {"event": "clear_kv_blocks", "comment": [str(engine.clear_kv_blocks())]}
+                return
+            async for item in engine.generate(request, context):
+                yield item
+
+        served = await endpoint.serve_endpoint(handler)
+        # the card goes up after the endpoint serves: it is what makes a
+        # frontend build a pipeline to this worker
+        card = ModelDeploymentCard(
+            name=args.model_name or args.model,
+            tokenizer="byte",
+            kv_cache_block_size=args.page_size,
+            context_length=args.context_length or args.max_model_len,
+            migration_limit=args.migration_limit,
+            lora_adapters=[],
+        )
+        card_key = await register_llm(endpoint, card)
+        logger.info(
+            "torch worker up: model=%s device=%s num_pages=%d instance=%x",
+            card.name, engine.device, engine.config.num_pages, drt.instance_id,
+        )
+        if started is not None:
+            started.set_result(Worker(drt, engine, endpoint, served, publisher,
+                                      metrics_pub, card_key))
+        try:
+            await drt.wait_for_shutdown()
+        finally:
+            await metrics_pub.close()
+            if publisher is not None:
+                await publisher.close()
+    finally:
+        engine.allocator.event_sink = None
+        if drt is not None:
+            # graceful drain: lease revoked first (routers stop picking this
+            # worker), in-flight streams finish within
+            # DYN_RUNTIME_GRACEFUL_SHUTDOWN_TIMEOUT, survivors are cancelled
+            await drt.close()
+        if owns_engine:
+            await engine.close()
+
+
+def main(argv=None):
+    init_logging()
+    asyncio.run(serve(parse_args(argv)))
+
+
+if __name__ == "__main__":
+    main()

@@ -179,7 +179,7 @@ def test_stats_keep_reference_key_names(reference):
     ("quantize", "int8"), ("spec_mode", "ngram"),
     ("tp_size", 2), ("pp_size", 2), ("sp_size", 2), ("dp_size", 2),
     ("kvbm_host_blocks", 16),
-    ("kvbm_disk_blocks", 16), ("lora_pool_slots", 4), ("num_pages", 0),
+    ("kvbm_disk_blocks", 16), ("lora_pool_slots", 4), ("kvbm_disk_path", "/kv"),
     ("role", "prefill"),
 ])
 def test_unsupported_config_fields_raise(field, value):
@@ -220,3 +220,47 @@ def test_cuda_is_the_default_device_and_required():
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchEngine(EngineConfig(**ENGINE_KW),
                     model_config=tllama.LlamaConfig.tiny(dtype=torch.float32))
+
+
+def test_num_pages_zero_takes_the_reference_fixed_pool_on_the_cpu(monkeypatch):
+    """num_pages <= 0 auto-sizes; on the CPU with no DYN_HBM_BYTES that is
+    the reference's fixed 2048 pages."""
+    monkeypatch.delenv("DYN_HBM_BYTES", raising=False)
+    engine = TorchEngine(EngineConfig(**{**ENGINE_KW, "num_pages": 0}),
+                         model_config=tllama.LlamaConfig.tiny(dtype=torch.float32),
+                         device="cpu")
+    assert engine.config.num_pages == 2048 and engine.allocator.num_pages == 2048
+    assert engine.kv_k.shape[1] == 2049  # + the scratch page
+    asyncio.run(engine.close())
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_num_pages_auto_sizing_matches_the_reference(weights, monkeypatch, workers, kv_quant):
+    """With DYN_HBM_BYTES standing for the device's size, the port sizes the
+    pool as the reference's `_auto_num_pages` does for its in-place "local"
+    mode; the port's "scatter" writes in place too, so it sizes the same
+    (the reference doubles a page there for its pool copy)."""
+    from dynamo_tpu.engine.engine import _auto_num_pages as ref_auto
+
+    from dynamo_tpu_torch.engine.engine import _auto_num_pages
+
+    for k, v in {"DYN_HBM_BYTES": str(2**30), "DYN_HBM_UTILIZATION": "0.5",
+                 "DYN_HBM_RESERVE_MB": "500", "DYN_WORKERS_PER_DEVICE": str(workers)}.items():
+        monkeypatch.setenv(k, v)
+    jparams = jax.tree.map(lambda a: None if a is None else jnp.asarray(a), weights,
+                           is_leaf=lambda a: a is None)
+    want = ref_auto(jparams, jllama.LlamaConfig.tiny(dtype=jnp.float32),
+                    JaxEngineConfig(**{**ENGINE_KW, "num_pages": 0, "kv_quant": kv_quant,
+                                       "decode_pool_mode": "local"}))
+    tparams = params_from_jax(weights, device="cpu")
+    for mode in ("local", "scatter"):
+        got = _auto_num_pages(
+            tparams, tllama.LlamaConfig.tiny(dtype=torch.float32),
+            EngineConfig(**{**ENGINE_KW, "num_pages": 0, "kv_quant": kv_quant,
+                            "decode_pool_mode": mode}), torch.device("cpu"))
+        assert got == want > 100, (mode, got, want)
+    monkeypatch.setenv("DYN_HBM_RESERVE_MB", "512")  # nothing left: refused
+    with pytest.raises(RuntimeError, match="auto-sizing"):
+        _auto_num_pages(tparams, tllama.LlamaConfig.tiny(dtype=torch.float32),
+                        EngineConfig(**{**ENGINE_KW, "num_pages": 0}), torch.device("cpu"))

@@ -18,6 +18,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "dynamo_tpu_torch"
 ALLOWED_THIRD_PARTY = {"torch", "numpy"}
+# serving-plane packages the reference uses that the machine with the card
+# does not have: the port's runtime is written on the standard library
+FORBIDDEN = {"msgpack", "aiohttp", "xxhash", "pydantic", "prometheus_client"}
 LAZY_ONLY = {"triton"}  # allowed inside a function body, never at module level
 STDLIB = set(sys.stdlib_module_names)
 
@@ -55,6 +58,10 @@ def test_module_imports_only_torch_numpy_stdlib(path):
             continue
         assert name not in ("jax", "jaxlib", "flax"), f"{path}: imports {name}"
         assert name != "dynamo_tpu", f"{path}: imports the JAX package"
+        assert name not in FORBIDDEN, (
+            f"{path}: imports {name}, which the machine with the card does not "
+            "have (the port's runtime uses the standard library instead)"
+        )
         if name == "dynamo_tpu_torch" or name in STDLIB or name in ALLOWED_THIRD_PARTY:
             continue
         assert name in LAZY_ONLY and not at_top, f"{path}: imports {name}"
@@ -101,7 +108,9 @@ def test_walk_finds_every_subpackage():
     names = {m.name for m in pkgutil.walk_packages([str(PKG)], "dynamo_tpu_torch.")}
     for expected in ("engine.engine", "engine.scheduler.policy", "ops.paged_attention",
                      "ops.hopper_ragged_attention", "models.llama", "llm.tokens",
-                     "llm.protocols.common", "runtime.engine"):
+                     "llm.protocols.common", "runtime.engine", "runtime.msgpack_lite",
+                     "runtime.request_plane", "runtime.discovery", "llm.model_card",
+                     "llm.kv_router.publisher", "worker.__main__"):
         assert f"dynamo_tpu_torch.{expected}" in names
     importlib.import_module("dynamo_tpu_torch.ops._build")
 
