@@ -29,8 +29,23 @@ stream the same tokens both ways; the kernels must carry the wire's
 traffic; KV events and worker metrics must reach their topics), and
 finally `python -m dynamo_tpu_torch.worker --model llama3-3b` as a
 subprocess with its pool auto-sized, which must register, answer a request
-and drain on SIGTERM. Every phase prints one JSON line; any failure raises
-(non-zero exit). The last line of output is
+and drain on SIGTERM. The disagg phases split serving between a prefill
+and a decode engine (1,024 pages each) on the worker phase's requests, all
+prefilled remotely: `disagg` (28 layers, bf16, scatter) and
+`disagg_local_int8` (4 layers) put the two engines in this process, the
+KV pages handed over as CUDA tensors through the data plane's in-process
+registry and the decode side driven through its disagg handler (streamed
+handoff), then time one serial handoff of the longest prompt over TCP and
+in process (extract, inject and socket ms a page, GB/s); `disagg_subprocess`
+first serves the same mix from one aggregated `python -m
+dynamo_tpu_torch.worker` of the same pool (its baseline: the wire without
+the handoff), then runs `--role prefill` and `--role decode` as two
+processes with the handoff over TCP, driven through a PushRouter, and
+pulls one staged prompt across processes. Each checks that every
+request alone streams the same tokens as the aggregated engine, and that
+the prefill side launched only prefill attention and the decode side only
+its decode kernel (per process, from the stats each worker publishes).
+Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
 """
@@ -45,6 +60,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -1004,6 +1020,9 @@ async def run_stream(open_stream, req: dict, record: dict, after=None) -> None:
     async for item in await open_stream(req):
         if item.get("event") == "error":
             raise RuntimeError(f"engine error: {item}")
+        if item.get("event") == "remote_prefill":
+            record["remote"] = item["comment"] == ["true"]
+            continue
         data = item.get("data")
         if not data:
             continue
@@ -1209,7 +1228,8 @@ def stream_metrics(records, wall: float) -> dict:
 
 
 def new_record() -> dict:
-    return {"tokens": [], "itl_s": [], "finish": None, "first": asyncio.Event()}
+    return {"tokens": [], "itl_s": [], "finish": None, "first": asyncio.Event(),
+            "remote": None}
 
 
 async def drive(open_stream, reqs, shared_after: tuple) -> tuple:
@@ -1355,7 +1375,9 @@ async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, params) 
     )
     del worker, engine
     torch.cuda.empty_cache()
-    return launches
+    reference = {"reqs": reqs, "alone": local_alone[:len(reqs)],
+                 "metrics": stream_metrics(local_recs, local_wall)}
+    return launches, reference
 
 
 async def worker_subprocess(seed: int) -> None:
@@ -1434,12 +1456,466 @@ async def worker_subprocess(seed: int) -> None:
         await server.stop()
 
 
-async def worker_all(seed: int, params) -> dict:
+async def worker_all(seed: int, params) -> tuple:
+    """Launches of both worker phases, and the (scatter, bf16) phase's
+    in-process streams and metrics: the aggregated reference of `disagg`."""
     total: dict = {}
+    reference = None
     for phase, mode, kvq in WORKER_PHASES:
-        for key, n in (await worker_in_process(seed, phase, mode, kvq, params)).items():
+        launches, ref = await worker_in_process(seed, phase, mode, kvq, params)
+        for key, n in launches.items():
             total[key] = total.get(key, 0) + n
-    return total
+        if (mode, kvq) == ("scatter", "none"):
+            reference = ref
+    return total, reference
+
+
+# ---------------------------------------------------------------------- #
+# phase: disagg (a prefill engine hands each prompt's KV to a decode engine)
+# ---------------------------------------------------------------------- #
+
+DISAGG_PAGES = 1024  # each side's pool (~7 GiB bf16): two of them share the card
+DISAGG_THRESHOLD = 16  # uncached tokens above which a prompt goes to the prefill side
+PROBE_REQ = 2  # the mix's 1500-token request: the serial handoff probe
+
+
+class EngineClient:
+    """A prefill pool of one in-process engine, as the decode side's handler
+    (`worker/disagg_handler.py`) sees an endpoint client."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.endpoint = types.SimpleNamespace(subject="dynamo/prefill/generate")
+
+    def instance_ids(self):
+        return [1]
+
+    ready_instance_ids = instance_ids
+
+    async def direct(self, request, instance_id, context=None):
+        return self.engine.generate(request, Context())
+
+
+def remote(req: dict) -> dict:
+    return dict(req, annotations=["remote_prefill"])
+
+
+def stat_delta(after: dict, before: dict, key: str):
+    return after.get(key, 0) - before.get(key, 0)
+
+
+def dev_delta(after: dict, before: dict, tag: str) -> tuple:
+    """(count, seconds) of one dev_time tag between two stats()."""
+    a = after["dev_time"].get(tag, {"count": 0, "seconds": 0.0})
+    b = before["dev_time"].get(tag, {"count": 0, "seconds": 0.0})
+    return a["count"] - b["count"], a["seconds"] - b["seconds"]
+
+
+def calls_delta(after: dict, before: dict) -> dict:
+    """Attention calls (kernel launches by "kernel/format", plain calls by
+    op) between two stats() of one process."""
+    out = {}
+    for kind in ("kernels", "plain"):
+        a, b = after["attention_calls"][kind], before["attention_calls"][kind]
+        for k in set(a) | set(b):
+            if a.get(k, 0) - b.get(k, 0):
+                out[f"{kind}:{k}"] = a.get(k, 0) - b.get(k, 0)
+    return out
+
+
+def handoff_costs(pre_a: dict, pre_b: dict, dec_a: dict, dec_b: dict,
+                  serial: bool = True) -> dict:
+    """Per-page handoff costs between two stats() pairs: extract (the
+    prefill side's gather, pack and, over TCP, pinned host copy), inject
+    (the decode side's copy in and scatter) and, for a serial pull (staged
+    after the prefill), its wall time, what that holds beyond extract and
+    inject, and its bytes per second. A streamed pull's wall includes
+    waiting for the producer's prefill, so only the first two are given."""
+    n_ex, s_ex = dev_delta(pre_a, pre_b, "kv_extract")
+    n_in, s_in = dev_delta(dec_a, dec_b, "kv_inject")
+    pages_ex = stat_delta(pre_a, pre_b, "kv_pages_extracted")
+    pages_in = stat_delta(dec_a, dec_b, "kv_pages_injected")
+    pages = stat_delta(dec_a, dec_b, "kv_pages_pulled")
+    wall = stat_delta(dec_a, dec_b, "kv_pull_s")
+    nbytes = stat_delta(pre_a, pre_b, "kv_bytes_served")
+    out = {"pages": pages, "bytes": nbytes, "extract_calls": n_ex, "inject_calls": n_in}
+    if pages_ex and pages_in:
+        out.update(extract_ms_per_page=round(1e3 * s_ex / pages_ex, 4),
+                   inject_ms_per_page=round(1e3 * s_in / pages_in, 4))
+    if serial and pages_ex and pages_in and pages:
+        ex, inj, w = 1e3 * s_ex / pages_ex, 1e3 * s_in / pages_in, 1e3 * wall / pages
+        out.update(pull_wall_ms_per_page=round(w, 4),
+                   # what the pull's wall holds beyond extract and inject:
+                   # the socket (or, in process, the hand-over) and the loop
+                   socket_ms_per_page=round(w - ex - inj, 4),
+                   gb_per_s=round(nbytes / wall / 1e9, 3) if nbytes else None)
+    return out
+
+
+async def aggregated_reference(seed: int, mode: str, kvq: str, layers: int, params,
+                               reqs) -> dict:
+    """One aggregated engine on the mix: the staggered run's metrics and
+    each request's stream alone (the disagg pair must equal them)."""
+    model_cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=layers)
+    if layers != LAYERS:
+        params = dict(params, layers={k: v[:layers] for k, v in params["layers"].items()})
+    engine = TorchEngine(
+        EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode=mode, kv_quant=kvq,
+                     num_pages=DISAGG_PAGES),
+        model_config=model_cfg, params=params, device="cuda",
+    )
+    await engine.warmup()
+
+    async def stream(r):
+        return engine.generate(r, Context())
+
+    async def clear():
+        engine.clear_kv_blocks()
+
+    recs, wall = await drive(stream, reqs, (1, 6))
+    streams = await alone(stream, clear, reqs)
+    await engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return {"reqs": reqs, "alone": streams, "metrics": stream_metrics(recs, wall)}
+
+
+async def disagg_in_process(seed: int, phase: str, mode: str, kvq: str, layers: int,
+                            params, reference: dict) -> dict:
+    """A prefill engine and a decode engine on one card, the handoff through
+    the data plane's in-process registry (device tensors, no host copy),
+    driven through the decode side's disagg handler with the streamed
+    handoff; then the serial handoff of the longest prompt over TCP on
+    localhost and in process, for its per-page costs."""
+    from dynamo_tpu_torch.llm import kv_transfer
+    from dynamo_tpu_torch.llm.disagg import DisaggConfig, DisaggregatedRouter
+    from dynamo_tpu_torch.worker.disagg_handler import maybe_remote_prefill
+
+    model_cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=layers)
+    if layers != LAYERS:
+        params = dict(params, layers={k: v[:layers] for k, v in params["layers"].items()})
+    cfg = EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode=mode, kv_quant=kvq,
+                       num_pages=DISAGG_PAGES)
+    pre = TorchEngine(dataclasses.replace(cfg, role="prefill"), model_config=model_cfg,
+                      params=params, device="cuda")
+    dec = TorchEngine(cfg, model_config=model_cfg, params=params, device="cuda")
+    plane = kv_transfer.KvDataPlaneServer(host="127.0.0.1")
+    await plane.start()
+    pre.data_plane = plane
+    try:
+        await pre.warmup()
+        await dec.warmup()
+        client = EngineClient(pre)
+        router = DisaggregatedRouter(DisaggConfig(remote_prefill_threshold_tokens=DISAGG_THRESHOLD))
+
+        async def stream(r):
+            return maybe_remote_prefill(dec, client, router, remote(r), Context())
+
+        async def clear():
+            pre.clear_kv_blocks()
+            dec.clear_kv_blocks()
+
+        reqs = reference["reqs"]
+        await clear()
+        # counts to zero just before the main path is driven
+        reset_counts()
+        pre_b, dec_b = pre.stats(), dec.stats()
+        recs, wall = await drive(stream, reqs, (1, 6))
+        streams = await alone(stream, clear, reqs)
+        launches = {(name, fmt): n for name, k in KERNELS.items()
+                    for fmt, n in k["module"].launches_by_format.items()}
+        plain = dict(pa.plain_calls)
+        pre_a, dec_a = pre.stats(), dec.stats()
+
+        # the serial handoff of one prompt, over TCP and in process
+        probe = {}
+        req = reqs[PROBE_REQ]
+        for path in ("tcp", "in_process"):
+            await clear()
+            p_b, d_b = pre.stats(), dec.stats()
+            pre_req = dict(req, stop_conditions={"max_tokens": 1},
+                           disagg_params={"return_kv": True, "kv_pull": True})
+            first, kvp = [], None
+            async for item in pre.generate(pre_req, Context()):
+                data = item.get("data") or {}
+                first += data.get("token_ids") or []
+                kvp = data.get("kv_transfer_params") or kvp
+            if path == "tcp":
+                kv_transfer._LOCAL.pop((plane.addr, kvp["pull"]["transfer_id"]))
+            toks = list(first)
+            async for item in dec.generate_decode_from_pull(req, Context(), first[0], kvp["pull"]):
+                toks += (item.get("data") or {}).get("token_ids") or []
+            assert toks == reference["alone"][PROBE_REQ], f"{phase}: the {path} probe's stream differs"
+            probe[path] = handoff_costs(pre.stats(), p_b, dec.stats(), d_b)
+    finally:
+        for x in (pre, dec, plane):
+            await x.close()
+
+    for i, rec in enumerate(recs):
+        assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, (phase, i)
+        assert rec["remote"] is True, f"{phase}: request {i} was not prefilled remotely"
+    for i, (a, b) in enumerate(zip(reference["alone"], streams)):
+        assert a == b, f"{phase}: request {i} streams other tokens disaggregated than aggregated"
+    n = 2 * len(reqs)
+    assert stat_delta(dec_a, dec_b, "kv_pull_fallbacks") == 0, f"{phase}: a pull fell back"
+    assert stat_delta(dec_a, dec_b, "kv_pulls_completed") == n, phase
+    assert stat_delta(dec_a, dec_b, "disagg_streamed_handoffs") == n, phase
+    decode_kernel = "paged_decode_local" if mode == "local" else "paged_decode"
+    used = [(decode_kernel, kvq), ("prefill_attention", kvq)]
+    assert all(launches[u] > 0 for u in used), f"{phase}: a path kernel never launched: {launches}"
+    assert sum(launches.values()) == sum(launches[u] for u in used), \
+        f"{phase}: a kernel outside the path launched: {launches}"
+    assert not any(plain.values()), f"{phase}: plain attention ran on the card's main path: {plain}"
+    # per side: the prefill engine decoded nothing, the decode engine prefilled nothing
+    pre_dispatch = {t: dev_delta(pre_a, pre_b, t)[0] for t in ("prefill", "mixed", "block")}
+    dec_dispatch = {t: dev_delta(dec_a, dec_b, t)[0] for t in ("prefill", "mixed", "block")}
+    assert pre_dispatch["prefill"] > 0 and pre_dispatch["mixed"] == pre_dispatch["block"] == 0, \
+        (phase, pre_dispatch)
+    assert dec_dispatch["block"] > 0 and dec_dispatch["prefill"] == dec_dispatch["mixed"] == 0, \
+        (phase, dec_dispatch)
+    emit(
+        phase, model="llama-3.2-3b", layers=layers, dtype="bfloat16", decode_pool_mode=mode,
+        kv_quant=kvq, num_pages_each=DISAGG_PAGES, requests=len(reqs),
+        prompt_tokens=[len(r["token_ids"]) for r in reqs], max_tokens=MAX_TOKENS,
+        aggregated=reference["metrics"], disaggregated=stream_metrics(recs, wall),
+        streams_equal=len(streams), remote_prefills=sum(r["remote"] is True for r in recs),
+        kv_pulls_completed=stat_delta(dec_a, dec_b, "kv_pulls_completed"),
+        streamed_handoffs=stat_delta(dec_a, dec_b, "disagg_streamed_handoffs"),
+        first_token_before_last_chunk=stat_delta(dec_a, dec_b, "disagg_first_token_before_last_chunk"),
+        fallbacks=stat_delta(dec_a, dec_b, "kv_pull_fallbacks"),
+        handoff_in_run=handoff_costs(pre_a, pre_b, dec_a, dec_b, serial=False),
+        serial_probe={"prompt_tokens": len(reqs[PROBE_REQ]["token_ids"]), **probe},
+        dispatches={"prefill_side": pre_dispatch, "decode_side": dec_dispatch},
+        launches={f"{n}/{f}": c for (n, f), c in launches.items() if c}, plain_calls=plain,
+    )
+    del pre, dec
+    torch.cuda.empty_cache()
+    return launches
+
+
+async def latest_stats(sub) -> dict:
+    """The stats of the next message on a metrics topic (drains the queue
+    first, so the message was published after this call)."""
+    from dynamo_tpu_torch.runtime import codec
+
+    while await sub.get(timeout=0.01) is not None:
+        pass
+    return codec.unpack(await sub.get(timeout=10))["stats"]
+
+
+async def disagg_subprocess(seed: int, reference: dict) -> None:
+    """One aggregated `python -m dynamo_tpu_torch.worker` (`--num-pages` as
+    each of the pair), then `--role prefill` and `--role decode` on one card,
+    the handoff over TCP on localhost; each deployment driven with the same
+    mix through the port's PushRouter. The aggregated worker's run is the
+    baseline of the pair: both pay the wire, only the pair the handoff.
+    Kernel launches are read per worker from the stats each publishes."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from dynamo_tpu_torch.llm import kv_transfer
+    from dynamo_tpu_torch.llm.kv_router.publisher import METRICS_TOPIC_FMT
+    from dynamo_tpu_torch.runtime import DiscoveryServer, DistributedRuntime, PushRouter, RuntimeConfig
+
+    server = DiscoveryServer(port=0)
+    _, port = await server.start()
+    disc = f"tcp://127.0.0.1:{port}"
+    cfg = RuntimeConfig.from_settings()
+    cfg.discovery_endpoint = disc
+    drt = await DistributedRuntime.create(cfg)
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs, logs, rcs = {}, {}, {}
+    try:
+        cards = await drt.discovery.watch_prefix("v1/mdc/dynamo/backend/generate/")
+        subs = {role: await drt.discovery.subscribe(METRICS_TOPIC_FMT.format(
+            namespace="dynamo", component=comp)) for role, comp in (("prefill", "prefill"),
+                                                                   ("decode", "backend"))}
+
+        def spawn(name, *extra):
+            logs[name] = tempfile.NamedTemporaryFile(prefix=f"torch_{name}_", suffix=".log",
+                                                     delete=False)
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
+                 "--num-pages", str(DISAGG_PAGES), "--seed", str(seed), "--discovery", disc,
+                 *extra],
+                cwd=root, env=env, stdout=logs[name], stderr=subprocess.STDOUT,
+            )
+
+        def tail(name):
+            return Path(logs[name].name).read_text()[-3000:]
+
+        def check_alive():
+            for name, proc in procs.items():
+                if proc.poll() is not None:
+                    raise RuntimeError(f"the {name} worker exited {proc.poll()}: {tail(name)}")
+
+        async def registered(t0):
+            while True:
+                ev = await cards.get(timeout=1.0)
+                if ev is not None and ev.type == "put":
+                    return
+                check_alive()
+                if time.perf_counter() - t0 > 600:
+                    raise RuntimeError("the worker never registered")
+
+        async def reap(name):  # after its SIGTERM: it must drain and exit 0
+            proc = procs.pop(name)
+            rcs[name] = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
+            assert rcs[name] == 0, f"the {name} worker exited {rcs[name]} on SIGTERM: {tail(name)}"
+
+        async def clear_on(router):
+            items = [it async for it in await router.generate(
+                {"token_ids": [1], "annotations": ["clear_kv_blocks"]})]
+            assert items and items[0]["event"] == "clear_kv_blocks", items
+
+        reqs = reference["reqs"]
+        # the aggregated deployment of the same shape: one worker, the same
+        # pool, the same mix over the same wire
+        spawn("aggregated")
+        await registered(time.perf_counter())
+        agg_client = await drt.namespace("dynamo").component("backend").endpoint(
+            "generate").client()
+        await agg_client.wait_for_instances(30)
+        agg = PushRouter(agg_client)
+
+        async def agg_clear():
+            await clear_on(agg)
+
+        await agg_clear()
+        agg_recs, agg_wall = await drive(agg.generate, reqs, (1, 6))
+        agg_streams = await alone(agg.generate, agg_clear, reqs)
+        procs["aggregated"].send_signal(signal.SIGTERM)
+        await reap("aggregated")
+        for _ in range(100):  # the lease's keys go with the drain
+            if not agg_client.instance_ids():
+                break
+            await asyncio.sleep(0.05)
+        assert not agg_client.instance_ids(), "the drained aggregated worker is still registered"
+        await agg_client.close()
+
+        t0 = time.perf_counter()
+        spawn("prefill", "--role", "prefill", "--kv-data-plane-host", "127.0.0.1")
+        spawn("decode", "--role", "decode", "--disagg-threshold", str(DISAGG_THRESHOLD))
+        # ready: the decode card is up and the decode worker has heard the
+        # prefill worker's metrics (so it sees the prefill pool)
+        await registered(t0)
+        while "prefill queue watcher active" not in Path(logs["decode"].name).read_text():
+            check_alive()
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError(f"the decode worker never saw the prefill pool: {tail('decode')}")
+            await asyncio.sleep(0.2)
+        t_ready = time.perf_counter() - t0
+        clients = {role: await drt.namespace("dynamo").component(comp).endpoint("generate").client()
+                   for role, comp in (("prefill", "prefill"), ("decode", "backend"))}
+        for c in clients.values():
+            await c.wait_for_instances(30)
+        routers = {role: PushRouter(c) for role, c in clients.items()}
+
+        async def stream(r):
+            return await routers["decode"].generate(remote(r))
+
+        async def clear():
+            for r in routers.values():
+                await clear_on(r)
+
+        await clear()
+        before = {role: await latest_stats(sub) for role, sub in subs.items()}
+        recs, wall = await drive(stream, reqs, (1, 6))
+        streams = await alone(stream, clear, reqs)
+        after = {role: await latest_stats(sub) for role, sub in subs.items()}
+
+        # one serial pull across processes: the prefill worker stages the
+        # longest prompt (no streaming) and this process pulls it over TCP
+        # into host memory, for the socket's own rate
+        await clear()
+        p_b = await latest_stats(subs["prefill"])
+        pre_req = dict(reqs[PROBE_REQ], stop_conditions={"max_tokens": 1},
+                       disagg_params={"return_kv": True, "kv_pull": True})
+        kvp = None
+        async for item in await routers["prefill"].generate(pre_req):
+            kvp = (item.get("data") or {}).get("kv_transfer_params") or kvp
+        desc = kv_transfer.KvTransferDescriptor.from_dict(kvp["pull"])
+        got = 0
+
+        async def sink(off, n, k, v):
+            nonlocal got
+            got += k.nbytes + v.nbytes
+
+        t1 = time.perf_counter()
+        await kv_transfer.pull_kv(desc, sink)
+        pull_s = time.perf_counter() - t1
+        p_a = await latest_stats(subs["prefill"])
+        _, s_ex = dev_delta(p_a, p_b, "kv_extract")
+        cross = {"pages": desc.n_pages, "bytes": got,
+                 "extract_ms_per_page": round(1e3 * s_ex / desc.n_pages, 4),
+                 "pull_wall_ms_per_page": round(1e3 * pull_s / desc.n_pages, 4),
+                 "gb_per_s": round(got / pull_s / 1e9, 3)}
+        assert got == stat_delta(p_a, p_b, "kv_bytes_served") > 0, (got, p_a.get("kv_bytes_served"))
+        for c in clients.values():
+            await c.close()
+        for proc in procs.values():
+            proc.send_signal(signal.SIGTERM)
+        for role in list(procs):
+            await reap(role)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+            os.unlink(f.name)
+        await drt.close()
+        await server.stop()
+
+    for i, (rec, agg_rec) in enumerate(zip(recs, agg_recs)):
+        assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, i
+        assert agg_rec["finish"] == "length" and len(agg_rec["tokens"]) == MAX_TOKENS, i
+        assert rec["remote"] is True, f"disagg_subprocess: request {i} was not prefilled remotely"
+    for i, (a, b, c) in enumerate(zip(reference["alone"], streams, agg_streams)):
+        assert a == b, f"disagg_subprocess: request {i} streams other tokens than aggregated"
+        assert a == c, f"disagg_subprocess: request {i} streams other tokens from one worker"
+    pre_calls = calls_delta(after["prefill"], before["prefill"])
+    dec_calls = calls_delta(after["decode"], before["decode"])
+    assert pre_calls.get("kernels:prefill_attention/none", 0) > 0 and set(pre_calls) == {
+        "kernels:prefill_attention/none"}, f"prefill worker: {pre_calls}"
+    assert dec_calls.get("kernels:paged_decode/none", 0) > 0 and set(dec_calls) == {
+        "kernels:paged_decode/none"}, f"decode worker: {dec_calls}"
+    d, p = after["decode"], before["decode"]
+    n = 2 * len(reqs)
+    assert stat_delta(d, p, "kv_pulls_completed") == n and stat_delta(d, p, "kv_pull_fallbacks") == 0
+    emit(
+        "disagg_subprocess", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
+        decode_pool_mode="scatter", kv_quant="none", num_pages_each=DISAGG_PAGES,
+        requests=len(reqs), seconds_to_ready=round(t_ready, 2),
+        aggregated_in_process=reference["metrics"],
+        aggregated_one_worker=stream_metrics(agg_recs, agg_wall),
+        disaggregated=stream_metrics(recs, wall),
+        streams_equal=len(streams), remote_prefills=sum(r["remote"] is True for r in recs),
+        kv_pulls_completed=stat_delta(d, p, "kv_pulls_completed"),
+        streamed_handoffs=stat_delta(d, p, "disagg_streamed_handoffs"),
+        first_token_before_last_chunk=stat_delta(d, p, "disagg_first_token_before_last_chunk"),
+        fallbacks=stat_delta(d, p, "kv_pull_fallbacks"),
+        handoff_in_run=handoff_costs(after["prefill"], before["prefill"], d, p, serial=False),
+        serial_probe_cross_process={"prompt_tokens": len(reqs[PROBE_REQ]["token_ids"]), **cross},
+        launches={"prefill_worker": pre_calls, "decode_worker": dec_calls},
+        exit_codes=rcs,
+    )
+
+
+async def disagg_all(seed: int, params, reference: dict) -> dict:
+    """(scatter, bf16) at full depth against the worker phase's in-process
+    streams, then (local, int8) at 4 layers against its own aggregated run."""
+    launches = await disagg_in_process(seed, "disagg", "scatter", "none", LAYERS, params,
+                                       reference)
+    ref8 = await aggregated_reference(seed, "local", "int8", 4, params, reference["reqs"])
+    for key, n in (await disagg_in_process(seed, "disagg_local_int8", "local", "int8", 4,
+                                           params, ref8)).items():
+        launches[key] = launches.get(key, 0) + n
+    return launches
 
 
 # ---------------------------------------------------------------------- #
@@ -1481,16 +1957,26 @@ def main() -> None:
     launches = asyncio.run(serve_all(args.seed, params))
     seconds["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for key, n in asyncio.run(worker_all(args.seed, params)).items():
+    worker_launches, reference = asyncio.run(worker_all(args.seed, params))
+    for key, n in worker_launches.items():
         launches[key] = launches.get(key, 0) + n
-    # the subprocess worker sizes its pool from the card's free memory:
-    # this process lets go of what it holds first (engines that sat in
+    seconds["worker"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for key, n in asyncio.run(disagg_all(args.seed, params, reference)).items():
+        launches[key] = launches.get(key, 0) + n
+    seconds["disagg"] = time.perf_counter() - t0
+    # the subprocess workers size or place their pools on the card: this
+    # process lets go of what it holds first (engines that sat in
     # reference cycles with their tasks included)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     asyncio.run(worker_subprocess(args.seed))
-    seconds["worker"] = time.perf_counter() - t0
+    seconds["worker_subprocess"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    asyncio.run(disagg_subprocess(args.seed, reference))
+    seconds["disagg_subprocess"] = time.perf_counter() - t0
 
     line = {"kernels": [
         {

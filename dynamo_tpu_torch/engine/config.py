@@ -93,7 +93,9 @@ class EngineConfig:
     # commit newly-full generated blocks during the step loop instead of
     # only at slot release. None = on.
     incremental_commit: Optional[bool] = None
-    # serving role; disaggregated roles are not ported
+    # serving role: "decode"/"both" serve whole requests (and decode
+    # handed-off prompts), "prefill" answers disaggregated prefills; it is
+    # reported in stats() and set at start (morphing is not ported)
     role: str = "decode"
 
     @property
@@ -121,6 +123,6 @@ class EngineConfig:
             bad.append("kvbm_*")
         if self.lora_pool_slots:
             bad.append("lora_pool_slots")
-        if self.role not in ("decode", "both"):
+        if self.role not in ("decode", "both", "prefill"):
             bad.append("role")
         return bad

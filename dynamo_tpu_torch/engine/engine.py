@@ -29,13 +29,21 @@ and host reads are the expensive unit:
     preempted — its full blocks are committed (cheap resume via prefix
     cache), pages released, and the request requeued; it resumes decoding
     from its pending token without re-emitting.
+  * disaggregation: a request with `disagg_params.return_kv` is prefilled
+    only; its first token leaves with the prompt's KV pages — staged on the
+    engine's `data_plane` (`llm/kv_transfer.py`) behind a descriptor when it
+    has one and the caller can pull (`kv_pull`), else inline. The decode
+    side enters through `generate_decode_from_pull` / `_from_kv` /
+    `_resume`: it allocates the prompt's pages, injects the pulled chunks
+    while the batch keeps stepping, and decodes on from the prefill
+    worker's first token; any failed pull falls back to a local prefill.
 
 The KV pool is written in place. There is nothing to compile per shape, so
 `warmup()` only builds the kernel library and drives one dispatch of each
 kind. All device work runs on one executor thread so a blocking copy never
 stalls the event loop. Left out of this port so far (each raises a typed
-error when asked for): disaggregation, KVBM tiers, role morphing,
-speculative decoding, guided decoding, LoRA, multimodal, multi-host,
+error when asked for): KVBM tiers, role morphing, the multi-host shard
+handoff, speculative decoding, guided decoding, LoRA, multimodal, multi-host,
 quantized weights, tensor/pipeline/sequence parallelism. The KV pool may be
 stored at 8 or 4 bits (`kv_quant`): quantized on write, dequantized inside
 the attention kernels.
@@ -64,7 +72,17 @@ from ..llm.protocols import Annotated, LLMEngineOutput, PreprocessedRequest
 from ..llm.tokens import TokenBlockSequence
 from ..models import llama
 from ..ops.hopper_ragged_attention import ragged_tile_q
-from ..ops.kv_quant import QuantKV, kv_page_bytes, kv_write_all_layers, resolve_kv_quant
+from ..ops.paged_attention import attention_counts
+from ..ops.kv_quant import (
+    QuantKV,
+    device_pages,
+    extract_pages,
+    inject_pages,
+    kv_page_bytes,
+    kv_write_all_layers,
+    pack_pages,
+    resolve_kv_quant,
+)
 from ..runtime.engine import Context
 from .bucketing import next_pow2 as _next_pow2
 from .config import EngineConfig, UnsupportedConfigError
@@ -79,8 +97,11 @@ SCRATCH_PAGE = 0  # physical page 0 is the dump target for masked lanes
 
 class UnsupportedRequestError(ValueError):
     """A request field asks for a feature this port has not implemented
-    (multimodal parts, guided decoding, LoRA, disaggregation, embeddings).
-    Raised from `generate`, never silently dropped."""
+    (multimodal parts, guided decoding, LoRA, embeddings, unknown
+    `disagg_params` keys). Raised from `generate`, never silently dropped."""
+
+
+DISAGG_PARAMS = ("return_kv", "kv_pull", "kv_stream")  # the keys served
 
 
 @dataclass
@@ -109,6 +130,16 @@ class _Slot:
     admit_seq: int = 0  # admission order; preemption victims = newest
     done: bool = False
     resume_token: Optional[int] = None  # preempted: continue with this token
+    return_kv: bool = False  # prefill role: ship KV pages with the 1st token
+    kv_pull: bool = False  # prefill role: caller can pull via the data plane
+    kv_stream: bool = False  # prefill role: caller wants the EARLY-staged
+    # streamed handoff (descriptor at admission, chunks as pages commit)
+    kv_stream_tid: Optional[str] = None  # live streamed stage's transfer id
+    kv_stream_desc: Optional[dict] = None  # its descriptor (resent at emit)
+    preloaded: Optional[tuple] = None  # decode role: (first_tok, k, v, n_tokens)
+    pull_desc: Optional[dict] = None  # decode role: pull-path descriptor
+    first_token_fut: Optional[asyncio.Future] = None  # decode role, streamed
+    # handoff: resolves to the prefill-produced first token (None = abort)
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -127,6 +158,51 @@ class _Slot:
     sched_deadline: float = 0.0
     sched_skips: int = 0
     tenant: str = ""
+
+
+class StreamedPullHandle:
+    """Decode-side handle of an early (streamed) disagg pull: the pull starts
+    while the prefill worker is still computing, off its early descriptor.
+    The disagg handler resolves it with the prefill's first token once that
+    arrives (`set_first_token`), or abandons it (`abort`) when the prefill
+    stream fails or the transfer was re-staged under another id."""
+
+    def __init__(self, engine: "TorchEngine", slot: _Slot, transfer_id: str):
+        self._engine = engine
+        self._slot = slot
+        # the handle keeps its own reference to the future: the pull task
+        # detaches slot.first_token_fut before awaiting it, and a token or
+        # abort arriving after that must still resolve it
+        self._fut = slot.first_token_fut
+        self.transfer_id = transfer_id
+
+    def set_first_token(self, token: int):
+        if self._fut is not None and not self._fut.done():
+            self._fut.set_result(int(token))
+
+    def abort(self):
+        """Abandon the early pull: the slot releases and the handler falls
+        back to the serial or local path."""
+        eng, slot = self._engine, self._slot
+        if self._fut is not None and not self._fut.done():
+            self._fut.set_result(None)
+        slot.done = True
+        if slot.slot_idx >= 0 and eng.slots[slot.slot_idx] is slot:
+            eng._release_slot(slot)
+        eng._wake.set()
+
+    async def stream(self):
+        """The decode stream (same contract as engine.generate)."""
+        slot = self._slot
+        try:
+            while True:
+                item = await slot.queue.get()
+                if item is None:
+                    return
+                yield item
+        finally:
+            slot.done = True
+            self._engine._wake.set()
 
 
 @dataclass
@@ -287,6 +363,24 @@ class TorchEngine:
         )
         self._copy_stream = None  # side stream for device->host copies
         self._step_idx = None  # local block: one-element step tensors on the device
+        # disaggregation: the KV data plane this engine stages prefilled
+        # pages on (set by the worker; None = inline payloads), the pull
+        # tasks in flight, and the handoff's counters
+        self.data_plane = None
+        self._bg_tasks: set = set()
+        self.kv_pulls_completed = 0
+        self.kv_pages_pulled = 0
+        self.kv_pull_fallbacks = 0
+        self.kv_pull_s = 0.0  # wall seconds of completed pulls
+        self.kv_pages_extracted = 0
+        self.kv_pages_injected = 0
+        self.kv_format_mismatches = 0
+        # streamed handoff: decode-side overlap evidence, prefill-side stages
+        self.disagg_streamed_handoffs = 0
+        self.disagg_chunks_before_first_token = 0
+        self.disagg_first_token_before_last_chunk = 0
+        self.kv_streamed_stages = 0
+        self.kv_streamed_fallbacks = 0
 
     # ------------------------------------------------------------------ #
     # lifecycle / interface
@@ -299,6 +393,10 @@ class TorchEngine:
     async def close(self):
         self._closed = True
         self._wake.set()
+        for task in list(self._bg_tasks):
+            task.cancel()
+        if self._bg_tasks:
+            await asyncio.gather(*self._bg_tasks, return_exceptions=True)
         if self._step_task:
             self._step_task.cancel()
             try:
@@ -359,11 +457,13 @@ class TorchEngine:
     @staticmethod
     def _check_request(req: PreprocessedRequest) -> None:
         bad = [
-            name for name in ("multimodal", "guided", "lora_name", "disagg_params")
+            name for name in ("multimodal", "guided", "lora_name")
             if getattr(req, name)
         ]
         if req.embed:
             bad.append("embed")
+        bad += [f"disagg_params.{k}" for k in (req.disagg_params or {})
+                if k not in DISAGG_PARAMS]
         if bad:
             raise UnsupportedRequestError(
                 f"request fields not supported by the PyTorch/CUDA port yet: {bad}"
@@ -411,6 +511,12 @@ class TorchEngine:
         return slot
 
     async def generate(self, request: Any, context: Context) -> AsyncIterator[dict]:
+        async for item in self._drain(self._entry_slot(request, context)):
+            yield item
+
+    def _entry_slot(self, request: Any, context: Context) -> _Slot:
+        """Shared prologue of every entry: coerce and check the request,
+        build its slot."""
         req = (
             request
             if isinstance(request, PreprocessedRequest)
@@ -421,9 +527,21 @@ class TorchEngine:
             raise ValueError("request has no prompt tokens")
         self.start()
         slot = self._new_slot(req, context)
+        disagg = req.disagg_params or {}
+        slot.return_kv = bool(disagg.get("return_kv"))
+        slot.kv_pull = bool(disagg.get("kv_pull"))
+        slot.kv_stream = bool(disagg.get("kv_stream"))
+        return slot
+
+    def _enqueue(self, slot: _Slot) -> None:
         self.num_requests += 1
         self._waiting.append(slot)
         self._wake.set()
+
+    async def _drain(self, slot: _Slot) -> AsyncIterator[dict]:
+        """Shared epilogue: enqueue the slot and yield its stream until the
+        terminal None, marking it done on consumer teardown."""
+        self._enqueue(slot)
         try:
             while True:
                 item = await slot.queue.get()
@@ -433,6 +551,68 @@ class TorchEngine:
         finally:
             slot.done = True
             self._wake.set()
+
+    async def generate_decode_from_kv(
+        self, request: Any, context: Context, first_token: int,
+        kv_k_pages, kv_v_pages, n_tokens: int,
+    ) -> AsyncIterator[dict]:
+        """Disagg decode entry: continue decoding from remotely prefilled KV
+        that arrived inline (host pages in the wire layout). The first token
+        was produced by the prefill worker and is NOT re-emitted."""
+        slot = self._entry_slot(request, context)
+        slot.preloaded = (first_token, kv_k_pages, kv_v_pages, n_tokens)
+        async for item in self._drain(slot):
+            yield item
+
+    async def generate_decode_resume(
+        self, request: Any, context: Context, first_token: int
+    ) -> AsyncIterator[dict]:
+        """Disagg decode entry without usable KV (a kv_format mismatch):
+        prefill the prompt locally and resume from the prefill worker's
+        already-emitted first token — the fallback a failed pull takes,
+        entered before any foreign byte is read."""
+        slot = self._entry_slot(request, context)
+        slot.generated = 1
+        slot.last_token = first_token
+        slot.seq.append(first_token)
+        slot.resume_token = first_token
+        slot.prefill_pos = 0
+        async for item in self._drain(slot):
+            yield item
+
+    async def generate_decode_from_pull(
+        self, request: Any, context: Context, first_token: int, desc: dict
+    ) -> AsyncIterator[dict]:
+        """Disagg decode entry, pull path: the prefill worker staged the KV
+        on its data plane; the engine allocates the prompt's pages, then
+        injects chunks as they land while the decode batch keeps stepping.
+        Falls back to local prefill if the pull fails."""
+        slot = self._entry_slot(request, context)
+        slot.preloaded = (first_token, None, None, int(desc["n_tokens"]))
+        slot.pull_desc = desc
+        async for item in self._drain(slot):
+            yield item
+
+    def begin_streamed_pull(
+        self, request: Any, context: Context, desc: dict
+    ) -> StreamedPullHandle:
+        """Disagg decode, streamed handoff: start pulling KV chunks off the
+        prefill worker's EARLY descriptor while its prefill still runs, so
+        the transfer overlaps the peer's compute; the first decode step
+        dispatches once the last chunk and the first token have both
+        landed."""
+        slot = self._entry_slot(request, context)
+        slot.preloaded = (None, None, None, int(desc["n_tokens"]))
+        slot.pull_desc = dict(desc)
+        slot.first_token_fut = asyncio.get_running_loop().create_future()
+        self._enqueue(slot)
+        return StreamedPullHandle(self, slot, str(desc.get("transfer_id", "")))
+
+    async def morph(self, target_role: str, **_):
+        """Live role morphing is not ported yet: a role is set at start."""
+        raise UnsupportedConfigError(
+            "role morphing (JaxEngine.morph) is not supported by the PyTorch/CUDA port yet"
+        )
 
     def clear_kv_blocks(self) -> int:
         """Admin flush: evict every unreferenced prefix-cache page (emitting
@@ -459,6 +639,31 @@ class TorchEngine:
             **self.allocator.stats(),
         }
         out["num_preemptions"] = self.num_preemptions
+        out["engine_role"] = self.config.role
+        out["kv_format_mismatches"] = self.kv_format_mismatches
+        if self.data_plane is not None:
+            out["kv_transfers_served"] = self.data_plane.transfers_served
+            out["kv_bytes_served"] = self.data_plane.bytes_served
+        out["kv_pulls_completed"] = self.kv_pulls_completed
+        out["kv_pages_pulled"] = self.kv_pages_pulled
+        # port-side handoff counters: pulls that fell back to a local
+        # prefill, wall seconds of completed pulls, pages gathered for and
+        # written from the data plane (their device/host time is under
+        # dev_time's kv_extract / kv_inject)
+        out["kv_pull_fallbacks"] = self.kv_pull_fallbacks
+        out["kv_pull_s"] = round(self.kv_pull_s, 6)
+        out["kv_pages_extracted"] = self.kv_pages_extracted
+        out["kv_pages_injected"] = self.kv_pages_injected
+        out["disagg_streamed_handoffs"] = self.disagg_streamed_handoffs
+        out["disagg_chunks_before_first_token"] = self.disagg_chunks_before_first_token
+        out["disagg_first_token_before_last_chunk"] = self.disagg_first_token_before_last_chunk
+        out["disagg_streamed_handoff_ratio"] = round(
+            self.disagg_first_token_before_last_chunk / self.disagg_streamed_handoffs, 4
+        ) if self.disagg_streamed_handoffs else 0.0
+        out["kv_streamed_stages"] = self.kv_streamed_stages
+        out["kv_streamed_fallbacks"] = self.kv_streamed_fallbacks
+        # process-wide attention calls (kernel launches, plain calls)
+        out["attention_calls"] = attention_counts()
         out["kv_skip_ahead_blocks"] = self.prefix_skip_ahead_blocks
         out["emit_batches"] = self.emit_batches
         out["emit_tokens"] = self.emit_tokens
@@ -523,7 +728,7 @@ class TorchEngine:
         both prefill and decode are runnable, else prefill batch + decode
         block), then collect ALL host-needed values in one fetch."""
         self._admit_waiting()
-        progressed = False
+        progressed = await self._run_injections()
         dispatched = False
         if await self._dispatch_mixed():
             progressed = True
@@ -568,6 +773,18 @@ class TorchEngine:
 
     def _try_admit(self, slot: _Slot) -> bool:
         cfg = self.config
+        if slot.preloaded is not None:
+            # disagg decode role: all prompt pages fresh; the KV arrives by
+            # injection, not prefill
+            n_pages = (len(slot.prompt) + cfg.page_size - 1) // cfg.page_size
+            if not self.allocator.can_allocate(n_pages + 1):
+                return False
+            fresh = self.allocator.alloc_fresh(n_pages)
+            if fresh is None:
+                return False
+            self._seat(slot, fresh, [])
+            slot.prefill_pos = len(slot.prompt)
+            return True
         kv_prompt = slot.kv_prompt
         hashes = slot.seq.block_hashes()
         cached_pages = (
@@ -584,20 +801,28 @@ class TorchEngine:
         if fresh is None:
             self.allocator.release(cached_pages, hashes[:n_cached])
             return False
-        idx = self._free_slots.pop()
-        slot.slot_idx = idx
-        slot.pages = cached_pages + fresh
-        slot.committed_hashes = hashes[:n_cached]
+        self._seat(slot, cached_pages + fresh, hashes[:n_cached])
         slot.prefill_pos = min(n_cached * cfg.page_size, len(kv_prompt))
         # if the whole prompt is cached, recompute the last token (need its
         # logits) — back off one position
         if slot.prefill_pos >= len(kv_prompt):
             slot.prefill_pos = len(kv_prompt) - 1
+        self.scheduler.on_admit(slot)
+        if slot.kv_pull and slot.kv_stream and self.data_plane is not None:
+            # streamed handoff: stage NOW, before any prefill runs — the
+            # decode worker pulls chunks while this engine computes
+            self._stage_streamed_kv(slot)
+        return True
+
+    def _seat(self, slot: _Slot, pages: List[int], committed: List[int]) -> None:
+        """Give an admitted slot a lane, its pages and the lane's host state."""
+        idx = self._free_slots.pop()
+        slot.slot_idx = idx
+        slot.pages = pages
+        slot.committed_hashes = committed
         self.slots[idx] = slot
-        # host state
         self.page_tables[idx, :] = SCRATCH_PAGE
-        phys = [p + 1 for p in slot.pages]  # +1: scratch shift
-        self.page_tables[idx, : len(phys)] = phys
+        self.page_tables[idx, : len(pages)] = [p + 1 for p in pages]  # +1: scratch shift
         self.seq_lens[idx] = 0
         self.temps[idx] = slot.temperature
         self.top_ks[idx] = slot.top_k
@@ -608,8 +833,6 @@ class TorchEngine:
         self.repetition[idx] = slot.repetition_penalty
         self._fill_recent(idx, slot)
         slot.admit_seq = self._admit_counter = self._admit_counter + 1
-        self.scheduler.on_admit(slot)
-        return True
 
     # -- device helpers -------------------------------------------------- #
 
@@ -660,9 +883,9 @@ class TorchEngine:
             self._account(tag, shape, start.elapsed_time(end) / 1000.0)
 
     async def _run_on_device(self, fn, *args, tag: str = None,
-                             shape: Optional[tuple] = None):
+                             shape: Optional[tuple] = None, host_clock: bool = False):
         if tag is not None:
-            fn = self._timed(fn, tag, shape)
+            fn = self._timed(fn, tag, shape, host_clock=host_clock)
         return await asyncio.get_running_loop().run_in_executor(
             self._device_exec, fn, *args
         )
@@ -898,6 +1121,7 @@ class TorchEngine:
         s.pages[n_known : n_known + len(extra)] = extra
         self.allocator.release(old, [])  # fresh, un-hashed -> free list
         s.committed_hashes.extend(hashes[n_known : n_known + len(extra)])
+        self._advance_kv_stream(s)
         s.prefill_pos = (n_known + len(extra)) * cfg.page_size
         if s.prefill_pos >= len(s.kv_prompt):
             # whole prompt now cached: recompute the last token for logits
@@ -1094,6 +1318,377 @@ class TorchEngine:
             parent = slot.committed_hashes[-1] if slot.committed_hashes else None
             self.allocator.commit_hashes(pages, new_hashes, token_blocks, parent)
             slot.committed_hashes.extend(new_hashes)
+            self._advance_kv_stream(slot)
+
+    # -- disaggregation: KV handoff ---------------------------------------- #
+
+    def _kv_wire_meta(self):
+        """(page_shape, dtype_name) as KV pages travel on the wire: the fp
+        [L, ps, KH, D] layout, or the packed uint8 [L, PAGE_BYTES] rows of a
+        quantized pool. Every descriptor/payload carries kv_format beside
+        this, so a mixed-precision pairing fails typed."""
+        from ..llm.kv_transfer import dtype_name
+
+        c, cfg = self.model_config, self.config
+        if cfg.kv_quant != "none":
+            pb = kv_page_bytes(cfg.page_size, c.num_kv_heads, c.head_dim,
+                               c.dtype, cfg.kv_quant)
+            return [c.num_layers, pb], "uint8"
+        return [c.num_layers, cfg.page_size, c.num_kv_heads, c.head_dim], dtype_name(c.dtype)
+
+    @torch.no_grad()
+    def _dev_extract(self, page_ids: np.ndarray, host: bool = True):
+        """Gather the pages `page_ids` (physical ids) of every layer in
+        their wire layout (`ops/kv_quant.py:pack_pages`). `host=False`
+        leaves them on the device (the in-process path); on CUDA the host
+        copy lands in pinned memory on the side copy stream."""
+        ids = torch.from_numpy(np.asarray(page_ids, np.int64)).to(self.device)
+        k = pack_pages(extract_pages(self.kv_k, ids))
+        v = pack_pages(extract_pages(self.kv_v, ids))
+        self.kv_pages_extracted += len(page_ids)
+        if not host or not self._on_cuda:
+            return k, v
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        ready = torch.cuda.Event()
+        ready.record()
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(ready)
+            out = []
+            for x in (k, v):
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                out.append(h)
+        self._copy_stream.synchronize()
+        return out[0], out[1]
+
+    @torch.no_grad()
+    def _dev_inject(self, page_ids: np.ndarray, k, v):
+        """Write pulled pages (wire layout, host or device tensors) into the
+        pool at `page_ids` (physical ids)."""
+        c, cfg = self.model_config, self.config
+        ids = torch.from_numpy(np.asarray(page_ids, np.int64)).to(self.device)
+        for store, data in ((self.kv_k, k), (self.kv_v, v)):
+            if isinstance(data, np.ndarray):
+                data = torch.from_numpy(data)
+            inject_pages(store, ids, device_pages(
+                data, cfg.kv_quant, cfg.page_size, c.num_kv_heads, c.head_dim,
+                device=self.device))
+        self.kv_pages_injected += len(page_ids)
+
+    async def _emit_prefill_result(self, slot: _Slot, first_token: int,
+                                   first_lp: Optional[float] = None,
+                                   first_top: Optional[dict] = None):
+        """Prefill role: the prompt's KV is computed. Publish its full pages
+        to this engine's own prefix cache, then answer with the first token
+        and the KV — a data-plane descriptor (pages stay pinned until the
+        pull ends) or, without a data plane, the pages inline."""
+        from ..llm.disagg import pack_kv_payload
+
+        cfg = self.config
+        self._commit_blocks(slot)
+        if slot.done or slot.context.is_stopped():
+            self._emit_finish(slot, "cancelled")
+            self._release_slot(slot)
+            return
+        if slot.kv_stream_tid is not None and self.data_plane is not None:
+            # the streamed stage is alive: publish the last page and the
+            # first token under the same transfer (the decode worker has
+            # been pulling since admission)
+            self._finish_streamed_kv(slot, first_token, first_lp, first_top)
+            return
+        # an early stage that died mid-prefill (reaped, severed) leaves a
+        # fresh serial stage below; the decode side retries off it
+        slot.kv_stream_desc = None
+        n_prompt_pages = (len(slot.prompt) + cfg.page_size - 1) // cfg.page_size
+        # +1: the scratch shift; on the wire, pages are the slot's in order
+        page_ids = np.array([p + 1 for p in slot.pages[:n_prompt_pages]], np.int32)
+        if slot.kv_pull and self.data_plane is not None:
+            params = {"pull": self._stage_kv_pull(slot, page_ids).to_dict()}
+        else:
+            k, v = await self._run_on_device(
+                partial(self._dev_extract, page_ids),
+                tag="kv_extract", host_clock=True,
+            )
+            params = pack_kv_payload(k, v, len(slot.prompt), cfg.page_size,
+                                     kv_format=cfg.kv_quant)
+        if not slot.done:
+            out = LLMEngineOutput(
+                token_ids=[first_token],
+                log_probs=[first_lp]
+                if (slot.want_logprobs and first_lp is not None) else None,
+                top_logprobs=[first_top] if first_top else None,
+                finish_reason="remote_prefill_done",
+                kv_transfer_params=params,
+            ).to_dict()
+            slot.queue.put_nowait(Annotated(data=out).to_dict())
+            slot.queue.put_nowait(None)
+            slot.done = True
+        if "pull" not in params:
+            self._release_slot(slot)
+        # else NOT released here: pages stay pinned until on_done (pull or TTL)
+
+    def _stage_kv_pull(self, slot: _Slot, page_ids: np.ndarray):
+        """Pin the finished prefill's pages on the data plane; returns the
+        descriptor. Chunks are gathered lazily as the decode worker pulls,
+        so the gather overlaps the network, and in process they never leave
+        the device."""
+        cfg = self.config
+        wire_shape, dtype_name = self._kv_wire_meta()
+
+        async def extract(off: int, n: int, device: bool):
+            return await self._run_on_device(
+                partial(self._dev_extract, page_ids[off : off + n], not device),
+                tag="kv_extract", host_clock=not device,
+            )
+
+        def on_done(ok: bool):
+            if not ok:
+                logger.warning("kv pull for %s abandoned; releasing pages", slot.request_id)
+            self._release_slot(slot)
+
+        return self.data_plane.stage(
+            n_pages=int(len(page_ids)), n_tokens=len(slot.prompt),
+            page_size=cfg.page_size, page_shape=wire_shape, dtype=dtype_name,
+            kv_format=cfg.kv_quant, extract=extract, on_done=on_done,
+        )
+
+    def _stage_streamed_kv(self, slot: _Slot):
+        """Early-staged streamed handoff: stage the prompt's pages AT
+        ADMISSION and ship the descriptor at once; chunks become pullable
+        as prefill commits pages, so the decode worker's transfer overlaps
+        this engine's compute. The last prompt page is held back until the
+        first token (its tail's KV lands with the final chunk), so the pull
+        can only complete once the token is on the wire. A transfer that
+        dies mid-stream falls back to a fresh serial stage at emit."""
+        cfg = self.config
+        n_prompt_pages = (len(slot.prompt) + cfg.page_size - 1) // cfg.page_size
+        if n_prompt_pages <= 0:
+            return
+
+        async def extract(off: int, n: int, device: bool):
+            # slot.pages is read LIVE: _try_skip_ahead may splice cached
+            # pages in mid-prefill (same contents, other physical ids)
+            ids = np.array([p + 1 for p in slot.pages[off : off + n]], np.int32)
+            return await self._run_on_device(
+                partial(self._dev_extract, ids, not device),
+                tag="kv_extract", host_clock=not device,
+            )
+
+        def on_done(ok: bool):
+            if slot.kv_stream_tid is None:
+                return  # engine-initiated abort (release)
+            slot.kv_stream_tid = None
+            if slot.done:
+                # prefill finished and the pull settled: pages release here,
+                # as the serial stage's on_done does
+                if not ok:
+                    logger.warning("streamed kv pull for %s abandoned; releasing pages",
+                                   slot.request_id)
+                self._release_slot(slot)
+            elif not ok:
+                # reaped or severed while prefill still runs: emit stages a
+                # fresh serial transfer instead
+                self.kv_streamed_fallbacks += 1
+
+        wire_shape, dtype_name = self._kv_wire_meta()
+        desc = self.data_plane.stage(
+            n_pages=n_prompt_pages, n_tokens=len(slot.prompt), page_size=cfg.page_size,
+            page_shape=wire_shape, dtype=dtype_name, kv_format=cfg.kv_quant,
+            extract=extract, on_done=on_done,
+            chunk_pages=max(cfg.max_prefill_chunk // cfg.page_size, 1),
+            streamed=True,
+            available_pages=min(len(slot.committed_hashes), n_prompt_pages - 1),
+        )
+        slot.kv_stream_tid = desc.transfer_id
+        slot.kv_stream_desc = desc.to_dict()
+        self.kv_streamed_stages += 1
+        # the EARLY descriptor (no token yet): the decode worker starts
+        # pulling at once
+        out = LLMEngineOutput(kv_transfer_params={"pull": slot.kv_stream_desc}).to_dict()
+        slot.queue.put_nowait(Annotated(data=out).to_dict())
+
+    def _advance_kv_stream(self, slot: _Slot):
+        """Streamed handoff watermark: every committed prompt page is
+        pullable, except the last, which waits for the first token."""
+        if slot.kv_stream_tid is None or self.data_plane is None:
+            return
+        n_prompt_pages = (len(slot.prompt) + self.config.page_size - 1) // self.config.page_size
+        self.data_plane.advance_streamed(
+            slot.kv_stream_tid, min(len(slot.committed_hashes), n_prompt_pages - 1))
+
+    def _finish_streamed_kv(self, slot: _Slot, first_token: int,
+                            first_lp: Optional[float] = None,
+                            first_top: Optional[dict] = None):
+        """Prefill finished under a live streamed stage: send the first
+        token with the same descriptor, then publish the final watermark.
+        Pages stay pinned until the pull ends (on_done)."""
+        n_prompt_pages = (len(slot.prompt) + self.config.page_size - 1) // self.config.page_size
+        out = LLMEngineOutput(
+            token_ids=[first_token],
+            log_probs=[first_lp]
+            if (slot.want_logprobs and first_lp is not None) else None,
+            top_logprobs=[first_top] if first_top else None,
+            finish_reason="remote_prefill_done",
+            kv_transfer_params={"pull": slot.kv_stream_desc},
+        ).to_dict()
+        slot.queue.put_nowait(Annotated(data=out).to_dict())
+        slot.queue.put_nowait(None)
+        slot.done = True
+        # watermark LAST: once it reaches n_pages the pull can complete and
+        # on_done releases the slot, so done/queue state must be settled
+        self.data_plane.advance_streamed(slot.kv_stream_tid, n_prompt_pages)
+
+    async def _run_injections(self) -> bool:
+        did = False
+        for slot in list(self.slots):
+            if slot is not None and slot.preloaded is not None:
+                await self._inject_preloaded(slot)
+                did = True
+        return did
+
+    async def _inject_preloaded(self, slot: _Slot):
+        """Decode role: write transferred KV pages into our pool and enter
+        the decode batch as if the prompt had been prefilled here."""
+        first_token, k, v, _ = slot.preloaded
+        slot.preloaded = None
+        if slot.pull_desc is not None:
+            # pull path: chunks stream in a background task, the decode
+            # batch keeps stepping while later pages are in flight
+            desc, slot.pull_desc = slot.pull_desc, None
+            task = asyncio.create_task(self._pull_kv_task(slot, desc, first_token))
+            self._bg_tasks.add(task)
+            task.add_done_callback(self._bg_tasks.discard)
+            return
+        page_ids = np.array([p + 1 for p in slot.pages], np.int32)
+        await self._run_on_device(partial(self._dev_inject, page_ids, k, v), tag="kv_inject")
+        self._activate_transferred(slot, first_token)
+
+    def _activate_transferred(self, slot: _Slot, first_token: int):
+        """All prompt KV is in our pages: publish them to the prefix cache
+        (the same KV events a local prefill sends) and enter the decode
+        batch. The first token was emitted by the prefill worker."""
+        self._commit_blocks(slot)
+        slot.prefill_pos = len(slot.prompt)
+        slot.generated = 1
+        slot.last_token = first_token
+        slot.seq.append(first_token)
+        self.tokens[slot.slot_idx] = first_token
+        self.seq_lens[slot.slot_idx] = len(slot.prompt) + 1
+        self._fill_recent(slot.slot_idx, slot)
+        self._mark_lane_dirty(slot.slot_idx)
+        self._maybe_finish(slot, first_token)
+
+    def _slot_live(self, slot: _Slot) -> bool:
+        return (not slot.done and not self._closed and slot.slot_idx >= 0
+                and self.slots[slot.slot_idx] is slot)
+
+    async def _await_first_token(self, slot: _Slot) -> Optional[int]:
+        """Streamed handoff: the prefill's first token as the handler
+        delivers it (None = the handler abandoned the pull)."""
+        fut, slot.first_token_fut = slot.first_token_fut, None
+        if fut is None:
+            return None
+        return await fut
+
+    def _abandon_pull(self, slot: _Slot):
+        """The consumer left (or the engine closes) while the slot's pull
+        ran: no step-loop path owns a slot that is neither prefilling nor
+        decoding, so its pages are released here."""
+        self._emit_finish(slot, "cancelled")
+        if slot.slot_idx >= 0 and self.slots[slot.slot_idx] is slot:
+            self._release_slot(slot)
+        self._wake.set()
+
+    async def _pull_kv_task(self, slot: _Slot, desc_dict: dict,
+                            first_token: Optional[int]):
+        """Stream KV chunks from the staging prefill worker, injecting each
+        as it lands. Any failure — a format mismatch (typed, before a byte
+        moves), an unreachable or dead peer, a severed stream, a bad frame —
+        falls back to computing the prompt KV locally on this engine's
+        device, resuming from the already-emitted first token.
+        `first_token=None` is the streamed handoff: the pull started off the
+        early descriptor and the token arrives through slot.first_token_fut
+        (None = the handler abandoned the pull)."""
+        from ..llm.kv_transfer import KvFormatError, KvTransferDescriptor, pull_kv
+
+        desc = KvTransferDescriptor.from_dict(desc_dict)
+        phys = np.array([p + 1 for p in slot.pages], np.int32)
+        streamed = slot.first_token_fut is not None
+        chunks_before_first = 0
+        first_before_last_chunk = False
+
+        async def inject(off: int, n: int, k, v):
+            nonlocal chunks_before_first, first_before_last_chunk
+            if not self._slot_live(slot):
+                raise asyncio.CancelledError("slot released mid-pull")
+            fut = slot.first_token_fut
+            if fut is not None:
+                # overlap evidence: its final value says whether the first
+                # token was already here when the LAST chunk landed
+                first_before_last_chunk = fut.done()
+                if not fut.done():
+                    chunks_before_first += 1
+            await self._run_on_device(
+                partial(self._dev_inject, phys[off : off + n], k, v), tag="kv_inject")
+
+        t0 = time.perf_counter()
+        try:
+            if desc.kv_format != self.config.kv_quant:
+                self.kv_format_mismatches += 1
+                raise KvFormatError(
+                    f"peer stages kv_format={desc.kv_format!r}, this worker "
+                    f"runs {self.config.kv_quant!r}")
+            if desc.shards is not None:
+                raise UnsupportedConfigError(
+                    "multi-host shard descriptors are not supported by the "
+                    "PyTorch/CUDA port yet")
+            if desc.n_pages != len(phys):
+                raise ValueError(
+                    f"descriptor holds {desc.n_pages} pages, the prompt needs {len(phys)}")
+            await pull_kv(desc, inject)
+        except asyncio.CancelledError:
+            # slot released mid-pull or engine closing: nothing to fall
+            # back to
+            self._abandon_pull(slot)
+            raise
+        except Exception as e:  # noqa: BLE001 — any pull failure -> local prefill
+            if streamed:
+                first_token = await self._await_first_token(slot)
+                if first_token is None:
+                    self._abandon_pull(slot)
+                    return
+            if not self._slot_live(slot):
+                self._abandon_pull(slot)
+                return
+            logger.warning("kv pull for %s failed (%s: %s); prefilling locally",
+                           slot.request_id, type(e).__name__, e)
+            self.kv_pull_fallbacks += 1
+            slot.generated = 1
+            slot.last_token = first_token
+            slot.seq.append(first_token)
+            slot.resume_token = first_token
+            slot.prefill_pos = 0
+            self._wake.set()
+            return
+        pull_s = time.perf_counter() - t0
+        if streamed:
+            first_token = await self._await_first_token(slot)
+            if first_token is None:
+                self._abandon_pull(slot)
+                return
+            self.disagg_streamed_handoffs += 1
+            self.disagg_chunks_before_first_token += chunks_before_first
+            if first_before_last_chunk:
+                self.disagg_first_token_before_last_chunk += 1
+        if not self._slot_live(slot):
+            self._abandon_pull(slot)
+            return
+        self.kv_pull_s += pull_s
+        self.kv_pulls_completed += 1
+        self.kv_pages_pulled += int(desc.n_pages)
+        self._activate_transferred(slot, first_token)
+        self._wake.set()
 
     # -- decode ---------------------------------------------------------- #
 
@@ -1170,7 +1765,8 @@ class TorchEngine:
         if self._waiting and self._free_slots:
             return True
         return any(
-            s is not None and s.prefill_pos < len(s.kv_prompt) and not s.done
+            s is not None and s.prefill_pos < len(s.kv_prompt)
+            and s.preloaded is None and not s.done
             for s in self.slots
         )
 
@@ -1475,10 +2071,13 @@ class TorchEngine:
             for slot, lane in p["done"]:
                 if slot.slot_idx < 0 or self.slots[slot.slot_idx] is not slot:
                     continue  # released meanwhile (cancel)
-                self._finish_prefill(
-                    slot, int(first_toks[lane]), float(first_lps[lane]),
-                    self._top_entry(slot, first_tids[lane], first_tlps[lane]),
-                )
+                tok = int(first_toks[lane])
+                lp = float(first_lps[lane])
+                top = self._top_entry(slot, first_tids[lane], first_tlps[lane])
+                if slot.return_kv:
+                    await self._emit_prefill_result(slot, tok, lp, top)
+                else:
+                    self._finish_prefill(slot, tok, lp, top)
             # mixed-step decode rows: each active lane advanced ONE token
             # inside the fused dispatch — emit it and re-sync the (stale)
             # device decode carry for this lane via the patch path
@@ -1639,6 +2238,12 @@ class TorchEngine:
             slot.done = True
 
     def _release_slot(self, slot: _Slot):
+        if slot.kv_stream_tid is not None and self.data_plane is not None:
+            # a streamed stage still live while its pages are released
+            # (cancel / engine failure): fail the transfer so the pulling
+            # peer aborts instead of reading recycled pages
+            tid, slot.kv_stream_tid = slot.kv_stream_tid, None
+            self.data_plane.abort_streamed(tid)
         if slot.slot_idx >= 0 and self.slots[slot.slot_idx] is slot:
             self.scheduler.on_release(slot)
             # commit any full generated blocks before release so decode KV is

@@ -3,9 +3,10 @@ quantized (int8/int4) page format.
 
 Port of `dynamo_tpu/ops/kv_quant.py` (`resolve_kv_quant`, `QuantKV`,
 `alloc_kv_store`, `kv_layer`, `kv_page_size`, `kernel_operands`,
-`kv_write`, `kv_write_all_layers`, `gather_dequant`). The host/wire packing
-(`host_pack_pages` and friends) belongs to the KVBM/disaggregation path and
-is not ported.
+`kv_write`, `kv_write_all_layers`, `gather_dequant`, and the host/wire
+packing `host_pack_pages`, `host_unpack_pages`, `device_pages`), with the
+engine's page gather and scatter (`extract_pages` / `inject_pages`, jitted
+in the reference's `engine/engine.py`) beside them.
 
 A full-precision store is one tensor [L, pages, page_size, KH, D]. A
 quantized store is a `QuantKV`:
@@ -34,7 +35,7 @@ Quantize-on-write (`kv_write`, the reference's discipline bit for bit):
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -260,3 +261,88 @@ def gather_dequant(layer, tables: torch.Tensor, dtype=torch.float32) -> torch.Te
         q = unpack_int4(q, axis=-3)
     s = layer.s[idx]  # [..., P, KH]
     return (q.float() * s[..., None, :, None]).to(dtype)
+
+
+# ---------------------------------------------------------------------- #
+# page gather / scatter and the host/wire page layout (disagg handoff)
+# ---------------------------------------------------------------------- #
+
+
+def extract_pages(store, page_ids: torch.Tensor):
+    """The pages `page_ids` (physical ids) of every layer, as a new store
+    of the same kind in the `[L, n, ...]` layout: `store[:, page_ids]`,
+    with a QuantKV's scales gathered beside their pages."""
+    ids = page_ids.long()
+    if isinstance(store, QuantKV):
+        return QuantKV(store.q.index_select(1, ids), store.s.index_select(1, ids),
+                       store.bits, store.page_size)
+    return store.index_select(1, ids)
+
+
+def inject_pages(store, page_ids: torch.Tensor, data) -> None:
+    """In place: `store[:, page_ids] = data` for every layer (the inverse of
+    extract_pages; `data` on the store's device)."""
+    ids = page_ids.long()
+    if isinstance(store, QuantKV):
+        store.q.index_copy_(1, ids, data.q)
+        store.s.index_copy_(1, ids, data.s)
+    else:
+        store.index_copy_(1, ids, data.to(store.dtype))
+
+
+def pack_pages(x) -> torch.Tensor:
+    """Extracted pages in their wire layout, on x's device: a fp tensor
+    unchanged; a QuantKV as one uint8 row per (layer, page): q bytes then
+    the f32 scale bytes, shape [L, n, PB] (PB = kv_page_bytes)."""
+    if not isinstance(x, QuantKV):
+        return x
+    L, n = x.q.shape[0], x.q.shape[1]
+    qb = x.q.contiguous().view(torch.uint8).reshape(L, n, -1)
+    sb = x.s.to(torch.float32).contiguous().view(torch.uint8).reshape(L, n, -1)
+    return torch.cat([qb, sb], dim=-1)
+
+
+def host_pack_pages(x) -> torch.Tensor:
+    """Device->host for extracted pages in the `[L, n, ...]` layout: the
+    rows of pack_pages on the CPU. The reference returns numpy; a bf16
+    page has no numpy type here, so this returns a CPU tensor holding the
+    same bytes."""
+    return pack_pages(x).cpu()
+
+
+def host_unpack_pages(arr: torch.Tensor, mode: str, page_size: int,
+                      num_kv_heads: int, head_dim: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of host_pack_pages for a packed [..., PB] uint8 tensor (any
+    device): returns (q [..., ps_eff, KH, D] int8, s [..., KH] f32)."""
+    bits = kv_quant_bits(mode)
+    ps_eff = _ps_eff(page_size, bits)
+    qbytes = ps_eff * num_kv_heads * head_dim
+    lead = tuple(arr.shape[:-1])
+    if arr.shape[-1] != qbytes + 4 * num_kv_heads:
+        raise ValueError(
+            f"packed KV page has {arr.shape[-1]} bytes; {mode} layout "
+            f"expects {qbytes + 4 * num_kv_heads}"
+        )
+    q = arr[..., :qbytes].contiguous().view(torch.int8).reshape(
+        *lead, ps_eff, num_kv_heads, head_dim)
+    s = arr[..., qbytes:].contiguous().view(torch.float32).reshape(*lead, num_kv_heads)
+    return q, s
+
+
+def device_pages(arr: torch.Tensor, mode: str, page_size: int, num_kv_heads: int,
+                 head_dim: int, device=None):
+    """Wire pages -> the inject operand on `device` (default: arr's): a fp
+    tensor as it is; packed uint8 rows unpacked into a QuantKV in the same
+    `[L, n, ...]` layout extract_pages produced."""
+    if device is not None and arr.device != torch.device(device):
+        if arr.device.type == "cpu" and torch.device(device).type == "cuda":
+            # staged through pinned memory so the copy runs asynchronously
+            arr = arr.pin_memory().to(device, non_blocking=True)
+        else:
+            arr = arr.to(device)
+    bits = kv_quant_bits(mode)
+    if bits == 0:
+        return arr
+    q, s = host_unpack_pages(arr, mode, page_size, num_kv_heads, head_dim)
+    return QuantKV(q, s, bits, page_size)

@@ -18,6 +18,12 @@ from __future__ import annotations
 
 import torch
 
+from . import (
+    hopper_paged_attention,
+    hopper_paged_attention_local,
+    hopper_prefill_attention,
+    hopper_ragged_attention,
+)
 from .hopper_paged_attention import paged_attention_decode_hopper
 from .hopper_paged_attention_local import paged_attention_decode_local_hopper
 from .hopper_prefill_attention import prefill_attention_batched_hopper
@@ -29,13 +35,31 @@ __all__ = [
     "paged_attention_decode_mixed", "paged_attention_decode_mixed_plain",
     "prefill_attention_batched", "prefill_attention_batched_plain",
     "ragged_attention", "ragged_attention_plain", "ragged_tile_q",
-    "plain_calls",
+    "plain_calls", "attention_counts",
 ]
 
 NEG_INF = -1e30
 
 #: calls of each plain version, so a run on the card can show it made none
 plain_calls = {"decode": 0, "decode_mixed": 0, "prefill": 0, "ragged": 0}
+
+_KERNELS = {
+    "paged_decode": hopper_paged_attention,
+    "paged_decode_local": hopper_paged_attention_local,
+    "prefill_attention": hopper_prefill_attention,
+    "ragged_attention": hopper_ragged_attention,
+}
+
+
+def attention_counts() -> dict:
+    """This process's attention calls so far: kernel launches by
+    "kernel/format" (nonzero only) and plain-version calls by op — what a
+    worker publishes in its stats, so a run shows which path served it."""
+    return {
+        "kernels": {f"{name}/{fmt}": n for name, mod in _KERNELS.items()
+                    for fmt, n in mod.launches_by_format.items() if n},
+        "plain": {op: n for op, n in plain_calls.items() if n},
+    }
 
 
 def _ctx_dtype(layer, q: torch.Tensor) -> torch.dtype:

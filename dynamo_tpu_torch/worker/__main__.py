@@ -1,20 +1,29 @@
 """PyTorch/CUDA engine worker: `python -m dynamo_tpu_torch.worker`.
 
-Port of `dynamo_tpu/jax_worker/__main__.py`, aggregated role: build the
-engine, warm it up BEFORE joining the control plane, create the
-`DistributedRuntime`, publish KV events (`--kv-events`) and engine load
-metrics, serve `generate`, register the model card, then wait for
-SIGTERM/SIGINT and drain gracefully. It registers on the same discovery
-service and speaks the same frames as a JAX worker, so the unmodified
-`python -m dynamo_tpu.frontend` routes to it.
+Port of `dynamo_tpu/jax_worker/__main__.py`: build the engine, warm it up
+BEFORE joining the control plane, start the KV data plane (prefill and
+aggregated roles), create the `DistributedRuntime`, publish KV events
+(`--kv-events`) and engine load metrics, serve `generate`, register the
+model card (not on prefill workers: the prefill pool is reached through
+decode workers only), then wait for SIGTERM/SIGINT and drain gracefully.
+It registers on the same discovery service and speaks the same frames —
+the KV data plane's too — as a JAX worker, so the unmodified
+`python -m dynamo_tpu.frontend` routes to it and a JAX worker can stand
+on the other side of a prefill/decode handoff.
+
+Roles: `aggregated` (default) serves whole requests; `--role prefill`
+serves under `--prefill-component` and answers disaggregated prefills
+(`disagg_params`) with a data-plane descriptor; `--role decode` serves
+under `--component`, and sends prompts with more than
+`--disagg-threshold` uncached tokens to the prefill pool
+(`worker/disagg_handler.py`), watching its published queue depth.
 
 Flags keep the reference's names. Those whose feature the port lacks
 (parallelism, multi-host, speculative decoding, LoRA, weight quantization,
-checkpoint loading, KVBM tiers, the disaggregated roles with their remote
-prefill and morph endpoints, the KV data plane) raise
-`UnsupportedConfigError` when set. `--device` (default `cuda`) picks the
-card; with no CUDA device the worker raises instead of running on the CPU,
-unless `--device cpu` asks for it. Weights are random, drawn from
+checkpoint loading, KVBM tiers) raise `UnsupportedConfigError` when set;
+the role is set at start (no `morph` endpoint). `--device` (default
+`cuda`) picks the card; with no CUDA device the worker raises instead of
+running on the CPU, unless `--device cpu` asks for it. Weights are random, drawn from
 `--seed`, as the reference draws them when `--model-path` is omitted.
 
     python -m dynamo_tpu_torch.worker --model llama3-3b --discovery tcp://HOST:PORT
@@ -32,11 +41,14 @@ from typing import Optional
 import torch
 
 from ..engine import EngineConfig, TorchEngine, UnsupportedConfigError
+from ..llm.disagg import DisaggConfig, DisaggregatedRouter
 from ..llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
+from ..llm.kv_transfer import KvDataPlaneServer
 from ..llm.model_card import ModelDeploymentCard, register_llm
 from ..runtime import DistributedRuntime, RuntimeConfig, init_logging
 from ..runtime.component import Endpoint, ServedEndpoint
 from ..runtime.metrics import worker_exported_stats
+from .disagg_handler import maybe_remote_prefill
 
 logger = logging.getLogger("dynamo_tpu_torch.worker")
 
@@ -100,9 +112,12 @@ def parse_args(argv=None):
     ap.add_argument("--host-id", type=int, default=0)
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--spmd-port", type=int, default=17300)
-    ap.add_argument("--kv-data-plane-port", type=int, default=0)
-    ap.add_argument("--kv-data-plane-host", default=None)
-    ap.add_argument("--no-kv-data-plane", action="store_true")
+    ap.add_argument("--kv-data-plane-port", type=int, default=0,
+                    help="port of the KV data plane (prefill/aggregated roles; 0 = any)")
+    ap.add_argument("--kv-data-plane-host", default=None,
+                    help="host the data plane advertises (default: the routable address)")
+    ap.add_argument("--no-kv-data-plane", action="store_true",
+                    help="answer disaggregated prefills with the KV inline")
     return ap.parse_args(argv)
 
 
@@ -112,12 +127,7 @@ def unsupported_flags(args) -> list:
                                                "num_hosts") if getattr(args, n) > 1]
     bad += [f"--{n.replace('_', '-')}" for n in (
         "spec", "lora", "quantize", "model_path", "dp_attention", "kvbm_host_blocks",
-        "kvbm_disk_blocks", "kvbm_disk_path", "host_id", "coordinator",
-        "kv_data_plane_port", "kv_data_plane_host") if getattr(args, n)]
-    if args.role != "aggregated":
-        # prefill and decode roles carry the disaggregation wiring (remote
-        # prefill, the prefill-queue watch) and the morph endpoint
-        bad.append(f"--role {args.role}")
+        "kvbm_disk_blocks", "kvbm_disk_path", "host_id", "coordinator") if getattr(args, n)]
     return bad
 
 
@@ -143,7 +153,7 @@ def build_engine(args) -> TorchEngine:
         itl_target_ms=args.itl_target_ms,
         seed=args.seed,
         # aggregated serving drives both surfaces, as the reference's "decode"
-        role="decode",
+        role="prefill" if args.role == "prefill" else "decode",
     )
     return TorchEngine(cfg, device=device)
 
@@ -158,7 +168,58 @@ class Worker:
     served: ServedEndpoint
     kv_publisher: Optional[KvEventPublisher]
     metrics_publisher: WorkerMetricsPublisher
-    card_key: str
+    card_key: Optional[str]  # None on a prefill worker (no card)
+
+
+async def _watch_prefill_queue(drt, args, prefill_client, router: DisaggregatedRouter):
+    """Conditional-disagg queue guard: feed the least-loaded live prefill
+    worker's published queue depth (waiting + running) into the router, so
+    remote prefill stops while the whole pool is backed up."""
+    from ..llm.kv_router.publisher import METRICS_TOPIC_FMT
+    from ..runtime import codec
+
+    if drt.discovery is None:
+        return
+    sub = await drt.discovery.subscribe(METRICS_TOPIC_FMT.format(
+        namespace=args.namespace, component=args.prefill_component))
+    depths: dict = {}
+    announced = False
+    async for payload in sub:
+        try:
+            msg = codec.unpack(payload)
+            stats = msg.get("stats", {})
+            depths[int(msg["worker_id"])] = (int(stats.get("num_waiting_reqs", 0))
+                                             + int(stats.get("num_running_reqs", 0)))
+            live = set(prefill_client.instance_ids())
+            for w in list(depths):
+                if w not in live:
+                    del depths[w]
+            if depths:
+                router.update_queue_depth(min(depths.values()))
+            else:
+                # no live publisher left: unknown, not empty
+                router.invalidate("no live prefill publishers")
+            if not announced and depths:
+                # logged once a live prefill worker has been heard: from
+                # here on this worker sends prompts to the prefill pool
+                announced = True
+                logger.info("prefill queue watcher active (%d worker(s), depth=%d)",
+                            len(depths), router.prefill_queue_depth)
+        except Exception:  # noqa: BLE001 — stats are advisory
+            logger.debug("bad prefill metrics message", exc_info=True)
+
+
+async def _watch_prefill_set(prefill_client, router: DisaggregatedRouter):
+    """Forget the published depth as soon as the prefill instance set
+    changes (a worker joined, drained or died), without waiting for the
+    depth's TTL."""
+    prev = set(prefill_client.instance_ids())
+    while True:
+        await asyncio.sleep(0.25)
+        live = set(prefill_client.instance_ids())
+        if live != prev:
+            router.invalidate(f"prefill set changed {len(prev)}->{len(live)}")
+        prev = live
 
 
 async def serve(args, engine: Optional[TorchEngine] = None,
@@ -181,6 +242,8 @@ async def serve(args, engine: Optional[TorchEngine] = None,
     pending_events: list = []
     engine.allocator.event_sink = pending_events.append
     drt = None
+    data_plane = None
+    watchers: list = []
     try:
         # drive every dispatch kind — and so build the kernels with nvcc —
         # BEFORE joining the control plane: a first-request build after
@@ -191,12 +254,23 @@ async def serve(args, engine: Optional[TorchEngine] = None,
             n_warm = await engine.warmup()
             logger.info("engine warmup: %d dispatches in %.1fs", n_warm, time.monotonic() - t0)
 
+        # KV data plane: prefill-capable workers stage finished prompts here
+        if not args.no_kv_data_plane and args.role in ("prefill", "aggregated"):
+            data_plane = KvDataPlaneServer(
+                advertise_host=args.kv_data_plane_host, port=args.kv_data_plane_port)
+            await data_plane.start()
+            engine.data_plane = data_plane
+            logger.info("kv data plane listening on %s", data_plane.addr)
+
         cfg = RuntimeConfig.from_settings()
         if args.discovery:
             cfg.discovery_endpoint = args.discovery
         drt = await DistributedRuntime.create(cfg)
         drt.install_signal_handlers()
-        endpoint = drt.namespace(args.namespace).component(args.component).endpoint(args.endpoint)
+        if data_plane is not None:
+            await data_plane.register(drt)
+        component = args.prefill_component if args.role == "prefill" else args.component
+        endpoint = drt.namespace(args.namespace).component(component).endpoint(args.endpoint)
 
         publisher = None
         if args.kv_events:
@@ -231,6 +305,19 @@ async def serve(args, engine: Optional[TorchEngine] = None,
                 f"worker_{stat}", f"engine stat {stat}", (lambda k=stat: snap_stat(k))
             )
 
+        prefill_client = disagg_router = None
+        if args.role == "decode":
+            prefill_client = await (drt.namespace(args.namespace)
+                                    .component(args.prefill_component)
+                                    .endpoint(args.endpoint).client())
+            disagg_router = DisaggregatedRouter(
+                DisaggConfig(remote_prefill_threshold_tokens=args.disagg_threshold))
+            loop = asyncio.get_running_loop()
+            watchers = [
+                loop.create_task(_watch_prefill_queue(drt, args, prefill_client, disagg_router)),
+                loop.create_task(_watch_prefill_set(prefill_client, disagg_router)),
+            ]
+
         async def handler(request, context):
             annotations = request.get("annotations") or []
             if "worker_instance_id" in annotations:
@@ -239,24 +326,32 @@ async def serve(args, engine: Optional[TorchEngine] = None,
                 # admin flush (reference service_v2.rs:319-339 clear-kv-blocks)
                 yield {"event": "clear_kv_blocks", "comment": [str(engine.clear_kv_blocks())]}
                 return
-            async for item in engine.generate(request, context):
+            if disagg_router is not None:
+                stream = maybe_remote_prefill(
+                    engine, prefill_client, disagg_router, request, context)
+            else:
+                stream = engine.generate(request, context)
+            async for item in stream:
                 yield item
 
         served = await endpoint.serve_endpoint(handler)
-        # the card goes up after the endpoint serves: it is what makes a
-        # frontend build a pipeline to this worker
-        card = ModelDeploymentCard(
-            name=args.model_name or args.model,
-            tokenizer="byte",
-            kv_cache_block_size=args.page_size,
-            context_length=args.context_length or args.max_model_len,
-            migration_limit=args.migration_limit,
-            lora_adapters=[],
-        )
-        card_key = await register_llm(endpoint, card)
+        card_key = None
+        if args.role != "prefill":
+            # the card goes up after the endpoint serves: it is what makes
+            # a frontend build a pipeline to this worker
+            card = ModelDeploymentCard(
+                name=args.model_name or args.model,
+                tokenizer="byte",
+                kv_cache_block_size=args.page_size,
+                context_length=args.context_length or args.max_model_len,
+                migration_limit=args.migration_limit,
+                lora_adapters=[],
+            )
+            card_key = await register_llm(endpoint, card)
         logger.info(
-            "torch worker up: model=%s device=%s num_pages=%d instance=%x",
-            card.name, engine.device, engine.config.num_pages, drt.instance_id,
+            "torch worker up: model=%s role=%s device=%s num_pages=%d instance=%x",
+            args.model_name or args.model, args.role, engine.device,
+            engine.config.num_pages, drt.instance_id,
         )
         if started is not None:
             started.set_result(Worker(drt, engine, endpoint, served, publisher,
@@ -268,12 +363,19 @@ async def serve(args, engine: Optional[TorchEngine] = None,
             if publisher is not None:
                 await publisher.close()
     finally:
+        for task in watchers:
+            task.cancel()
+        await asyncio.gather(*watchers, return_exceptions=True)
         engine.allocator.event_sink = None
         if drt is not None:
             # graceful drain: lease revoked first (routers stop picking this
             # worker), in-flight streams finish within
             # DYN_RUNTIME_GRACEFUL_SHUTDOWN_TIMEOUT, survivors are cancelled
             await drt.close()
+        if data_plane is not None:
+            # staged transfers release their pages (on_done(False))
+            await data_plane.close()
+            engine.data_plane = None
         if owns_engine:
             await engine.close()
 

@@ -180,7 +180,7 @@ def test_stats_keep_reference_key_names(reference):
     ("tp_size", 2), ("pp_size", 2), ("sp_size", 2), ("dp_size", 2),
     ("kvbm_host_blocks", 16),
     ("kvbm_disk_blocks", 16), ("lora_pool_slots", 4), ("kvbm_disk_path", "/kv"),
-    ("role", "prefill"),
+    ("role", "aggregated"),
 ])
 def test_unsupported_config_fields_raise(field, value):
     cfg = EngineConfig(**{**ENGINE_KW, field: value})
@@ -193,7 +193,7 @@ def test_unsupported_config_fields_raise(field, value):
     ("multimodal", [{"type": "image_url", "url": "x", "position": 0}]),
     ("guided", {"kind": "regex", "regex": "[ab]*"}),
     ("lora_name", "adapter-a"),
-    ("disagg_params", {"return_kv": True}),
+    ("disagg_params", {"return_kv": True, "kvbm_push": True}),
     ("embed", True),
 ])
 def test_unsupported_request_fields_raise(field, value):
