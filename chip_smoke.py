@@ -45,6 +45,19 @@ pulls one staged prompt across processes. Each checks that every
 request alone streams the same tokens as the aggregated engine, and that
 the prefill side launched only prefill attention and the decode side only
 its decode kernel (per process, from the stats each worker publishes).
+The weights phases: `weights_int8` quantizes the weights to int8 on the
+card (`quantize_tree`), holds the int8 products and the 28-layer f32
+forward to the same over the dequantized weights, and serves the worker
+phase's mix on int8 beside bf16 weights in (scatter, bf16 KV) and (local,
+int8 KV), with one decode step profiled on each; `weights_load` writes the
+weights as a BF16 index-sharded safetensors checkpoint, loads it back bit
+for bit (seconds, GB/s, host memory), and `python -m
+dynamo_tpu_torch.worker --model-path <it> --quantize int8` (pool
+auto-sized) must register, stream each request alone as the in-process
+int8 engine does and drain on SIGTERM; `weights_gguf` writes a 4-layer
+full-width q8_0 .gguf with a vocabulary, loads it with and without int8,
+holds every matrix to numpy's decode of the file and serves two requests
+from each.
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -73,7 +86,18 @@ from dynamo_tpu_torch.engine import EngineConfig, TorchEngine  # noqa: E402
 from dynamo_tpu_torch.llm.protocols import PreprocessedRequest  # noqa: E402
 from dynamo_tpu_torch.llm.tokenizers import ByteTokenizer  # noqa: E402
 from dynamo_tpu_torch.models import llama  # noqa: E402
-from dynamo_tpu_torch.models.quant import QMAX, pack_int4  # noqa: E402
+from dynamo_tpu_torch.models import loader  # noqa: E402
+from dynamo_tpu_torch.models.quant import (  # noqa: E402
+    QMAX,
+    dequantize_leaf,
+    head_leaf,
+    is_quant,
+    pack_int4,
+    param_bytes,
+    qdot,
+    quantize_array,
+    quantize_tree,
+)
 from dynamo_tpu_torch.ops import (  # noqa: E402
     _build,
     hopper_paged_attention,
@@ -84,7 +108,7 @@ from dynamo_tpu_torch.ops import (  # noqa: E402
     paged_attention as pa,
 )
 from dynamo_tpu_torch.runtime.engine import Context  # noqa: E402
-from dynamo_tpu_torch.tools import hash_cost  # noqa: E402
+from dynamo_tpu_torch.tools import decode_profile, hash_cost  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
@@ -1050,6 +1074,22 @@ def reset_counts() -> None:
         pa.plain_calls[name] = 0
 
 
+def check_path_launches(phase: str, launches: dict, plain: dict, mode: str, kvq: str) -> None:
+    """Every attention kernel of the (decode pool mode, KV format) path
+    launched, no other, and no plain attention call."""
+    decode_kernel = "paged_decode_local" if mode == "local" else "paged_decode"
+    used = [(name, kvq) for name in (decode_kernel, "prefill_attention", "ragged_attention")]
+    assert all(launches.get(u, 0) > 0 for u in used), f"{phase}: a path kernel never launched: {launches}"
+    assert sum(launches.values()) == sum(launches[u] for u in used), \
+        f"{phase}: a kernel outside the path launched: {launches}"
+    assert not any(plain.values()), f"{phase}: plain attention ran on the card's main path: {plain}"
+
+
+def kernel_launches() -> dict:
+    return {(name, fmt): n for name, k in KERNELS.items()
+            for fmt, n in k["module"].launches_by_format.items()}
+
+
 WORDS = ["paged", "attention", "kernel", "hopper", "decode", "prefill",
          "ragged", "token", "cache", "block", "stream", "engine"]
 
@@ -1122,8 +1162,7 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
         await asyncio.sleep(STAGGER_S)
     await asyncio.gather(*tasks)
     wall = time.perf_counter() - t_start
-    launches = {(name, fmt): n for name, k in KERNELS.items()
-                for fmt, n in k["module"].launches_by_format.items()}
+    launches = kernel_launches()
     plain = dict(pa.plain_calls)
     stats = engine.stats()
 
@@ -1147,27 +1186,14 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
         assert all(0 <= t < model_cfg.vocab_size for t in rec["tokens"]), (phase, i)
     assert pair[0] == pair[1] and len(pair[0]) == MAX_TOKENS, \
         f"{phase}: the two runs of the seeded request differ"
-    decode_kernel = "paged_decode_local" if mode == "local" else "paged_decode"
-    used = [(name, kvq) for name in (decode_kernel, "prefill_attention", "ragged_attention")]
-    assert all(launches[u] > 0 for u in used), \
-        f"{phase}: a path kernel never launched: {launches}"
-    assert sum(launches.values()) == sum(launches[u] for u in used), \
-        f"{phase}: a kernel outside the path launched: {launches}"
-    assert not any(plain.values()), f"{phase}: plain attention ran on the card's main path: {plain}"
+    check_path_launches(phase, launches, plain, mode, kvq)
     mixed = stats["mixed_steps"] - base["mixed_steps"]
     hits = (stats["kv_prefix_hit_blocks_total"] - base["kv_prefix_hit_blocks_total"]
             + stats["kv_skip_ahead_blocks"] - base["kv_skip_ahead_blocks"])
     assert mixed >= 1, f"{phase}: no mixed step ran"
     assert hits > 0, f"{phase}: the shared prefix never hit the prefix cache"
 
-    dev_time = {}
-    for tag, cur in stats["dev_time"].items():
-        prev = base["dev_time"].get(tag, {"count": 0, "seconds": 0.0})
-        n = cur["count"] - prev["count"]
-        s = cur["seconds"] - prev["seconds"]
-        if n:
-            dev_time[tag] = {"count": n, "seconds": round(s, 4),
-                             "ms_per_dispatch": round(1e3 * s / n, 3)}
+    dev_time = dev_time_delta(stats, base)
     n_out = sum(len(r["tokens"]) for r in records)
     itl = [x for r in records for x in r["itl_s"]]
     ttft = [r["ttft_s"] for r in records]
@@ -1189,6 +1215,18 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
     del engine
     torch.cuda.empty_cache()
     return launches
+
+
+def dev_time_delta(stats: dict, base: dict) -> dict:
+    """Device time per dispatch kind between two stats() of one engine."""
+    out = {}
+    for tag, cur in stats["dev_time"].items():
+        prev = base["dev_time"].get(tag, {"count": 0, "seconds": 0.0})
+        n = cur["count"] - prev["count"]
+        s = cur["seconds"] - prev["seconds"]
+        if n:
+            out[tag] = {"count": n, "seconds": round(s, 4), "ms_per_dispatch": round(1e3 * s / n, 3)}
+    return out
 
 
 def model_params(seed: int) -> dict:
@@ -1326,8 +1364,7 @@ async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, params) 
         base = engine.stats()
         wire_recs, wire_wall = await drive(router.generate, reqs, (1, 6))
         wire_alone = await alone(router.generate, wire_clear, reqs + [seeded, seeded])
-        launches = {(name, fmt): n for name, k in KERNELS.items()
-                    for fmt, n in k["module"].launches_by_format.items()}
+        launches = kernel_launches()
         plain = dict(pa.plain_calls)
         stats = engine.stats()
         ep = worker.served.stats
@@ -1349,12 +1386,7 @@ async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, params) 
             assert all(0 <= t < model_cfg.vocab_size for t in rec["tokens"]), (phase, i)
     for i, (a, b) in enumerate(zip(local_alone, wire_alone)):
         assert a == b, f"{phase}: request {i} streams other tokens over the wire than in process"
-    decode_kernel = "paged_decode_local" if mode == "local" else "paged_decode"
-    used = [(name, kvq) for name in (decode_kernel, "prefill_attention", "ragged_attention")]
-    assert all(launches[u] > 0 for u in used), f"{phase}: a path kernel never launched: {launches}"
-    assert sum(launches.values()) == sum(launches[u] for u in used), \
-        f"{phase}: a kernel outside the path launched: {launches}"
-    assert not any(plain.values()), f"{phase}: plain attention ran on the card's main path: {plain}"
+    check_path_launches(phase, launches, plain, mode, kvq)
     assert stats["mixed_steps"] - base["mixed_steps"] >= 1, f"{phase}: no mixed step ran"
     stored = sum(1 for m in kv_msgs for ev in m["events"] if ev["event_type"] == "stored")
     assert stored > 0, f"{phase}: no stored KV event reached the topic"
@@ -1444,7 +1476,7 @@ async def worker_subprocess(seed: int) -> None:
              seconds_to_registration=round(t_reg, 2), num_pages=stats["kv_total_blocks"],
              kv_pool_bytes=stats["kv_pool_bytes"], kv_pool_gib=round(stats["kv_pool_bytes"] / 2**30, 2),
              request_tokens=len(toks), seconds_to_exit_after_sigterm=round(t_drain, 2),
-             exit_code=rc,
+             exit_code=rc, weight_bytes=stats["weight_bytes"],
              smoke_process_gib=round(torch.cuda.memory_reserved() / 2**30, 2))
     finally:
         if proc is not None and proc.poll() is None:
@@ -1919,6 +1951,493 @@ async def disagg_all(seed: int, params, reference: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# phases: weights_int8, weights_load, weights_gguf (int8 weight-only
+# quantization and checkpoint loading)
+# ---------------------------------------------------------------------- #
+
+# (decode_pool_mode, kv_quant) of the weights_int8 serve runs
+WEIGHTS_PATHS = [("scatter", "none"), ("local", "int8")]
+# int8 projections against the same products over the dequantized weights,
+# per row |a - b|_2 / |b|_2. One bf16 product: the int8 path scales the f32
+# accumulator and rounds once, the dequantized path rounds q * s to bf16
+# first; both round the output (2^-9 relative each).
+TOL_INT8_QDOT_REL = 1e-2
+# The 28-layer prefill logits in f32 (the int8 forward of an f32 model
+# against the same forward over dequantize_leaf(..., float32) weights):
+# only the f32 rounding order of (x @ q) * s against x @ (q * s) differs.
+TOL_INT8_F32_LOGITS_REL = 1e-3
+GGUF_LAYERS = 4  # full width, a cut depth: the .gguf phase
+GGUF_REQUESTS = 2
+LOAD_SHARD_BYTES = 5 * 10**9  # Llama-3.2-3B's published BF16 files: two shards
+
+
+def cut_depth(params: dict, layers: int) -> dict:
+    """The first `layers` layers of a tree (views)."""
+    def cut(v):
+        return {k: x[:layers] for k, x in v.items()} if is_quant(v) else v[:layers]
+
+    return dict(params, layers={k: cut(v) for k, v in params["layers"].items()})
+
+
+def tree_leaves(params: dict):
+    """(name, tensor) of every leaf, a quantized leaf's ints and scales apart."""
+    items = [("embed", params["embed"]), ("final_norm", params["final_norm"]),
+             ("lm_head", params.get("lm_head")), *params["layers"].items()]
+    for name, leaf in items:
+        if leaf is None:
+            continue
+        if is_quant(leaf):
+            yield f"{name}.q", leaf["q"]
+            yield f"{name}.s", leaf["s"]
+        else:
+            yield name, leaf
+
+
+def dequantized(qparams: dict, dtype) -> dict:
+    """A tree with every quantized leaf replaced by q * s in `dtype`."""
+    return {"embed": dequantize_leaf(qparams["embed"], dtype),
+            "final_norm": qparams["final_norm"].to(dtype), "lm_head": None,
+            "layers": {k: dequantize_leaf(v, dtype) if is_quant(v) else v.to(dtype)
+                       for k, v in qparams["layers"].items()}}
+
+
+def prefill_logits(params: dict, cfg, seed: int) -> torch.Tensor:
+    """Last-token logits of a 2 x 256-token prefill (the kernels' path)."""
+    B, T, ps = 2, 256, 64
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 21)
+    toks = torch.randint(3, 259, (B, T), generator=gen, device=DEV, dtype=torch.int32)
+    pos = torch.arange(T, device=DEV, dtype=torch.int32)[None].expand(B, T).contiguous()
+    per = T // ps
+    tables = (1 + torch.arange(B * per, device=DEV, dtype=torch.int32)).reshape(B, per)
+    kv = [torch.zeros((cfg.num_layers, B * per + 1, ps, cfg.num_kv_heads, cfg.head_dim),
+                      dtype=cfg.dtype, device=DEV) for _ in range(2)]
+    logits, _, _ = llama.prefill_forward_batched(
+        params, cfg, toks, pos, *kv, tables, torch.zeros(B, dtype=torch.int32, device=DEV),
+        torch.full((B,), T - 1, dtype=torch.int32, device=DEV))
+    return logits
+
+
+def int8_forward_check(params: dict, qparams: dict, seed: int) -> dict:
+    """The int8 products and forward against the same over the weights
+    dequantize_leaf gives: each projection of layer 0 and the tied head in
+    bf16, and the 28-layer prefill logits in f32 (gated); the bf16 logits
+    against the dequantized and the original bf16 weights (printed)."""
+    cfg = llama.LlamaConfig.llama3_2_3b()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 13)
+    qdot_err = {}
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "head"):
+        leaf = head_leaf(qparams) if name == "head" else {
+            k: v[0] for k, v in qparams["layers"][name].items()}
+        x = torch.randn((256, leaf["q"].shape[0]), generator=gen, device=DEV).to(torch.bfloat16)
+        got = qdot(x, leaf, out_dtype=torch.float32 if name == "head" else None)
+        ref = x.float() @ dequantize_leaf(leaf, torch.float32)
+        qdot_err[name] = round(row_rel_err(got, ref), 6)
+    assert max(qdot_err.values()) <= TOL_INT8_QDOT_REL, f"int8 qdot off the dequantized product: {qdot_err}"
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    q32 = dict(qparams, final_norm=qparams["final_norm"].float(),
+               layers={k: v if is_quant(v) else v.float() for k, v in qparams["layers"].items()})
+    a = prefill_logits(q32, cfg32, seed)
+    deq = dequantized(qparams, torch.float32)
+    b = prefill_logits(deq, cfg32, seed)
+    del deq
+    f32_err = row_rel_err(a, b)
+    assert torch.isfinite(a).all() and f32_err <= TOL_INT8_F32_LOGITS_REL, \
+        f"int8 f32 logits off the dequantized forward: {f32_err}"
+    qb = prefill_logits(qparams, cfg, seed)
+    deq = dequantized(qparams, torch.bfloat16)
+    db = prefill_logits(deq, cfg, seed)
+    del deq
+    fb = prefill_logits(params, cfg, seed)
+    torch.cuda.empty_cache()
+    return {
+        "qdot_row_rel_err_bf16": qdot_err, "tol_qdot": TOL_INT8_QDOT_REL,
+        "logits_f32_row_rel_err": round(f32_err, 8), "tol_logits_f32": TOL_INT8_F32_LOGITS_REL,
+        "logits_bf16_vs_dequantized_row_rel_err": round(row_rel_err(qb, db), 5),
+        "logits_bf16_vs_bf16_weights_row_rel_err": round(row_rel_err(qb, fb), 5),
+        "argmax_equal_vs_bf16_weights": int((qb.argmax(-1) == fb.argmax(-1)).sum()),
+        "argmax_rows": int(qb.shape[0]),
+    }
+
+
+async def serve_mix(seed: int, phase: str, params: dict, cfg, mode: str, kvq: str,
+                    quantize, reqs: list, after: tuple = (1, 6)) -> dict:
+    """The mix staggered on one in-process engine (request after[1] waits
+    for request after[0]'s first token): stream metrics, device time per
+    dispatch kind, the first tokens, the path's launches."""
+    engine = TorchEngine(
+        EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode=mode, kv_quant=kvq,
+                     quantize=quantize),
+        model_config=cfg, params=params, device="cuda",
+    )
+    await engine.warmup()
+
+    async def local_stream(r):
+        return engine.generate(r, Context())
+
+    # counts to zero just before the main path is driven
+    reset_counts()
+    base = engine.stats()
+    recs, wall = await drive(local_stream, reqs, after)
+    launches, plain, stats = kernel_launches(), dict(pa.plain_calls), engine.stats()
+    await engine.close()
+    del engine
+    for i, rec in enumerate(recs):
+        assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, (phase, i)
+        assert all(0 <= t < cfg.vocab_size for t in rec["tokens"]), (phase, i)
+    check_path_launches(phase, launches, plain, mode, kvq)
+    return {"metrics": stream_metrics(recs, wall), "weight_bytes": stats["weight_bytes"],
+            "dev_time": dev_time_delta(stats, base), "first_tokens": [r["tokens"][0] for r in recs],
+            "launches": launches}
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for key, n in launches.items():
+        total[key] = total.get(key, 0) + n
+
+
+async def weights_int8(seed: int, params: dict) -> dict:
+    """quantize_tree(consume=True) of the smoke's weights on the card, the
+    int8 forward against the dequantized one, then the worker phase's mix
+    on int8 and on bf16 weights in (scatter, bf16 KV) and (local, int8 KV),
+    and one decode step's profile on each."""
+    cfg = llama.LlamaConfig.llama3_2_3b()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # a shallow copy is consumed: the smoke's bf16 tree stays for later phases
+    qparams = quantize_tree(dict(params, layers=dict(params["layers"])), consume=True)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    check = int8_forward_check(params, qparams, seed)
+    reqs, _ = make_requests(seed, cfg.vocab_size, WORKER_LENGTHS, shared_idx=(1, 6),
+                            seeded_idx=(3,), tag="weights")
+    greedy = [i for i in range(len(reqs)) if i != 3]
+    total: dict = {}
+    for mode, kvq in WEIGHTS_PATHS:
+        runs = {}
+        for label, p, qz in (("bf16", params, None), ("int8", qparams, "int8")):
+            runs[label] = await serve_mix(seed, f"weights_int8/{label}", p, cfg, mode, kvq, qz, reqs)
+            add_launches(total, runs[label].pop("launches"))
+        first = {label: r.pop("first_tokens") for label, r in runs.items()}
+        emit(
+            "weights_int8" if (mode, kvq) == ("scatter", "none") else f"weights_int8_{mode}_{kvq}",
+            model="llama-3.2-3b", layers=LAYERS, decode_pool_mode=mode, kv_quant=kvq,
+            requests=len(reqs), max_tokens=MAX_TOKENS, quantize_s=round(quantize_s, 3),
+            **({"forward_check": check} if (mode, kvq) == WEIGHTS_PATHS[0] else {}),
+            int8=runs["int8"], bf16=runs["bf16"],
+            weight_bytes_ratio=round(runs["int8"]["weight_bytes"] / runs["bf16"]["weight_bytes"], 4),
+            greedy_first_token_agreement=f"{sum(first['bf16'][i] == first['int8'][i] for i in greedy)}"
+                                         f" of {len(greedy)}",
+        )
+    prof = {label: decode_profile.profile(p, cfg) for label, p in (("bf16", params), ("int8", qparams))}
+    emit("weights_int8_decode_step", model="llama-3.2-3b", layers=LAYERS, lanes=64, ctx=512,
+         **{label: {k: v for k, v in pr.items() if k not in ("card", "layers", "lanes", "ctx")}
+            for label, pr in prof.items()})
+    del qparams
+    torch.cuda.empty_cache()
+    return total
+
+
+def rss_gib():
+    """This process's resident set in GiB (VmRSS of /proc/self/status)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2**20
+    except OSError:
+        return None
+    return None
+
+
+class RssPeak:
+    """The largest resident set sampled every 5 ms while the block runs."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = rss_gib() or 0.0
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, rss_gib() or 0.0)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+async def weights_load(seed: int, params: dict) -> dict:
+    """The smoke's bf16 weights written as a BF16 index-sharded safetensors
+    checkpoint, loaded back with load_llama_params on the card (bit for bit
+    equal, timed, host memory read), and each request of the mix alone on
+    an int8 engine of the loaded weights: the streams the CLI worker must
+    reproduce (weights_load_subprocess)."""
+    import os
+    import resource
+    import shutil
+    import tempfile
+
+    cfg = llama.LlamaConfig.llama3_2_3b()
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    d = tempfile.mkdtemp(prefix="smoke_ckpt_")
+    t0 = time.perf_counter()
+    files = loader.save_llama_as_hf(params, cfg, d, dtype=torch.bfloat16,
+                                    max_shard_bytes=LOAD_SHARD_BYTES)
+    for fn in files:  # on disk, out of the page cache: a cold start's read
+        fd = os.open(os.path.join(d, fn), os.O_RDONLY)
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        os.close(fd)
+    write_s = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(d, fn)) for fn in files)
+    gc.collect()
+    rss_before = rss_gib()
+    torch.cuda.synchronize()
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        loaded = loader.load_llama_params(d, cfg, device=DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    ru_maxrss = round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20, 3)
+    want = dict(tree_leaves(params))
+    got = dict(tree_leaves(loaded))
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    differ = [k for k in want if got[k].dtype != want[k].dtype or not torch.equal(got[k], want[k])]
+    assert not differ, f"the reloaded checkpoint differs from the weights written: {differ}"
+
+    qparams = quantize_tree(loaded, consume=True)
+    del loaded
+    reqs, _ = make_requests(seed, cfg.vocab_size, WORKER_LENGTHS, shared_idx=(1, 6),
+                            seeded_idx=(3,), tag="weights_load")
+    engine = TorchEngine(EngineConfig(model="llama3-3b", seed=seed, quantize="int8"),
+                         model_config=cfg, params=qparams, device="cuda")
+    del qparams
+    await engine.warmup()
+
+    async def local_stream(r):
+        return engine.generate(r, Context())
+
+    async def local_clear():
+        engine.clear_kv_blocks()
+
+    streams = await alone(local_stream, local_clear, reqs)
+    weight_bytes = engine.stats()["weight_bytes"]
+    await engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    weights = param_bytes(params)
+    emit("weights_load", model="llama-3.2-3b", layers=LAYERS, checkpoint_dtype="BF16",
+         files=files, checkpoint_bytes=on_disk, disk_free_gb=round(free / 1e9, 1),
+         write_s=round(write_s, 3), load_s=round(load_s, 3),
+         load_gb_per_s=round(weights / load_s / 1e9, 3), bit_exact_tensors=len(want),
+         host_rss_before_gib=round(rss_before, 3),
+         host_rss_peak_during_load_gib=round(rss.peak, 3),
+         host_ru_maxrss_gib=ru_maxrss, int8_weight_bytes=weight_bytes, bf16_weight_bytes=weights)
+    return {"dir": d, "reqs": reqs, "streams": streams}
+
+
+async def weights_load_subprocess(seed: int, load: dict) -> dict:
+    """`python -m dynamo_tpu_torch.worker --model-path <the checkpoint>
+    --quantize int8` (pool auto-sized after the int8 weights are resident):
+    it must register, stream each request of the mix alone as the
+    in-process int8 engine did, and drain on SIGTERM. Returns the kernel
+    launches of its traffic (from the stats it publishes)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from dynamo_tpu_torch.llm.kv_router.publisher import METRICS_TOPIC_FMT
+    from dynamo_tpu_torch.runtime import DiscoveryServer, DistributedRuntime, PushRouter, RuntimeConfig
+
+    server = DiscoveryServer(port=0)
+    _, port = await server.start()
+    disc = f"tcp://127.0.0.1:{port}"
+    cfg = RuntimeConfig.from_settings()
+    cfg.discovery_endpoint = disc
+    drt = await DistributedRuntime.create(cfg)
+    root = Path(__file__).resolve().parent
+    log = tempfile.NamedTemporaryFile(prefix="torch_worker_ckpt_", suffix=".log", delete=False)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = None
+    try:
+        cards = await drt.discovery.watch_prefix("v1/mdc/dynamo/backend/generate/")
+        met_sub = await drt.discovery.subscribe(
+            METRICS_TOPIC_FMT.format(namespace="dynamo", component="backend"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
+             "--model-path", load["dir"], "--quantize", "int8", "--num-pages", "0",
+             "--seed", str(seed), "--discovery", disc],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT,
+        )
+        while True:
+            ev = await cards.get(timeout=1.0)
+            if ev is not None and ev.type == "put":
+                break
+            if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                raise RuntimeError(f"the worker never registered (rc {proc.poll()}): "
+                                   f"{Path(log.name).read_text()[-3000:]}")
+        t_reg = time.perf_counter() - t0
+        client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
+        await client.wait_for_instances(30)
+        router = PushRouter(client)
+
+        async def clear():
+            items = [it async for it in await router.generate(
+                {"token_ids": [1], "annotations": ["clear_kv_blocks"]})]
+            assert items and items[0]["event"] == "clear_kv_blocks", items
+
+        await clear()
+        before = await latest_stats(met_sub)
+        recs, wall = await drive(router.generate, load["reqs"], (1, 6))
+        streams = await alone(router.generate, clear, load["reqs"])
+        after = await latest_stats(met_sub)
+        for i, (a, b) in enumerate(zip(load["streams"], streams)):
+            assert a == b, f"request {i}: the CLI worker streams other tokens than the in-process engine"
+        calls = calls_delta(after, before)
+        launches = {tuple(k.split(":", 1)[1].split("/")): n for k, n in calls.items()
+                    if k.startswith("kernels:")}
+        plain = {k: n for k, n in calls.items() if k.startswith("plain:")}
+        check_path_launches("weights_load_subprocess", launches, plain, "scatter", "none")
+        loaded_line = next((ln for ln in Path(log.name).read_text().splitlines()
+                            if "loaded " in ln), "")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
+        t_drain = time.perf_counter() - t1
+        assert rc == 0, f"the worker exited {rc} on SIGTERM: {Path(log.name).read_text()[-3000:]}"
+        for _ in range(100):
+            if not client.instance_ids():
+                break
+            await asyncio.sleep(0.05)
+        assert not client.instance_ids(), "the drained worker is still registered"
+        await client.close()
+        for i, rec in enumerate(recs):
+            assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, i
+        emit("weights_load_subprocess", model="llama-3.2-3b", layers=LAYERS, quantize="int8",
+             seconds_to_registration=round(t_reg, 2), worker_load_log=loaded_line[-160:],
+             over_the_wire=stream_metrics(recs, wall),
+             weight_bytes=after["weight_bytes"], num_pages=after["kv_total_blocks"],
+             kv_pool_bytes=after["kv_pool_bytes"],
+             kv_pool_gib=round(after["kv_pool_bytes"] / 2**30, 2),
+             streams_equal=len(streams), launches={"/".join(k): n for k, n in launches.items()},
+             seconds_to_exit_after_sigterm=round(t_drain, 2), exit_code=rc)
+        return launches
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        os.unlink(log.name)
+        shutil.rmtree(load["dir"], ignore_errors=True)
+        await drt.close()
+        await server.stop()
+
+
+def gguf_vocab(n: int) -> list:
+    """An embedded vocabulary of n tokens: specials, the llama.cpp space
+    mark, letters and a few words, then placeholders."""
+    words = ["<unk>", "<s>", "</s>", "▁"] + [chr(c) for c in range(33, 127)]
+    words += ["▁" + w for w in WORDS]
+    return words + [f"<t{i}>" for i in range(n - len(words))]
+
+
+def q8_0_decode(g, name: str) -> np.ndarray:
+    """numpy's own decode of one q8_0 tensor of a GGUF file: f16 scale times
+    32 int8 values per block, read from the file's bytes."""
+    from dynamo_tpu_torch.llm.gguf import GGML_Q8_0
+
+    info = g.tensors[name]
+    assert info.ggml_type == GGML_Q8_0, (name, info.ggml_type)
+    n = int(np.prod(info.shape))
+    raw = np.fromfile(g.path, dtype=np.uint8, count=n // 32 * 34, offset=g.data_start + info.offset)
+    blocks = raw.reshape(-1, 34)
+    d = blocks[:, :2].copy().view("<f2").astype(np.float32)
+    qs = blocks[:, 2:].copy().view(np.int8).astype(np.float32)
+    return (d * qs).reshape(info.shape)
+
+
+async def weights_gguf(seed: int, params: dict) -> dict:
+    """The smoke's weights at full width and GGUF_LAYERS layers written as a
+    q8_0 .gguf with an embedded vocabulary, loaded with and without
+    quantize="int8" on the card, checked against numpy's decode of the
+    file, and two requests served from each."""
+    import os
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.llm.gguf import mdc_from_gguf, read_gguf
+    from dynamo_tpu_torch.llm.tokenizers import load_tokenizer
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=GGUF_LAYERS)
+    d = tempfile.mkdtemp(prefix="smoke_gguf_")
+    path = os.path.join(d, "llama-3.2-3b-q8_0.gguf")
+    try:
+        t0 = time.perf_counter()
+        loader.save_llama_as_gguf(cut_depth(params, GGUF_LAYERS), cfg, path,
+                                  tokens=gguf_vocab(cfg.vocab_size), name="llama-3.2-3b")
+        write_s = time.perf_counter() - t0
+        got_cfg = loader.config_from_gguf(path)
+        assert got_cfg == cfg, (got_cfg, cfg)
+        card = mdc_from_gguf(path)
+        tok = load_tokenizer(f"gguf:{path}")
+        assert tok.vocab_size == cfg.vocab_size and card.tokenizer == f"gguf:{path}"
+        g = read_gguf(path, with_tensors=True)
+        loads, load_s = {}, {}
+        for qz in (None, "int8"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loads[qz] = loader.load_llama_params(path, got_cfg, quantize=qz, device=DEV)
+            torch.cuda.synchronize()
+            load_s[qz or "bf16"] = round(time.perf_counter() - t0, 3)
+        checked = 0
+        names = [("token_embd.weight", "embed", False, -1)]
+        names += [(f"blk.{li}.{sfx}", key, tr, -2) for li in range(GGUF_LAYERS)
+                  for sfx, (key, tr) in loader._GGUF_LAYER_MAP.items() if tr]
+        for gname, key, transpose, axis in names:
+            x = q8_0_decode(g, gname)
+            x = np.ascontiguousarray(x.T) if transpose else x
+            li = int(gname.split(".")[1]) if gname.startswith("blk.") else None
+            bf = loads[None]["embed"] if li is None else loads[None]["layers"][key][li]
+            assert torch.equal(bf, torch.from_numpy(x).to(DEV, torch.bfloat16)), gname
+            ql = loads["int8"]["embed"] if li is None else {
+                k: v[li] for k, v in loads["int8"]["layers"][key].items()}
+            # per-channel int8 of numpy's decode (quantize_array's bits
+            # against the reference's: tests/test_torch_quant.py)
+            want = quantize_array(torch.from_numpy(x).to(DEV), contract_axis=axis)
+            assert torch.equal(ql["q"], want["q"]) and torch.equal(ql["s"], want["s"]), gname
+            checked += 1
+        reqs, _ = make_requests(seed, cfg.vocab_size, WORKER_LENGTHS[:GGUF_REQUESTS],
+                                shared_idx=(), seeded_idx=(), tag="gguf")
+        total, served = {}, {}
+        for qz in (None, "int8"):
+            # the second request arrives once the first decodes: a mixed step
+            run = await serve_mix(seed, f"weights_gguf/{qz or 'bf16'}", loads.pop(qz), cfg,
+                                  "scatter", "none", qz, reqs, after=(0, 1))
+            add_launches(total, run.pop("launches"))
+            run.pop("first_tokens")
+            served[qz or "bf16"] = run
+        emit("weights_gguf", model="llama-3.2-3b", layers=GGUF_LAYERS, tensor_type="q8_0",
+             file_bytes=os.path.getsize(path), vocab=len(g.tokens), write_s=round(write_s, 3),
+             load_s=load_s, tensors_checked_against_numpy_decode=checked,
+             tokenizer=card.tokenizer.split(":")[0], served=served)
+        return total
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------- #
 
 
 def main() -> None:
@@ -1965,12 +2484,24 @@ def main() -> None:
     for key, n in asyncio.run(disagg_all(args.seed, params, reference)).items():
         launches[key] = launches.get(key, 0) + n
     seconds["disagg"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_launches(launches, asyncio.run(weights_int8(args.seed, params)))
+    seconds["weights_int8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load = asyncio.run(weights_load(args.seed, params))
+    seconds["weights_load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_launches(launches, asyncio.run(weights_gguf(args.seed, params)))
+    seconds["weights_gguf"] = time.perf_counter() - t0
     # the subprocess workers size or place their pools on the card: this
     # process lets go of what it holds first (engines that sat in
     # reference cycles with their tasks included)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    add_launches(launches, asyncio.run(weights_load_subprocess(args.seed, load)))
+    seconds["weights_load"] += time.perf_counter() - t0
     t0 = time.perf_counter()
     asyncio.run(worker_subprocess(args.seed))
     seconds["worker_subprocess"] = time.perf_counter() - t0

@@ -48,7 +48,10 @@ class EngineConfig:
     # batched prefill: token budget per dispatch; lanes = budget // bucket
     prefill_batch_tokens: int = 1024
     max_prefill_batch: int = 8
-    quantize: Optional[str] = None  # weight-only quantization (not ported)
+    # weight-only quantization: None | "int8" (per-channel f32 scales;
+    # models/quant.py). Applies to the random init; a loaded checkpoint
+    # arrives quantized from models/loader.py
+    quantize: Optional[str] = None
     # KV page format: "none" | "int8" | "int4" (per-page-per-head f32
     # scales); None = DYN_KV_QUANT, else "none"
     kv_quant: Optional[str] = None
@@ -110,8 +113,6 @@ class EngineConfig:
     def unsupported_fields(self) -> List[str]:
         """Names of the fields set to a value this port cannot honour."""
         bad = []
-        if self.quantize:
-            bad.append("quantize")
         if self.spec_mode:
             bad.append("spec_mode")
         for name in ("tp_size", "dp_size", "pp_size", "sp_size"):

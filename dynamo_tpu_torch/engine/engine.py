@@ -44,9 +44,11 @@ kind. All device work runs on one executor thread so a blocking copy never
 stalls the event loop. Left out of this port so far (each raises a typed
 error when asked for): KVBM tiers, role morphing, the multi-host shard
 handoff, speculative decoding, guided decoding, LoRA, multimodal, multi-host,
-quantized weights, tensor/pipeline/sequence parallelism. The KV pool may be
-stored at 8 or 4 bits (`kv_quant`): quantized on write, dequantized inside
-the attention kernels.
+tensor/pipeline/sequence parallelism. The KV pool may be stored at 8 or 4
+bits (`kv_quant`): quantized on write, dequantized inside the attention
+kernels. The weights may be int8 weight-only quantized (`quantize="int8"`,
+models/quant.py): random weights are quantized on the device after their
+init, one layer slice at a time; loaded ones arrive quantized.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from ..llm.mocker.kv_manager import KvEvent
 from ..llm.protocols import Annotated, LLMEngineOutput, PreprocessedRequest
 from ..llm.tokens import TokenBlockSequence
 from ..models import llama
+from ..models.quant import param_bytes, quantize_tree
 from ..ops.hopper_ragged_attention import ragged_tile_q
 from ..ops.paged_attention import attention_counts
 from ..ops.kv_quant import (
@@ -247,11 +250,18 @@ class TorchEngine:
         self._on_cuda = self.device.type == "cuda"
         self.model_config = model_config or _resolve_model(config.model)
         c = self.model_config
+        if config.quantize not in (None, "", "int8"):
+            raise ValueError(f"unknown quantize mode {config.quantize!r}")
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             params = llama.init_params(c, gen, device=self.device)
+            if config.quantize == "int8":
+                params = quantize_tree(params, consume=True)
         self.params = params
+        self.weight_bytes = param_bytes(params)
+        # the served vocabulary (workers set it to the model card's tokenizer)
+        self.tokenizer = None
         if config.num_pages <= 0:
             config = dataclasses.replace(
                 config, num_pages=_auto_num_pages(params, c, config, self.device)
@@ -636,6 +646,7 @@ class TorchEngine:
             "request_total_slots": self.config.max_num_seqs,
             "kv_quant": self.config.kv_quant,
             "kv_pool_bytes": self._kv_pool_bytes(),
+            "weight_bytes": self.weight_bytes,
             **self.allocator.stats(),
         }
         out["num_preemptions"] = self.num_preemptions
@@ -2343,12 +2354,7 @@ def _auto_num_pages(params, model_cfg: llama.LlamaConfig, config: EngineConfig,
         in_use = limit - free_b
     elif os.environ.get("DYN_HBM_BYTES"):
         limit = int(float(os.environ["DYN_HBM_BYTES"]))
-        in_use = sum(
-            t.numel() * t.element_size()
-            for t in [params["embed"], params["final_norm"], params["lm_head"],
-                      *params["layers"].values()]
-            if t is not None
-        )
+        in_use = param_bytes(params)  # quantized leaves: ints plus scales
     if limit is None:
         n = 2048  # CPU/test fallback: the reference's fixed pool
     else:

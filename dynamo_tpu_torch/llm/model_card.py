@@ -61,6 +61,14 @@ class ModelDeploymentCard:
         return self.name.replace("/", "--")
 
 
+def card_tokenizer(gguf_path: Optional[str] = None) -> str:
+    """The tokenizer spec a worker's card advertises: a GGUF checkpoint's
+    embedded vocabulary, else the byte tokenizer. It is the serving
+    contract: the frontend tokenizes with it and the engine's ids must
+    mean the same text."""
+    return f"gguf:{gguf_path}" if gguf_path is not None else "byte"
+
+
 def mdc_key(endpoint: Endpoint, card: ModelDeploymentCard) -> str:
     """Discovery key for a card published by an endpoint's worker
     (reference MODEL_ROOT_PATH v1/mdc/).

@@ -1,13 +1,16 @@
-"""Byte-level tokenizer with incremental decode.
+"""Tokenizers with incremental decode.
 
-Port of the `ByteTokenizer` and `DecodeStream` of
-`dynamo_tpu/llm/tokenizers.py` (the default served tokenizer; the HF and
-GGUF backends belong to the preprocessor slice).
+Port of `dynamo_tpu/llm/tokenizers.py`: `ByteTokenizer` (the default
+served tokenizer), `GgufTokenizer` (a .gguf file's embedded vocabulary),
+`DecodeStream` and `load_tokenizer`. An HF `tokenizer.json` needs the
+`tokenizers` package, which the port does not use: `load_tokenizer`
+refuses one with `UnsupportedConfigError`.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from pathlib import Path
+from typing import List, Optional, Sequence, Union
 
 
 class DecodeStream:
@@ -19,7 +22,7 @@ class DecodeStream:
     a UTF-8 replacement char (pending multi-byte sequences stay buffered).
     """
 
-    def __init__(self, tokenizer: "ByteTokenizer", skip_special_tokens: bool = True):
+    def __init__(self, tokenizer, skip_special_tokens: bool = True):
         self._tok = tokenizer
         self._skip = skip_special_tokens
         self._ids: List[int] = []
@@ -137,3 +140,95 @@ class ByteTokenizer:
     @property
     def bos_token_id(self) -> Optional[int]:
         return self.BOS
+
+
+class GgufTokenizer:
+    """Tokenizer over a GGUF file's embedded vocabulary (reference
+    gguf_tokenizer.rs): greedy longest-match over the token list, with the
+    llama.cpp `▁`-for-space convention. Enough for serving a .gguf model
+    card end-to-end without external tokenizer files."""
+
+    SPACE = "\u2581"  # '▁'
+
+    def __init__(self, gguf_path: str):
+        from .gguf import read_gguf
+
+        g = read_gguf(gguf_path)
+        tokens = g.tokens
+        if not tokens:
+            raise ValueError(f"{gguf_path}: no embedded tokenizer vocabulary")
+        self._tokens = tokens
+        self._ids = {t: i for i, t in enumerate(tokens)}
+        self._max_len = max(len(t) for t in tokens)
+        self._eos = [g.eos_token_id] if g.eos_token_id is not None else []
+        self._bos = g.bos_token_id
+        self._unk = 0 if tokens and tokens[0].startswith("<") else None
+
+    def encode(self, text: str) -> List[int]:
+        s = text.replace(" ", self.SPACE)
+        out: List[int] = []
+        i = 0
+        while i < len(s):
+            match = None
+            for n in range(min(self._max_len, len(s) - i), 0, -1):
+                tid = self._ids.get(s[i : i + n])
+                if tid is not None:
+                    match = (tid, n)
+                    break
+            if match is None:
+                if self._unk is not None:
+                    out.append(self._unk)
+                i += 1
+            else:
+                out.append(match[0])
+                i += match[1]
+        return out
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        parts = []
+        for i in ids:
+            if 0 <= i < len(self._tokens):
+                t = self._tokens[i]
+                if skip_special_tokens and t.startswith("<") and t.endswith(">"):
+                    continue
+                parts.append(t)
+        return "".join(parts).replace(self.SPACE, " ")
+
+    def decode_stream(self, skip_special_tokens: bool = True) -> DecodeStream:
+        return DecodeStream(self, skip_special_tokens)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._tokens)
+
+    @property
+    def eos_token_ids(self) -> List[int]:
+        return list(self._eos)
+
+    @property
+    def bos_token_id(self) -> Optional[int]:
+        return self._bos
+
+
+def load_tokenizer(spec: str) -> Union[ByteTokenizer, GgufTokenizer]:
+    """Resolve a tokenizer spec: 'byte' | 'byte:<vocab>' | 'gguf:<path>'
+    (embedded vocab). A path to a tokenizer.json (or a folder holding one)
+    raises UnsupportedConfigError: the port reads no HF tokenizer."""
+    if spec == "byte":
+        return ByteTokenizer()
+    if spec.startswith("byte:"):
+        return ByteTokenizer(int(spec.split(":", 1)[1]))
+    if spec.startswith("gguf:"):
+        return GgufTokenizer(spec.split(":", 1)[1])
+    p = Path(spec)
+    if p.is_dir():
+        p = p / "tokenizer.json"
+    if p.exists():
+        from ..engine.config import UnsupportedConfigError
+
+        raise UnsupportedConfigError(
+            f"{p}: HF tokenizer.json files are not read by the PyTorch/CUDA port "
+            "(it does not use the `tokenizers` package); serve with 'byte' or a "
+            ".gguf checkpoint's embedded vocabulary"
+        )
+    raise FileNotFoundError(f"no tokenizer at {spec!r} (use 'byte' for the builtin)")

@@ -5,6 +5,9 @@ leaf converted to a numpy array (stacked `layers` leaves `[L, in, out]`,
 `lm_head=None` under tied embeddings) and returns the port's parameter
 dictionary, which keeps the same tree and the same `[in, out]` weight
 orientation. With it both packages compute on the same weights in tests.
+Quantized leaves `{"q", "s"}` (the reference's `quantize_tree` output)
+carry across as they are: `q` stays int8 and `s` f32, whatever `dtype`
+the floating leaves are cast to.
 """
 
 from __future__ import annotations
@@ -23,14 +26,21 @@ def _leaf(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
+def _any_leaf(a, dtype: Optional[torch.dtype], device):
+    if isinstance(a, dict) and "q" in a and "s" in a:  # quantized: keep int8 + f32
+        return {"q": _leaf(a["q"], torch.int8, device),
+                "s": _leaf(a["s"], torch.float32, device)}
+    return _leaf(a, dtype, device)
+
+
 def params_from_jax(tree: Dict[str, Any], dtype: Optional[torch.dtype] = None,
                     device="cuda") -> Dict[str, Any]:
     """numpy pytree of the reference -> the port's parameters on `device`
-    (cast to `dtype` when given)."""
+    (floating leaves cast to `dtype` when given)."""
     return {
-        "embed": _leaf(tree["embed"], dtype, device),
-        "layers": {k: _leaf(v, dtype, device) for k, v in tree["layers"].items()},
+        "embed": _any_leaf(tree["embed"], dtype, device),
+        "layers": {k: _any_leaf(v, dtype, device) for k, v in tree["layers"].items()},
         "final_norm": _leaf(tree["final_norm"], dtype, device),
         "lm_head": None if tree.get("lm_head") is None
-        else _leaf(tree["lm_head"], dtype, device),
+        else _any_leaf(tree["lm_head"], dtype, device),
     }

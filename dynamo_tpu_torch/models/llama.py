@@ -7,7 +7,9 @@ reference's argument order and layouts:
   * KV cache: [layers, pages, page_size, kv_heads, head_dim]; the engine
     passes page tables; attention goes through ops/paged_attention.
   * parameters: {"embed" [V, hidden], "layers": {name: [L, in, out]},
-    "final_norm", "lm_head" (None when tied)} — the reference's tree.
+    "final_norm", "lm_head" (None when tied)} — the reference's tree;
+    projections, embedding and head may be int8 weight-only quantized
+    leaves {"q", "s"} (models/quant.py), which every forward accepts.
 
 Unlike the reference, the KV cache is WRITTEN IN PLACE: the forwards return
 the same `kv_k`/`kv_v` stores they were given (tensors, or `QuantKV` for an
@@ -42,7 +44,7 @@ from ..ops.paged_attention import (
     ragged_attention,
     ragged_attention_plain,
 )
-from .quant import embed_rows, head_leaf, qdot
+from .quant import embed_rows, head_leaf, is_quant, qdot
 
 
 @dataclass(frozen=True)
@@ -163,8 +165,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
-def _layer(params: Dict[str, Any], li: int) -> Dict[str, torch.Tensor]:
-    return {k: v[li] for k, v in params["layers"].items()}
+def _layer(params: Dict[str, Any], li: int) -> Dict[str, Any]:
+    """Layer `li`'s slice of every stacked leaf (a quantized leaf's ints and
+    scales alike)."""
+    return {k: {"q": v["q"][li], "s": v["s"][li]} if is_quant(v) else v[li]
+            for k, v in params["layers"].items()}
 
 
 def _mlp(layer, x, c: LlamaConfig):
@@ -368,9 +373,13 @@ def decode_forward_local(
 
 
 def param_count(params) -> int:
-    n = params["embed"].numel() + params["final_norm"].numel()
-    n += sum(v.numel() for v in params["layers"].values())
-    if params.get("lm_head") is not None:
-        n += params["lm_head"].numel()
-    return n
+    """Elements of every leaf (a quantized leaf counts its ints and its
+    scales, as the reference's count of pytree leaves does)."""
+    def count(leaf):
+        if leaf is None:
+            return 0
+        return leaf["q"].numel() + leaf["s"].numel() if is_quant(leaf) else leaf.numel()
+
+    return sum(count(v) for v in (params["embed"], params["final_norm"],
+                                  params.get("lm_head"), *params["layers"].values()))
 

@@ -3,13 +3,16 @@
     python3 -m dynamo_tpu_torch.tools.decode_profile [--layers 28] [--ctx 512]
                                                     [--kv-quant none|int8|int4]
                                                     [--pool-mode scatter|local]
+                                                    [--quantize none|int8]
 
 Runs the engine's decode step (models.llama.decode_forward + sampling, as
 `TorchEngine._dev_block` runs it under decode_pool_mode="scatter"; under
 "local", `decode_forward_local` steps over a read-only pool and one
 `kv_write_all_layers` commit per block of --steps) at the full width of
 Llama-3.2-3B with
-64 lanes, random weights, over a KV pool in the given format (its writes
+64 lanes, random weights (int8 weight-only quantized with --quantize
+int8: every projection and the tied head then widen int8 to bf16 ahead of
+their GEMM), over a KV pool in the given format (its writes
 quantize in place), under `torch.profiler`, and prints one JSON
 line: host wall time per step, device-busy time per step (sum of kernel
 times), the device's idle share, kernel launches per step and the kernels
@@ -29,10 +32,10 @@ import torch
 
 from ..engine.sampling import SamplingParams, sample_lp
 from ..models import llama
+from ..models.quant import is_quant, param_bytes, quantize_tree
 from ..ops.kv_quant import KV_QUANT_MODES, alloc_kv_store, kv_write_all_layers
 
 
-@torch.no_grad()
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=28)
@@ -42,6 +45,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-quant", choices=KV_QUANT_MODES, default="none")
     ap.add_argument("--pool-mode", choices=("scatter", "local"), default="scatter")
+    ap.add_argument("--quantize", choices=("none", "int8"), default="none")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA device")
@@ -50,6 +54,21 @@ def main() -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = llama.init_params(cfg, gen, device=dev)
+    if args.quantize == "int8":
+        params = quantize_tree(params, consume=True)
+    print(json.dumps(profile(params, cfg, lanes=args.lanes, ctx=args.ctx, steps=args.steps,
+                             kv_quant=args.kv_quant, pool_mode=args.pool_mode)))
+
+
+@torch.no_grad()
+def profile(params, cfg, lanes: int = 64, ctx: int = 512, steps: int = 8,
+            kv_quant: str = "none", pool_mode: str = "scatter") -> dict:
+    """The profile of `steps` decode steps of `params` (on the card) as a
+    dict: the JSON line `main` prints."""
+    args = argparse.Namespace(lanes=lanes, ctx=ctx, steps=steps, kv_quant=kv_quant,
+                              pool_mode=pool_mode, layers=cfg.num_layers)
+    dev = torch.device("cuda")
+    quantized = "int8" if is_quant(params["layers"]["wq"]) else "none"
     B, ps, P = args.lanes, 64, 128
     pages = B * ((args.ctx + args.steps * 3) // ps + 1) + 1
     kv_k, kv_v = (alloc_kv_store(cfg.num_layers, pages, ps, cfg.num_kv_heads,
@@ -105,7 +124,11 @@ def main() -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    # kernels whose names share their first 60 characters are summed
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -123,17 +146,18 @@ def main() -> None:
         ev[1].record()
         torch.cuda.synchronize()
         commit_ms = round(ev[0].elapsed_time(ev[1]) / 3, 3)
-    print(json.dumps({
+    return {
         "card": smi, "layers": args.layers, "lanes": B, "ctx": args.ctx,
         "kv_quant": args.kv_quant, "pool_mode": args.pool_mode,
+        "quantize": quantized, "weight_bytes": param_bytes(params),
         "commit_ms_per_block": commit_ms,
         "wall_ms_per_step": round(wall_ms, 3),
         "device_busy_ms_per_step": round(busy_ms, 3),
         "device_idle_share": round(max(0.0, 1.0 - busy_ms / wall_ms), 3),
         "launches_per_step": round(launches / args.steps, 1),
         "top_kernels_ms_per_step": {
-            e.key[:60]: round(e.device_time_total / 1e3 / args.steps, 3) for e in top},
-    }))
+            name: round(us / 1e3 / args.steps, 3) for name, us in top},
+    }
 
 
 if __name__ == "__main__":

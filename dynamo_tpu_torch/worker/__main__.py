@@ -19,14 +19,26 @@ under `--component`, and sends prompts with more than
 (`worker/disagg_handler.py`), watching its published queue depth.
 
 Flags keep the reference's names. Those whose feature the port lacks
-(parallelism, multi-host, speculative decoding, LoRA, weight quantization,
-checkpoint loading, KVBM tiers) raise `UnsupportedConfigError` when set;
-the role is set at start (no `morph` endpoint). `--device` (default
-`cuda`) picks the card; with no CUDA device the worker raises instead of
-running on the CPU, unless `--device cpu` asks for it. Weights are random, drawn from
-`--seed`, as the reference draws them when `--model-path` is omitted.
+(parallelism, multi-host, speculative decoding, LoRA, KVBM tiers) raise
+`UnsupportedConfigError` when set; the role is set at start (no `morph`
+endpoint). `--device` (default `cuda`) picks the card; with no CUDA device
+the worker raises instead of running on the CPU, unless `--device cpu`
+asks for it.
+
+Weights: `--model-path` loads a checkpoint (models/loader.py): an HF
+safetensors directory (one file or index-sharded; an `org/name` repo id
+resolves through the local HF hub cache only, never a download), a .gguf
+file, or a directory holding one. A GGUF's own metadata gives the model's
+shape and its embedded vocabulary is the served tokenizer
+(`gguf:<path>` on the model card); otherwise `--model` names the shape.
+Without `--model-path` the weights are random, drawn from `--seed`.
+`--quantize int8` stores projections, embedding and head as int8 with
+per-channel scales. The KV pool is auto-sized after the weights are
+resident, so int8 weights leave room for more pages.
 
     python -m dynamo_tpu_torch.worker --model llama3-3b --discovery tcp://HOST:PORT
+    python -m dynamo_tpu_torch.worker --model llama3-3b --model-path DIR --quantize int8
+    python -m dynamo_tpu_torch.worker --model-path FILE.gguf
 """
 
 from __future__ import annotations
@@ -44,7 +56,11 @@ from ..engine import EngineConfig, TorchEngine, UnsupportedConfigError
 from ..llm.disagg import DisaggConfig, DisaggregatedRouter
 from ..llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
 from ..llm.kv_transfer import KvDataPlaneServer
-from ..llm.model_card import ModelDeploymentCard, register_llm
+from ..engine.engine import _resolve_model
+from ..llm.model_card import ModelDeploymentCard, card_tokenizer, register_llm
+from ..llm.tokenizers import load_tokenizer
+from ..models.loader import _find_gguf, config_from_gguf, load_llama_params
+from ..models.quant import param_bytes
 from ..runtime import DistributedRuntime, RuntimeConfig, init_logging
 from ..runtime.component import Endpoint, ServedEndpoint
 from ..runtime.metrics import worker_exported_stats
@@ -58,7 +74,8 @@ def parse_args(argv=None):
     ap.add_argument("--model", default="tiny", help="model registry key (tiny/llama3-3b/llama3-8b/llama3-70b)")
     ap.add_argument("--model-name", default=None, help="served model name (defaults to --model)")
     ap.add_argument("--model-path", default=None,
-                    help="HF safetensors checkpoint dir (not ported: random init from --seed)")
+                    help="HF safetensors checkpoint dir (or cached repo id), a .gguf file, or a "
+                    "directory holding one; omitted = random weights from --seed")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda raises when no CUDA device is present")
@@ -86,7 +103,7 @@ def parse_args(argv=None):
     ap.add_argument("--kv-quant", choices=["none", "int8", "int4"], default=None,
                     help="quantized KV cache page format (default: DYN_KV_QUANT, none)")
     ap.add_argument("--quantize", choices=["int8"], default=None,
-                    help="weight-only quantization (not ported)")
+                    help="int8 weight-only quantization (per-channel f32 scales)")
     ap.add_argument("--tp-size", type=int, default=1)
     ap.add_argument("--ep-size", type=int, default=1)
     ap.add_argument("--pp-size", type=int, default=1)
@@ -126,19 +143,31 @@ def unsupported_flags(args) -> list:
     bad = [f"--{n.replace('_', '-')}" for n in ("tp_size", "ep_size", "pp_size", "sp_size",
                                                "num_hosts") if getattr(args, n) > 1]
     bad += [f"--{n.replace('_', '-')}" for n in (
-        "spec", "lora", "quantize", "model_path", "dp_attention", "kvbm_host_blocks",
+        "spec", "lora", "dp_attention", "kvbm_host_blocks",
         "kvbm_disk_blocks", "kvbm_disk_path", "host_id", "coordinator") if getattr(args, n)]
     return bad
 
 
 def build_engine(args) -> TorchEngine:
-    """The engine the flags describe, random weights from `--seed`."""
+    """The engine the flags describe: weights from `--model-path`, else
+    random from `--seed`; its tokenizer is the one the card advertises."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda needs a CUDA device and none is present; pass "
             "--device cpu to run on the CPU"
         )
+    params = model_config = None
+    gguf_path = gguf_checkpoint(args)
+    if args.model_path:
+        # a GGUF is authoritative for the shape; otherwise --model names it
+        model_config = config_from_gguf(gguf_path) if gguf_path else _resolve_model(args.model)
+        t0 = time.monotonic()
+        params = load_llama_params(args.model_path, model_config, quantize=args.quantize,
+                                   device=device)
+        logger.info("loaded %s (%s) in %.1fs: %.2f GiB of weights", args.model_path,
+                    args.quantize or model_config.dtype, time.monotonic() - t0,
+                    param_bytes(params) / 2**30)
     cfg = EngineConfig(
         model=args.model,
         page_size=args.page_size,
@@ -152,10 +181,22 @@ def build_engine(args) -> TorchEngine:
         ttft_target_ms=args.ttft_target_ms,
         itl_target_ms=args.itl_target_ms,
         seed=args.seed,
+        quantize=args.quantize,
         # aggregated serving drives both surfaces, as the reference's "decode"
         role="prefill" if args.role == "prefill" else "decode",
     )
-    return TorchEngine(cfg, device=device)
+    engine = TorchEngine(cfg, model_config=model_config, params=params, device=device)
+    del params
+    # the served vocabulary: a GGUF checkpoint's own, else the byte
+    # tokenizer at the model's vocabulary size
+    engine.tokenizer = load_tokenizer(
+        f"gguf:{gguf_path}" if gguf_path else f"byte:{engine.model_config.vocab_size}")
+    return engine
+
+
+def gguf_checkpoint(args) -> Optional[str]:
+    """The .gguf file `--model-path` names, if it names one."""
+    return _find_gguf(args.model_path) if args.model_path else None
 
 
 @dataclass
@@ -341,7 +382,7 @@ async def serve(args, engine: Optional[TorchEngine] = None,
             # a frontend build a pipeline to this worker
             card = ModelDeploymentCard(
                 name=args.model_name or args.model,
-                tokenizer="byte",
+                tokenizer=card_tokenizer(gguf_checkpoint(args)),
                 kv_cache_block_size=args.page_size,
                 context_length=args.context_length or args.max_model_len,
                 migration_limit=args.migration_limit,

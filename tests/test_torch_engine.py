@@ -176,7 +176,7 @@ def test_stats_keep_reference_key_names(reference):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("quantize", "int8"), ("spec_mode", "ngram"),
+    ("spec_mode", "ngram"),
     ("tp_size", 2), ("pp_size", 2), ("sp_size", 2), ("dp_size", 2),
     ("kvbm_host_blocks", 16),
     ("kvbm_disk_blocks", 16), ("lora_pool_slots", 4), ("kvbm_disk_path", "/kv"),

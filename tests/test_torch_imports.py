@@ -20,7 +20,10 @@ PKG = ROOT / "dynamo_tpu_torch"
 ALLOWED_THIRD_PARTY = {"torch", "numpy"}
 # serving-plane packages the reference uses that the machine with the card
 # does not have: the port's runtime is written on the standard library
-FORBIDDEN = {"msgpack", "aiohttp", "xxhash", "pydantic", "prometheus_client", "ml_dtypes"}
+FORBIDDEN = {"msgpack", "aiohttp", "xxhash", "pydantic", "prometheus_client", "ml_dtypes",
+             # checkpoint and tokenizer packages: the port reads safetensors,
+             # GGUF and the HF hub cache with the standard library
+             "safetensors", "huggingface_hub", "transformers", "tokenizers"}
 LAZY_ONLY = {"triton"}  # allowed inside a function body, never at module level
 STDLIB = set(sys.stdlib_module_names)
 
@@ -89,7 +92,7 @@ def test_importing_every_module_builds_nothing_and_pulls_no_jax():
         "import dynamo_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu', 'triton', 'msgpack', 'ml_dtypes')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu', 'triton', 'msgpack', 'ml_dtypes', 'safetensors', 'huggingface_hub', 'transformers', 'tokenizers')]\n"
         "assert not bad, bad\n"
         "from dynamo_tpu_torch.ops import _build\n"
         "assert _build._lib is None and _build.build_seconds is None\n"
@@ -111,7 +114,8 @@ def test_walk_finds_every_subpackage():
                      "llm.protocols.common", "runtime.engine", "runtime.msgpack_lite",
                      "runtime.request_plane", "runtime.discovery", "llm.model_card",
                      "llm.kv_router.publisher", "worker.__main__", "llm.kv_transfer",
-                     "llm.disagg", "worker.disagg_handler"):
+                     "llm.disagg", "worker.disagg_handler", "models.loader",
+                     "models.safetensors_io", "llm.gguf"):
         assert f"dynamo_tpu_torch.{expected}" in names
     importlib.import_module("dynamo_tpu_torch.ops._build")
 

@@ -294,7 +294,7 @@ def test_port_client_and_discovery_against_reference_endpoint(binary):
 @pytest.mark.parametrize("flags", [
     ["--tp-size", "2"], ["--ep-size", "2"], ["--pp-size", "2"], ["--sp-size", "2"],
     ["--num-hosts", "2"], ["--spec", "ngram"], ["--lora", "a=random:1"],
-    ["--quantize", "int8"], ["--model-path", "/nonexistent"], ["--kvbm-host-blocks", "8"],
+    ["--kvbm-host-blocks", "8"],
     ["--kvbm-disk-blocks", "8"], ["--kvbm-disk-path", "/kv"], ["--host-id", "1"],
     ["--coordinator", "127.0.0.1:1"], ["--dp-attention"],
 ], ids=lambda f: "_".join(f).lstrip("-"))
