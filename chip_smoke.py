@@ -58,6 +58,18 @@ int8 engine does and drain on SIGTERM; `weights_gguf` writes a 4-layer
 full-width q8_0 .gguf with a vocabulary, loads it with and without int8,
 holds every matrix to numpy's decode of the file and serves two requests
 from each.
+The KVBM phases: `kvbm` (scatter, bf16 KV) and `kvbm_local_int8` serve
+three waves on a 200-page pool at 28 layers — A (8 sessions of 2,048
+tokens, each alone), B (8 other prompts, staggered, which push A out of the
+pool), A2 (each A session extended by a 256-token turn, alone) — with KVBM
+off (recompute) and on (256 host + 512 disk blocks): A2 must onboard from
+both tiers, stream the same tokens as recompute, launch the prefill kernel
+over the onboarded pages, and the tier copies must equal the device pages
+bit for bit; `kvbm` adds an sla-policy run (which arm the onboard budget
+picks for host and disk spans) and a warm restart on the same disk pool.
+`kvbm_peer` starts two CLI workers with host tiers, the status server and
+canaries; worker 2 must pull worker 1's blocks over the data plane and
+stream its tokens, and both /metrics, /health and /live are read.
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -74,6 +86,7 @@ import subprocess
 import sys
 import time
 import types
+from functools import partial
 
 import torch
 
@@ -2440,6 +2453,464 @@ async def weights_gguf(seed: int, params: dict) -> dict:
 # ---------------------------------------------------------------------- #
 
 
+# ---------------------------------------------------------------------- #
+# phases: kvbm (KVBM tiers in process) and kvbm_peer (two CLI workers)
+# ---------------------------------------------------------------------- #
+
+KVBM_PAGES = 200  # device pool: wave B (8 x 25 pages) pushes wave A out of it
+KVBM_HOST_BLOCKS = 256  # G2: B's 192 blocks and A's newest 64
+KVBM_DISK_BLOCKS = 512  # G3: the rest of A, then what falls off the host
+KVBM_SESSIONS = 8
+KVBM_PROMPT, KVBM_B_PROMPT, KVBM_TURN, KVBM_OUT = 2048, 1536, 256, 32
+KVBM_SLA_TTFT_MS = 50.0  # the sla run's TTFT target: host spans fit, disk spans do not
+# (phase, decode_pool_mode, kv_quant, with the sla run and the warm restart)
+KVBM_PHASES = [("kvbm", "scatter", "none", True), ("kvbm_local_int8", "local", "int8", False)]
+PEER_PAGES, PEER_TAIL = 1024, 40  # peer prompts: 32 pages + a 40-token tail
+
+
+def kvbm_waves(seed: int, vocab: int) -> dict:
+    """Wave A: 8 sessions of 2,048 tokens, each request alone; wave B: 8
+    other prompts of 1,536 tokens, staggered; wave A2: each A session
+    extended by a 256-token turn, alone, newest session first. Alone, a
+    request's prefill chunks have the shapes a recompute has, so an
+    onboarded stream must equal the recomputed one bit for bit."""
+    _, text = make_requests(seed, vocab, [], (), (), "kvbm")
+
+    def req(ids, tag):
+        return PreprocessedRequest(token_ids=ids, request_id=tag,
+                                   stop_conditions={"max_tokens": KVBM_OUT}).to_dict()
+
+    a = [text(KVBM_PROMPT, 1000 + i) for i in range(KVBM_SESSIONS)]
+    b = [text(KVBM_B_PROMPT, 2000 + i) for i in range(KVBM_SESSIONS)]
+    turns = [text(KVBM_TURN, 3000 + i) for i in range(KVBM_SESSIONS)]
+    return {"A": [req(p, f"kvbm-a{i}") for i, p in enumerate(a)],
+            "B": [req(p, f"kvbm-b{i}") for i, p in enumerate(b)],
+            "A2": [req(a[i] + turns[i], f"kvbm-a2-{i}") for i in reversed(range(KVBM_SESSIONS))]}
+
+
+def kvbm_config(seed: int, mode: str, kvq: str, disk_path=None, sla=False) -> EngineConfig:
+    tiers = {} if disk_path is None else dict(
+        kvbm_host_blocks=KVBM_HOST_BLOCKS, kvbm_disk_blocks=KVBM_DISK_BLOCKS,
+        kvbm_disk_path=disk_path)
+    policy = dict(sched_policy="sla", ttft_target_ms=KVBM_SLA_TTFT_MS) if sla else {}
+    return EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode=mode, kv_quant=kvq,
+                        num_pages=KVBM_PAGES, **tiers, **policy)
+
+
+async def settle(engine) -> None:
+    """The offload pipeline drained: every committed block is in a tier."""
+    if engine.kvbm is None:
+        return
+    fut = engine.kvbm.flush_step()
+    if fut is not None:
+        await asyncio.wrap_future(fut)
+    for _ in range(3000):
+        if engine.kvbm.pending_offloads() == 0:
+            return
+        await asyncio.sleep(0.01)
+    raise RuntimeError("kvbm: the offload pipeline never drained")
+
+
+async def alone_records(engine, reqs) -> list:
+    out = []
+    for req in reqs:
+        rec = new_record()
+        await run_request(engine, req, rec)
+        assert rec["finish"] == "length" and len(rec["tokens"]) == KVBM_OUT, (req["request_id"], rec)
+        out.append(rec)
+    return out
+
+
+def stat_diff(after: dict, before: dict, keys) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+
+
+def tier_bytes_equal(engine, hashes_of) -> dict:
+    """The tier copy of blocks still in the device pool against a device
+    extract of their pages: bit for bit."""
+    alloc = engine.allocator
+    checked = 0
+    for hashes in hashes_of:
+        pages = alloc.cached_prefix(hashes)
+        if not pages:
+            continue
+        hs, ids = hashes[:len(pages)], np.array([p + 1 for p in pages], np.int32)
+        present, tk, tv = engine.kvbm.manager.read_blocks(hs)
+        assert present == list(hs), "kvbm: a committed block is missing from the tiers"
+        dk, dv = engine._dev_extract(ids)
+        for t, d in ((tk, dk), (tv, dv)):
+            a = t.transpose(0, 1).contiguous().view(torch.uint8)
+            b = d.contiguous().view(torch.uint8)
+            assert torch.equal(a, b), "kvbm: tier bytes differ from the device pages"
+        checked += len(hs)
+    assert checked > 0, "kvbm: no block of wave A was left in the device pool to check"
+    return {"blocks": checked, "bit_equal": True}
+
+
+async def kvbm_run(seed: int, params, mode: str, kvq: str, waves: dict, disk_path=None,
+                   sla: bool = False, restart: bool = False) -> dict:
+    """Waves A (alone), B (staggered) and A2 (alone) on one engine of a
+    200-page pool; KVBM on when `disk_path` is given. `restart`: only wave
+    A2, on a fresh engine that opens `disk_path` warm."""
+    from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+
+    rss0 = rss_gib()
+    engine = TorchEngine(kvbm_config(seed, mode, kvq, disk_path, sla),
+                         model_config=llama.LlamaConfig.llama3_2_3b(), params=params,
+                         device="cuda")
+    out = {"pinned_alloc_s": None if engine.kvbm is None
+           else round(engine.kvbm.manager.host_alloc_s, 3)}
+    await engine.warmup()
+    decisions = []
+    if sla:
+        mgr, real = engine.kvbm.manager, engine.kvbm.budget_onboard
+
+        def spy(hashes, headroom_ms, recompute_ms, hint_instance=None):
+            kept, decision = real(hashes, headroom_ms, recompute_ms, hint_instance=hint_instance)
+            tiers = ["host" if mgr.host.has(h) else "disk" for h in hashes]
+            decisions.append({"host_blocks": tiers.count("host"),
+                              "disk_blocks": tiers.count("disk"), "decision": decision,
+                              "kept": len(kept), "headroom_ms": round(headroom_ms or 0.0, 2),
+                              "recompute_ms_per_block": None if recompute_ms is None
+                              else round(recompute_ms, 3)})
+            return kept, decision
+
+    if not restart:
+        await alone_records(engine, waves["A"])
+        await settle(engine)
+        if engine.kvbm is not None:
+            out["tier_bytes"] = await engine._run_on_device(partial(
+                tier_bytes_equal, engine,
+                [TokenBlockSequence(r["token_ids"], 64, salt=0).block_hashes()
+                 for r in waves["A"]]))
+        base = engine.stats()
+        recs, wall = await drive(lambda r: _open(engine, r), waves["B"], (0, -1))
+        await settle(engine)
+        after = engine.stats()
+        out["wave_b"] = stream_metrics(recs, wall)
+        out["wave_b_dev_time"] = dev_time_delta(after, base)
+        assert all(r["finish"] == "length" for r in recs), "kvbm: a wave B request did not finish"
+    if sla:
+        engine.kvbm.budget_onboard = spy
+    reset_counts()
+    base = engine.stats()
+    recs = await alone_records(engine, waves["A2"])
+    await settle(engine)
+    launches, plain = kernel_launches(), dict(pa.plain_calls)
+    stats = engine.stats()
+    await engine.close()
+    out["rss_gib"] = {"before": round(rss0 or 0.0, 3), "after": round(rss_gib() or 0.0, 3)}
+    ttft = [r["ttft_s"] for r in recs]
+    out["wave_a2"] = {"ttft_ms": {"p50": round(1e3 * pct(ttft, 50), 2),
+                                  "p99": round(1e3 * pct(ttft, 99), 2),
+                                  "each": [round(1e3 * t, 2) for t in ttft]}}
+    out["tokens"] = [r["tokens"] for r in recs]
+    out["launches"], out["plain"] = launches, plain
+    if engine.kvbm is not None:
+        keys = ("kvbm_host_hits", "kvbm_disk_hits", "kvbm_onboarded_blocks",
+                "kvbm_onboard_count", "kvbm_onboard_ms_sum", "kvbm_offloaded_blocks",
+                "kvbm_g1_hit_blocks", "kvbm_onboard_src_local_blocks",
+                "kvbm_onboard_src_recompute_blocks", "kvbm_onboard_recompute_fallbacks",
+                "kv_onboard_fallbacks")
+        out["wave_a2"]["kvbm"] = stat_diff(stats, base, keys)
+        out["wave_a2"]["onboard_hist"] = {
+            k: v - base["kvbm_onboard_hist"][k] for k, v in stats["kvbm_onboard_hist"].items()}
+        out["wave_a2"]["dev_time"] = dev_time_delta(stats, base)
+        out["load_ms_per_block"] = {t: stats.get(f"kvbm_{t}_load_ms_per_block")
+                                    for t in ("host", "disk")}
+        out["offload"] = {k: stats[k] for k in (
+            "kvbm_offload_gathers", "kvbm_offload_commit_calls", "kvbm_offloaded_blocks",
+            "kvbm_offload_batches_dropped", "kvbm_offload_blocks_dropped",
+            "kvbm_offload_failures", "kvbm_dropped_blocks")}
+        off = stats["dev_time"].get("kvbm_offload", {"count": 0, "seconds": 0.0})
+        out["offload"]["gather_device_ms"] = {
+            "count": off["count"], "total": round(1e3 * off["seconds"], 3),
+            "per_gather": round(1e3 * off["seconds"] / max(off["count"], 1), 4)}
+    if sla:
+        out["sla_decisions"] = decisions
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+async def _open(engine, req):
+    return engine.generate(req, Context())
+
+
+def check_onboard_launches(phase: str, launches: dict, plain: dict, mode: str, kvq: str) -> None:
+    """Wave A2 (each request alone: prefill then decode, no mixed step):
+    the prefill kernel over the onboarded pages and the path's decode
+    kernel launched, no other kernel, no plain attention call."""
+    decode_kernel = "paged_decode_local" if mode == "local" else "paged_decode"
+    used = [(decode_kernel, kvq), ("prefill_attention", kvq)]
+    assert all(launches.get(u, 0) > 0 for u in used), f"{phase}: {launches}"
+    assert sum(launches.values()) == sum(launches[u] for u in used), f"{phase}: {launches}"
+    assert not any(plain.values()), f"{phase}: plain attention ran: {plain}"
+
+
+async def kvbm_phase(seed: int, params, phase: str, mode: str, kvq: str, extras: bool) -> dict:
+    """KVBM off (recompute), then on (host 256 + disk 512 blocks), on the
+    same waves; with `extras` an sla run of wave A2 and a warm restart."""
+    import shutil
+    import tempfile
+
+    waves = kvbm_waves(seed, llama.LlamaConfig.llama3_2_3b().vocab_size)
+    tmp = tempfile.mkdtemp(prefix="kvbm_")
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    launches: dict = {}
+    try:
+        off = await kvbm_run(seed, params, mode, kvq, waves)
+        on = await kvbm_run(seed, params, mode, kvq, waves, disk_path=f"{tmp}/g3")
+        for run in (off, on):
+            check_onboard_launches(phase, run["launches"], run["plain"], mode, kvq)
+        add_launches(launches, on["launches"])
+        for i, (a, b) in enumerate(zip(off["tokens"], on["tokens"])):
+            assert a == b, f"{phase}: A2 request {i} onboarded streams other tokens than recompute"
+        kv = on["wave_a2"]["kvbm"]
+        assert kv["kvbm_host_hits"] > 0 and kv["kvbm_disk_hits"] > 0, f"{phase}: {kv}"
+        assert kv["kvbm_onboarded_blocks"] > 0 and kv["kv_onboard_fallbacks"] == 0, f"{phase}: {kv}"
+        result = {"off": off, "on": on}
+        if extras:
+            sla = await kvbm_run(seed, params, mode, kvq, waves, disk_path=f"{tmp}/sla", sla=True)
+            add_launches(launches, sla["launches"])
+            result["sla"] = {"decisions": sla["sla_decisions"], "wave_a2": sla["wave_a2"],
+                             "streams_equal_recompute": sum(
+                                 a == b for a, b in zip(off["tokens"], sla["tokens"]))}
+            warm = await kvbm_run(seed, params, mode, kvq, waves, disk_path=f"{tmp}/g3",
+                                  restart=True)
+            add_launches(launches, warm["launches"])
+            for i, (a, b) in enumerate(zip(off["tokens"], warm["tokens"])):
+                assert a == b, f"{phase}: A2 request {i} after a warm restart differs"
+            assert warm["wave_a2"]["kvbm"]["kvbm_disk_hits"] > 0, warm["wave_a2"]
+            result["warm_restart"] = {"wave_a2": warm["wave_a2"],
+                                      "pinned_alloc_s": warm["pinned_alloc_s"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for run in result.values():
+        if isinstance(run, dict):
+            run.pop("tokens", None)
+            run.pop("launches", None)
+    emit(phase, model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16", decode_pool_mode=mode,
+         kv_quant=kvq, num_pages=KVBM_PAGES, host_blocks=KVBM_HOST_BLOCKS,
+         disk_blocks=KVBM_DISK_BLOCKS, disk_free_gb=round(free_gb, 1),
+         sessions=KVBM_SESSIONS, prompt_tokens={"A": KVBM_PROMPT, "B": KVBM_B_PROMPT,
+                                                 "A2": KVBM_PROMPT + KVBM_TURN},
+         max_tokens=KVBM_OUT, streams_equal_recompute=KVBM_SESSIONS,
+         **result,
+         launches={f"{n}/{f}": c for (n, f), c in launches.items() if c})
+    return launches
+
+
+async def kvbm_all(seed: int, params) -> dict:
+    total: dict = {}
+    for phase, mode, kvq, extras in KVBM_PHASES:
+        add_launches(total, await kvbm_phase(seed, params, phase, mode, kvq, extras))
+    return total
+
+
+def free_port_pair() -> int:
+    """A port P with P and P + 1 free (the second worker's offset)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        try:
+            with socket.socket() as s:
+                s.bind(("0.0.0.0", port + 1))
+            return port
+        except OSError:
+            continue
+    raise RuntimeError("no free pair of ports")
+
+
+def scrape(port: int, path: str):
+    """(status, body) of one GET on a worker's system-status server."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def gauge(metrics: str, name: str) -> float:
+    """The value of `dynamo_worker_<name>` in a Prometheus text body."""
+    import re
+
+    m = re.search(rf"^dynamo_worker_{name}(?:{{[^}}]*}})? (\S+)$", metrics, re.M)
+    assert m, f"no dynamo_worker_{name} in /metrics"
+    return float(m.group(1))
+
+
+async def kvbm_peer(seed: int) -> None:
+    """Two `python -m dynamo_tpu_torch.worker` processes on the card, each
+    with a 256-block host tier, the status server and canaries. Wave A goes
+    to worker 1 (addressed directly), then the same prompts to worker 2,
+    which must pull worker 1's blocks over the data plane (G4) and stream
+    the same tokens. Both /metrics are scraped; both drain on SIGTERM."""
+    import os
+    import re
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from dynamo_tpu_torch.llm.kv_router.publisher import METRICS_TOPIC_FMT
+    from dynamo_tpu_torch.runtime import (DiscoveryServer, DistributedRuntime, PushRouter,
+                                          RouterMode, RuntimeConfig, codec)
+
+    server = DiscoveryServer(port=0)
+    _, port = await server.start()
+    disc = f"tcp://127.0.0.1:{port}"
+    cfg = RuntimeConfig.from_settings()
+    cfg.discovery_endpoint = disc
+    drt = await DistributedRuntime.create(cfg)
+    root = Path(__file__).resolve().parent
+    sys_port = free_port_pair()
+    procs, logs, rcs = {}, {}, {}
+    vocab = llama.LlamaConfig.llama3_2_3b().vocab_size
+    _, text = make_requests(seed, vocab, [], (), (), "peer")
+    reqs = [PreprocessedRequest(token_ids=text(KVBM_PROMPT + PEER_TAIL, 5000 + i),
+                                request_id=f"peer-{i}",
+                                stop_conditions={"max_tokens": KVBM_OUT}).to_dict()
+            for i in range(KVBM_SESSIONS)]
+    try:
+        cards = await drt.discovery.watch_prefix("v1/mdc/dynamo/backend/generate/")
+        met_sub = await drt.discovery.subscribe(
+            METRICS_TOPIC_FMT.format(namespace="dynamo", component="backend"))
+        t0 = time.perf_counter()
+        for index in (0, 1):
+            name = f"w{index + 1}"
+            logs[name] = tempfile.NamedTemporaryFile(prefix=f"torch_{name}_", suffix=".log",
+                                                     delete=False)
+            env = dict(os.environ, PYTHONPATH=str(root), DYN_SYSTEM_PORT=str(sys_port),
+                       DYN_WORKER_INDEX=str(index), DYN_HEALTH_CHECK_ENABLED="1",
+                       DYN_HEALTH_CHECK_IDLE_TIMEOUT="5")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
+                 "--num-pages", str(PEER_PAGES), "--kvbm-host-blocks", str(KVBM_HOST_BLOCKS),
+                 "--seed", str(seed), "--discovery", disc, "--kv-data-plane-host", "127.0.0.1"],
+                cwd=root, env=env, stdout=logs[name], stderr=subprocess.STDOUT)
+
+        def tail(name):
+            return Path(logs[name].name).read_text()[-3000:]
+
+        seen = 0
+        while seen < 2:
+            ev = await cards.get(timeout=1.0)
+            seen += ev is not None and ev.type == "put"
+            for name, proc in procs.items():
+                if proc.poll() is not None:
+                    raise RuntimeError(f"kvbm_peer: {name} exited {proc.poll()}: {tail(name)}")
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError("kvbm_peer: the workers never registered")
+        t_ready = time.perf_counter() - t0
+        ids = {}
+        for name in procs:
+            m = re.search(r"instance=([0-9a-f]+)", Path(logs[name].name).read_text())
+            ids[name] = int(m.group(1), 16)
+        client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
+        for _ in range(200):
+            if set(ids.values()) <= set(client.instance_ids()):
+                break
+            await asyncio.sleep(0.05)
+        routers = {name: PushRouter(client, RouterMode.DIRECT, direct_instance=i)
+                   for name, i in ids.items()}
+
+        async def serve_wave(name):
+            out = []
+            for req in reqs:
+                rec = new_record()
+                await run_stream(routers[name].generate, req, rec)
+                assert rec["finish"] == "length" and len(rec["tokens"]) == KVBM_OUT, (name, rec)
+                out.append(rec)
+            return out
+
+        w1 = await serve_wave("w1")
+        # worker 1's blocks are stored and announced before worker 2 asks
+        for _ in range(200):
+            if gauge(scrape(sys_port, "/metrics")[1], "kvbm_pending_offloads") == 0:
+                break
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(1.0)
+        w2 = await serve_wave("w2")
+        # each worker's stats as published after the wave
+        while await met_sub.get(timeout=0.01) is not None:
+            pass
+        stats = {}
+        while len(stats) < 2:
+            msg = codec.unpack(await met_sub.get(timeout=10))
+            stats[msg["worker_id"]] = msg["stats"]
+        # a canary must have run on each before /health is read
+        deadline = time.perf_counter() + 30
+        metrics = {}
+        while time.perf_counter() < deadline:
+            metrics = {name: scrape(sys_port + i, "/metrics")[1]
+                       for i, name in enumerate(("w1", "w2"))}
+            if all(gauge(m, "health_canaries") >= 1 for m in metrics.values()):
+                break
+            await asyncio.sleep(0.5)
+        health = {name: scrape(sys_port + i, "/health") for i, name in enumerate(("w1", "w2"))}
+        live = {name: scrape(sys_port + i, "/live")[0] for i, name in enumerate(("w1", "w2"))}
+        await client.close()
+        for proc in procs.values():
+            proc.send_signal(signal.SIGTERM)
+        for name in list(procs):
+            proc = procs.pop(name)
+            rcs[name] = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
+            assert rcs[name] == 0, f"kvbm_peer: {name} exited {rcs[name]} on SIGTERM: {tail(name)}"
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+            os.unlink(f.name)
+        await drt.close()
+        await server.stop()
+
+    for i, (a, b) in enumerate(zip(w1, w2)):
+        assert a["tokens"] == b["tokens"], f"kvbm_peer: request {i} differs on the pulling worker"
+    m1, m2 = metrics["w1"], metrics["w2"]
+    assert gauge(m1, "kvbm_offloaded_blocks") > 0, "kvbm_peer: worker 1 offloaded nothing"
+    assert gauge(m2, "kvbm_onboard_src_peer_blocks") > 0, "kvbm_peer: worker 2 pulled nothing"
+    for name, m in metrics.items():
+        assert gauge(m, "health_canaries") >= 1, f"kvbm_peer: no canary ran on {name}"
+        assert health[name][0] == 200 and json.loads(health[name][1])["status"] == "healthy", health
+        assert live[name] == 200
+    s1, s2 = stats[ids["w1"]], stats[ids["w2"]]
+    pull_ms = list(s2.get("kvbm_peer_ms_per_block", {}).values())
+    calls = s2["attention_calls"]
+    assert calls["kernels"].get("prefill_attention/none", 0) > 0, calls
+    assert not any(calls["plain"].values()), calls
+    ttft = {name: [r["ttft_s"] for r in recs] for name, recs in (("w1", w1), ("w2", w2))}
+    emit("kvbm_peer", model="llama-3.2-3b", layers=LAYERS, num_pages_each=PEER_PAGES,
+         host_blocks=KVBM_HOST_BLOCKS, sessions=KVBM_SESSIONS,
+         prompt_tokens=KVBM_PROMPT + PEER_TAIL, max_tokens=KVBM_OUT,
+         seconds_to_ready=round(t_ready, 2), streams_equal=len(w2),
+         ttft_ms={name: {"p50": round(1e3 * pct(t, 50), 2), "p99": round(1e3 * pct(t, 99), 2)}
+                  for name, t in ttft.items()},
+         worker1={k: s1.get(k) for k in ("kvbm_offloaded_blocks", "kvbm_host_hits",
+                                         "kvbm_host_load_ms_per_block", "kv_transfers_served",
+                                         "kv_bytes_served", "kvbm_dropped_blocks")},
+         worker2={k: s2.get(k) for k in ("kvbm_onboard_src_peer_blocks", "kvbm_remote_onboards",
+                                         "kvbm_remote_blocks_pulled", "kvbm_peer_bytes_pulled",
+                                         "kvbm_peer_pull_ms_sum", "kvbm_peer_pull_hist",
+                                         "kvbm_onboard_count", "kvbm_onboard_ms_sum",
+                                         "kv_onboard_fallbacks")},
+         peer_ms_per_block=pull_ms,
+         metrics_scraped={name: {k: gauge(m, k) for k in (
+             "kvbm_offloaded_blocks", "kvbm_onboard_src_peer_blocks", "kvbm_host_hits",
+             "kvbm_onboard_count", "health_canaries", "health_canary_failures")}
+             for name, m in metrics.items()},
+         health={name: h[0] for name, h in health.items()}, live=live,
+         system_ports=[sys_port, sys_port + 1], exit_codes=rcs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2493,6 +2964,9 @@ def main() -> None:
     t0 = time.perf_counter()
     add_launches(launches, asyncio.run(weights_gguf(args.seed, params)))
     seconds["weights_gguf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_launches(launches, asyncio.run(kvbm_all(args.seed, params)))
+    seconds["kvbm"] = time.perf_counter() - t0
     # the subprocess workers size or place their pools on the card: this
     # process lets go of what it holds first (engines that sat in
     # reference cycles with their tasks included)
@@ -2508,6 +2982,9 @@ def main() -> None:
     t0 = time.perf_counter()
     asyncio.run(disagg_subprocess(args.seed, reference))
     seconds["disagg_subprocess"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    asyncio.run(kvbm_peer(args.seed))
+    seconds["kvbm_peer"] = time.perf_counter() - t0
 
     line = {"kernels": [
         {

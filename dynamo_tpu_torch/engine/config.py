@@ -89,7 +89,8 @@ class EngineConfig:
     # flat-token budget of one mixed dispatch: decode rows + granted
     # prefill chunks, pow2-bucketed up to this cap
     mixed_max_tokens: int = 2048
-    # KVBM host/disk tiers (not ported: must stay 0 / None)
+    # KVBM host/disk tiers (kvbm/): blocks of capacity each; a disk tier
+    # needs its directory
     kvbm_host_blocks: int = 0
     kvbm_disk_blocks: int = 0
     kvbm_disk_path: Optional[str] = None
@@ -120,8 +121,6 @@ class EngineConfig:
                 bad.append(name)
         if self.decode_pool_mode not in (None, "scatter", "local"):
             bad.append("decode_pool_mode")
-        if self.kvbm_host_blocks or self.kvbm_disk_blocks or self.kvbm_disk_path:
-            bad.append("kvbm_*")
         if self.lora_pool_slots:
             bad.append("lora_pool_slots")
         if self.role not in ("decode", "both", "prefill"):

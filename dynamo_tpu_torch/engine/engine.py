@@ -37,14 +37,21 @@ and host reads are the expensive unit:
     `_resume`: it allocates the prompt's pages, injects the pulled chunks
     while the batch keeps stepping, and decodes on from the prefill
     worker's first token; any failed pull falls back to a local prefill.
+  * KVBM (`kvbm/`, when `kvbm_host_blocks` / `kvbm_disk_blocks` are set):
+    every committed block is written through to the host tier (G2, one
+    pinned tensor) and cascades to the disk tier (G3); one gather a step
+    copies the step's committed pages to the host on the side stream.
+    Admission probes the tiers — and, with the announcement mesh, peer
+    workers' tiers (G4) — for the blocks the device prefix cache missed and
+    injects the hits into fresh pages before prefill.
 
 The KV pool is written in place. There is nothing to compile per shape, so
 `warmup()` only builds the kernel library and drives one dispatch of each
 kind. All device work runs on one executor thread so a blocking copy never
 stalls the event loop. Left out of this port so far (each raises a typed
-error when asked for): KVBM tiers, role morphing, the multi-host shard
-handoff, speculative decoding, guided decoding, LoRA, multimodal, multi-host,
-tensor/pipeline/sequence parallelism. The KV pool may be stored at 8 or 4
+error when asked for): the session checkpointer, role morphing, the
+multi-host shard handoff, speculative decoding, guided decoding, LoRA,
+multimodal, multi-host, tensor/pipeline/sequence parallelism. The KV pool may be stored at 8 or 4
 bits (`kv_quant`): quantized on write, dequantized inside the attention
 kernels. The weights may be int8 weight-only quantized (`quantize="int8"`,
 models/quant.py): random weights are quantized on the device after their
@@ -161,6 +168,8 @@ class _Slot:
     sched_deadline: float = 0.0
     sched_skips: int = 0
     tenant: str = ""
+    kv_holder: Optional[dict] = None  # router holder hint for a peer onboard
+    onboard: Optional[tuple] = None  # KVBM: (fresh pages, hashes) to inject
 
 
 class StreamedPullHandle:
@@ -276,6 +285,22 @@ class TorchEngine:
         self.allocator = PageAllocator(
             config.num_pages, config.page_size, event_sink=event_sink
         )
+        # KVBM host/disk tiers: write-through offload of committed blocks,
+        # onboard at admission when the device prefix cache misses
+        self.kvbm = None
+        if config.kvbm_host_blocks > 0 or config.kvbm_disk_blocks > 0:
+            from ..kvbm import KvBlockManager, KvbmConfig, KvbmConnector
+            from ..llm.kv_transfer import wire_dtype as to_torch
+
+            wire_shape, wire_dtype = self._kv_wire_meta()
+            manager = KvBlockManager(
+                KvbmConfig(host_blocks=config.kvbm_host_blocks,
+                           disk_blocks=config.kvbm_disk_blocks,
+                           disk_path=config.kvbm_disk_path),
+                tuple(wire_shape), to_torch(wire_dtype), kv_format=config.kv_quant,
+                pin=self._on_cuda,
+            )
+            self.kvbm = KvbmConnector(self, manager)
         B, P = config.max_num_seqs, config.max_pages_per_seq
         self.page_tables = np.zeros((B, P), np.int32)
         self.seq_lens = np.zeros((B,), np.int32)
@@ -391,6 +416,19 @@ class TorchEngine:
         self.disagg_first_token_before_last_chunk = 0
         self.kv_streamed_stages = 0
         self.kv_streamed_fallbacks = 0
+        # KVBM tier-chain effectiveness: G1 = device prefix-cache hits and
+        # misses at admission; the onboard latency histogram (tier load +
+        # inject); onboards that fell back to prefill (a block evicted
+        # between probe and load, an injected fault, a peer of another
+        # KV format)
+        self.kvbm_g1_hit_blocks = 0
+        self.kvbm_g1_miss_blocks = 0
+        self._onboard_hist_bounds = (1.0, 5.0, 20.0, 100.0, 500.0)
+        self.kvbm_onboard_hist = [0] * (len(self._onboard_hist_bounds) + 1)
+        self.kvbm_onboard_ms_sum = 0.0
+        self.kvbm_onboard_count = 0
+        self.kv_onboard_fallbacks = 0
+        self._kvbm_futs: List[concurrent.futures.Future] = []  # gathers to await
 
     # ------------------------------------------------------------------ #
     # lifecycle / interface
@@ -414,6 +452,16 @@ class TorchEngine:
             except asyncio.CancelledError:
                 pass
             self._step_task = None
+        if self.kvbm is not None:
+            # flush staged commits, drain in-flight offloads, stop the tier
+            # thread, then persist the G3 index and close its files
+            await self._kvbm_flush()
+            for _ in range(500):
+                if self.kvbm.pending_offloads() == 0:
+                    break
+                await asyncio.sleep(0.01)
+            self.kvbm.shutdown()
+            self.kvbm.manager.close()
         self._device_exec.shutdown(wait=True)
         self._fetch_exec.shutdown(wait=True)
 
@@ -422,7 +470,7 @@ class TorchEngine:
         kind — batched prefill, decode reset/patch/block, the mixed step —
         through the real `generate` path before serving traffic. Returns the
         number of device dispatches made. The warmup prompts' cached pages
-        are evicted afterwards."""
+        are evicted from the device afterwards (KVBM tiers keep theirs)."""
         if self._on_cuda:
             from ..ops import _build
 
@@ -454,7 +502,8 @@ class TorchEngine:
         await started.wait()
         t2 = asyncio.create_task(_drain(None))
         await asyncio.gather(t1, t2)
-        self.clear_kv_blocks()
+        # the device prefix cache only: a warm disk tier survives the warmup
+        self.allocator.clear_cache()
         return self._dispatch_count() - before
 
     def _dispatch_count(self) -> int:
@@ -516,6 +565,7 @@ class TorchEngine:
             slot.max_tokens = max(self.config.max_model_len - len(slot.prompt), 1)
         slot.priority = int(req.priority or 0)
         slot.tenant = req.tenant or ""
+        slot.kv_holder = req.kv_holder
         slot.arrival_s = time.monotonic()
         self.scheduler.assign_deadline(slot)
         return slot
@@ -626,8 +676,12 @@ class TorchEngine:
 
     def clear_kv_blocks(self) -> int:
         """Admin flush: evict every unreferenced prefix-cache page (emitting
-        removed events). Active sequences keep their pages."""
-        return self.allocator.clear_cache()
+        removed events) and drop the KVBM tiers. Active sequences keep their
+        pages."""
+        n = self.allocator.clear_cache()
+        if self.kvbm is not None:
+            n += self.kvbm.clear()
+        return n
 
     def _kv_pool_bytes(self) -> int:
         """Device bytes of the K and V stores (ints plus scales when quantized)."""
@@ -652,6 +706,18 @@ class TorchEngine:
         out["num_preemptions"] = self.num_preemptions
         out["engine_role"] = self.config.role
         out["kv_format_mismatches"] = self.kv_format_mismatches
+        if self.kvbm is not None:
+            out.update(self.kvbm.stats())
+            out["kvbm_g1_hit_blocks"] = self.kvbm_g1_hit_blocks
+            out["kvbm_g1_miss_blocks"] = self.kvbm_g1_miss_blocks
+            out["kvbm_onboard_count"] = self.kvbm_onboard_count
+            out["kvbm_onboard_ms_sum"] = round(self.kvbm_onboard_ms_sum, 3)
+            out["kvbm_onboard_hist"] = {
+                **{f"le_{b:g}ms": n
+                   for b, n in zip(self._onboard_hist_bounds, self.kvbm_onboard_hist)},
+                "inf": self.kvbm_onboard_hist[-1],
+            }
+            out["kv_onboard_fallbacks"] = self.kv_onboard_fallbacks
         if self.data_plane is not None:
             out["kv_transfers_served"] = self.data_plane.transfers_served
             out["kv_bytes_served"] = self.data_plane.bytes_served
@@ -768,7 +834,24 @@ class TorchEngine:
         )
         progressed |= dispatched
         progressed |= await self._fetch_and_process(fetch_block)
+        # this step's block commits become ONE offload gather
+        await self._kvbm_flush()
         return progressed
+
+    async def _kvbm_flush(self) -> None:
+        """Enqueue the gather of every block committed since the last flush
+        (KVBM write-through). Awaited, so it is on the device executor —
+        and so on the compute stream — before any later dispatch can
+        rewrite those pages, and a device error surfaces here."""
+        if self.kvbm is None:
+            return
+        fut = self.kvbm.flush_step()
+        if fut is not None:
+            self._kvbm_futs.append(fut)
+        # the release-time flushes too: a failed gather raises here
+        futs, self._kvbm_futs = self._kvbm_futs, []
+        for f in futs:
+            await asyncio.wrap_future(f)
 
     # -- admission ------------------------------------------------------- #
 
@@ -802,6 +885,17 @@ class TorchEngine:
             self.allocator.acquire_cached(hashes) if cfg.enable_prefix_caching else []
         )
         n_cached = len(cached_pages)
+        # KVBM: probe G2/G3 (and peers' tiers, G4) for the hashes the device
+        # cache missed; hits are injected before prefill (onboard)
+        onboard_hashes: List[int] = []
+        hint_inst = None
+        prompt_full_blocks = len(kv_prompt) // cfg.page_size
+        if self.kvbm is not None and cfg.enable_prefix_caching:
+            hint = slot.kv_holder or {}
+            hint_inst = hint.get("instance")
+            onboard_hashes = self.kvbm.probe(
+                hashes[n_cached:prompt_full_blocks], hint_instance=hint_inst,
+                hint_blocks=max(int(hint.get("blocks", 0)) - n_cached, 0))
         # allocate the prompt's remaining pages now; generation pages grow later
         prompt_pages = (len(kv_prompt) + cfg.page_size - 1) // cfg.page_size
         fresh_prompt = max(prompt_pages - n_cached, 0)
@@ -812,8 +906,25 @@ class TorchEngine:
         if fresh is None:
             self.allocator.release(cached_pages, hashes[:n_cached])
             return False
+        # admission is certain: count G1 and settle the onboard budget here,
+        # not before the allocation (a refused slot retries every step)
+        if self.kvbm is not None and cfg.enable_prefix_caching:
+            self.kvbm_g1_hit_blocks += n_cached
+            self.kvbm_g1_miss_blocks += max(prompt_full_blocks - n_cached, 0)
+            if onboard_hashes:
+                # three-arm budget: local tiers vs peers vs recompute; under
+                # fifo (no headroom) it only counts sources
+                headroom_ms = self.scheduler.onboard_headroom_ms(slot)
+                rate = self.scheduler.cost.per_token("prefill")
+                onboard_hashes, _ = self.kvbm.budget_onboard(
+                    list(onboard_hashes), headroom_ms,
+                    rate * 1000.0 * cfg.page_size if rate is not None else None,
+                    hint_instance=hint_inst)
+        n_onboard = len(onboard_hashes)
         self._seat(slot, cached_pages + fresh, hashes[:n_cached])
-        slot.prefill_pos = min(n_cached * cfg.page_size, len(kv_prompt))
+        slot.prefill_pos = min((n_cached + n_onboard) * cfg.page_size, len(kv_prompt))
+        if n_onboard:
+            slot.onboard = (fresh[:n_onboard], onboard_hashes)
         # if the whole prompt is cached, recompute the last token (need its
         # logits) — back off one position
         if slot.prefill_pos >= len(kv_prompt):
@@ -1330,6 +1441,8 @@ class TorchEngine:
             self.allocator.commit_hashes(pages, new_hashes, token_blocks, parent)
             slot.committed_hashes.extend(new_hashes)
             self._advance_kv_stream(slot)
+            if self.kvbm is not None:
+                self.kvbm.offload_commit(new_hashes, [p + 1 for p in pages], parent=parent)
 
     # -- disaggregation: KV handoff ---------------------------------------- #
 
@@ -1372,6 +1485,45 @@ class TorchEngine:
                 out.append(h)
         self._copy_stream.synchronize()
         return out[0], out[1]
+
+    @torch.no_grad()
+    def _dev_offload_gather(self, page_ids: np.ndarray):
+        """KVBM offload: gather the pages `page_ids` (physical ids) in their
+        wire layout `[L, n, ...]` on the compute stream and, on CUDA, copy
+        them into pinned host tensors on the side copy stream without
+        waiting. Returns (k, v, event): the event marks the copy's end (None
+        on the CPU, where the gather is the copy)."""
+        ids = torch.from_numpy(np.asarray(page_ids, np.int64)).to(self.device)
+        k = pack_pages(extract_pages(self.kv_k, ids))
+        v = pack_pages(extract_pages(self.kv_v, ids))
+        if not self._on_cuda:
+            return k, v, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        ready = torch.cuda.Event()
+        ready.record()
+        out = []
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(ready)
+            for x in (k, v):
+                # the copy stream reads x: keep its memory from being reused
+                # by the compute stream before the copy ends
+                x.record_stream(self._copy_stream)
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                out.append(h)
+            done = torch.cuda.Event()
+            done.record()
+        return out[0], out[1], done
+
+    @torch.no_grad()
+    def _dev_onboard(self, page_ids: np.ndarray, k: torch.Tensor, v: torch.Tensor):
+        """KVBM onboard: host blocks `[n, L, ...]` (pinned on CUDA, so the
+        copy is asynchronous) into the pool at `page_ids` (physical ids)."""
+        if self._on_cuda:
+            k = k.to(self.device, non_blocking=True)
+            v = v.to(self.device, non_blocking=True)
+        self._dev_inject(page_ids, k.transpose(0, 1), v.transpose(0, 1))
 
     @torch.no_grad()
     def _dev_inject(self, page_ids: np.ndarray, k, v):
@@ -1556,7 +1708,61 @@ class TorchEngine:
             if slot is not None and slot.preloaded is not None:
                 await self._inject_preloaded(slot)
                 did = True
+        for slot in list(self.slots):
+            if slot is not None and slot.onboard is not None:
+                await self._inject_onboard(slot)
+                did = True
         return did
+
+    async def _inject_onboard(self, slot: _Slot):
+        """KVBM onboard: write G2/G3/G4 blocks into the slot's fresh pages,
+        then register them in the device prefix cache. A block evicted
+        between probe and load, an injected `kvbm.onboard` fault or a peer
+        of another KV format falls back to prefilling that span (counted);
+        any other error propagates."""
+        from ..llm.kv_transfer import KvFormatError
+        from ..runtime import faults
+
+        alloc_pages, hashes = slot.onboard
+        slot.onboard = None
+        t0 = time.perf_counter()
+        loop = asyncio.get_running_loop()
+
+        def run(fn, *args):
+            # tier reads (host copies, disk reads) off the event loop and
+            # off the device executor
+            return loop.run_in_executor(None, fn, *args)
+
+        try:
+            hint = slot.kv_holder or {}
+            k, v = await self.kvbm.load_async(hashes, run,
+                                              hint_instance=hint.get("instance"))
+        except (KeyError, faults.FaultError, KvFormatError) as e:
+            if isinstance(e, KvFormatError):
+                self.kv_format_mismatches += 1
+            logger.warning("KVBM onboard miss: %s; prefilling instead", e)
+            self.kv_onboard_fallbacks += 1
+            slot.prefill_pos = len(slot.committed_hashes) * self.config.page_size
+            return
+        phys = np.array([p + 1 for p in alloc_pages], np.int32)  # scratch shift
+        await self._run_on_device(partial(self._dev_onboard, phys, k, v), tag="kvbm_onboard")
+        n_known = len(slot.committed_hashes)
+        token_blocks = [b.tokens for b in slot.seq.blocks[n_known : n_known + len(hashes)]]
+        parent = slot.committed_hashes[-1] if slot.committed_hashes else None
+        self.allocator.commit_hashes(alloc_pages, hashes, token_blocks, parent)
+        slot.committed_hashes.extend(hashes)
+        self._advance_kv_stream(slot)
+        self._record_onboard_ms((time.perf_counter() - t0) * 1000.0)
+
+    def _record_onboard_ms(self, ms: float):
+        for i, b in enumerate(self._onboard_hist_bounds):
+            if ms <= b:
+                self.kvbm_onboard_hist[i] += 1
+                break
+        else:
+            self.kvbm_onboard_hist[-1] += 1
+        self.kvbm_onboard_ms_sum += ms
+        self.kvbm_onboard_count += 1
 
     async def _inject_preloaded(self, slot: _Slot):
         """Decode role: write transferred KV pages into our pool and enter
@@ -2260,6 +2466,15 @@ class TorchEngine:
             # commit any full generated blocks before release so decode KV is
             # reusable (conversation prefix reuse / cheap preemption resume)
             self._commit_generated_blocks(slot)
+            if self.kvbm is not None:
+                # flush the stage NOW: release makes these pages evictable,
+                # and the offload gather must enter the device queue before
+                # any later dispatch that could recycle them (the step-end
+                # flush is too late for a mid-step release: a preemption, a
+                # cancel)
+                fut = self.kvbm.flush_step()
+                if fut is not None:
+                    self._kvbm_futs.append(fut)
             # releasing while blocks are in flight is safe: in-flight writes
             # for this lane land strictly AFTER its last committed position
             # (speculation starts past the fetched tokens), i.e. only on
@@ -2313,6 +2528,8 @@ class TorchEngine:
             parent = slot.committed_hashes[-1] if slot.committed_hashes else None
             self.allocator.commit_hashes(pages, new_hashes, token_blocks, parent)
             slot.committed_hashes.extend(new_hashes)
+            if self.kvbm is not None:
+                self.kvbm.offload_commit(new_hashes, [p + 1 for p in pages], parent=parent)
 
 
 MODEL_REGISTRY = {

@@ -26,10 +26,15 @@ with numpy's itemsize and reads bf16 through `ml_dtypes`; here a name ->
 tensors through `torch.frombuffer` (a bf16 tensor is 16-bit words read as
 bf16).
 
-Not ported yet: the KVBM block pull (`{"blocks": ...}` requests) and the
-session-checkpoint push (`{"ckpt": ...}`), which this server answers with a
-typed `{"error": ...}` header naming them, and the multi-host shard path
-(descriptors with `shards`), which the engine refuses.
+KVBM block pulls ride the ranged handshake: `{"blocks": [hashes], "fmt":
+kv_format}` is answered from the worker's tiers (`kvbm_source`, set by
+kvbm/distributed.py) with ONE frame — a header `{"n", "k_bytes", "v_bytes",
+"shape", "dtype", "fmt"}` then the stacked K and V bytes — or refused typed
+(no tiers, a block miss, a `kv_format` mismatch) before a byte moves;
+`pull_kvbm_blocks` is the client. Not ported yet: the session-checkpoint
+push (`{"ckpt": ...}`, answered with a typed `{"error": ...}` header that
+marks this worker ineligible) and the multi-host shard path (descriptors
+with `shards`), which the engine refuses.
 """
 
 from __future__ import annotations
@@ -283,6 +288,10 @@ class KvDataPlaneServer:
         # fallback must not pass for a working handoff)
         self.transfers_served = 0
         self.bytes_served = 0
+        # distributed KVBM (kvbm/distributed.py): when set, `{"blocks": [...]}`
+        # requests are served from these tiers
+        self.kvbm_source = None
+        self.kvbm_distributed = None
 
     @property
     def addr(self) -> str:
@@ -459,14 +468,13 @@ class KvDataPlaneServer:
     async def _serve_range(self, body: bytes, writer: asyncio.StreamWriter,
                            reader: asyncio.StreamReader):
         """One ranged request -> one (k, v) frame; `fin` releases the
-        transfer. KVBM block pulls and checkpoint pushes are refused."""
+        transfer; `blocks` pulls KVBM blocks; checkpoint pushes are refused."""
         req = msgpack_lite.unpackb(body)
         if req.get("ckpt") is not None:
             await self._refuse_checkpoint(req["ckpt"], reader, writer)
             return
         if req.get("blocks") is not None:
-            await self._send_header(writer, {
-                "error": "kvbm block pulls are not ported to the PyTorch/CUDA worker"})
+            await self._serve_kvbm_blocks(req, writer)
             return
         transfer_id = req.get("tid", "")
         staged = self._staged.get(transfer_id)
@@ -496,6 +504,52 @@ class KvDataPlaneServer:
         writer.write(vb)
         await asyncio.wait_for(writer.drain(), self.chunk_timeout)
         staged.count_serve(len(kb) + len(vb))
+
+    async def _serve_kvbm_blocks(self, req: dict, writer: asyncio.StreamWriter):
+        """Serve tiered KV blocks by hash (the distributed KVBM onboard).
+        One request -> one stacked (k, v) frame."""
+        if self.kvbm_source is None:
+            await self._send_header(writer, {"error": "no kvbm tier here"})
+            return
+        hashes = [int(h) for h in req["blocks"]]
+        if not hashes or len(hashes) > 4096:
+            await self._send_header(writer, {"error": f"bad block count {len(hashes)}"})
+            return
+        src = self.kvbm_source
+        my_fmt = str(getattr(src, "kv_format", "none"))
+        want_fmt = str(req.get("fmt", "none"))
+        if want_fmt != my_fmt:
+            # a mixed-precision fleet: refused typed before any block moves
+            await self._send_header(writer, {
+                "error": f"kv_format mismatch: serving {my_fmt}, peer wants {want_fmt}",
+                "fmt_mismatch": True, "fmt": my_fmt})
+            return
+        try:
+            # tier reads copy host memory or read the disk: off the event
+            # loop, except small host-only reads (the executor round trip
+            # would cost more than the copy)
+            small = (getattr(src, "disk", None) is None
+                     and getattr(src, "block_nbytes", 1 << 30) * len(hashes) <= (256 << 10))
+            if small:
+                k, v = src.load_blocks(hashes)
+            else:
+                k, v = await asyncio.get_running_loop().run_in_executor(
+                    None, src.load_blocks, hashes)
+        except KeyError as e:
+            await self._send_header(writer, {"error": f"block miss: {e}"})
+            return
+        name = dtype_name(k.dtype)
+        kb, vb = host_bytes(k, name), host_bytes(v, name)
+        # header + payload in one buffered write and drain
+        hdr_body = msgpack_lite.packb(
+            {"n": len(hashes), "k_bytes": len(kb), "v_bytes": len(vb),
+             "shape": list(k.shape), "dtype": name, "fmt": my_fmt})
+        writer.write(_HDR.pack(_MAGIC, len(hdr_body)) + hdr_body)
+        writer.write(kb)
+        writer.write(vb)
+        await asyncio.wait_for(writer.drain(), self.chunk_timeout)
+        self.transfers_served += 1
+        self.bytes_served += len(kb) + len(vb)
 
     async def _refuse_checkpoint(self, meta: dict, reader: asyncio.StreamReader,
                                  writer: asyncio.StreamWriter):
@@ -786,3 +840,66 @@ async def pull_kv(
                          tensor_from_bytes(v_raw, desc.dtype, chunk_shape))
     finally:
         writer.close()
+
+
+async def pull_kvbm_blocks(
+    addr: str,
+    hashes,
+    block_shape: tuple,
+    dtype: torch.dtype,
+    connect_timeout: float = 10.0,
+    chunk_timeout: float = 30.0,
+    kv_format: str = "none",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fetch tiered KV blocks by hash from a peer's data plane. Returns
+    (k, v) CPU tensors stacked `[n, *block_shape]`. Raises KeyError on a
+    block miss or refusal, KvTransferError on a transport failure (both
+    fall back to recompute in the onboard path), and KvFormatError when the
+    peer's tiers hold another KV page format. Connections come from the
+    keep-alive pool; a stale pooled connection earns one fresh retry."""
+    name = dtype_name(dtype)
+    itemsize = dtype.itemsize
+    f = faults.FAULTS
+    for attempt in (0, 1):
+        reader, writer, reused = await _CONN_POOL.acquire(
+            addr, connect_timeout, fresh=attempt > 0)
+        try:
+            body = msgpack_lite.packb({"blocks": [int(h) for h in hashes],
+                                       "fmt": str(kv_format)})
+            writer.write(_HDR.pack(_MAGIC_RANGE, len(body)) + body)
+            await writer.drain()
+            if f.enabled and await f.on("kv_transfer.pull") == "sever":
+                # the request is on the wire; the connection drops before
+                # the payload lands
+                raise KvTransferError("injected: kvbm peer pull severed")
+            expect = int(np.prod(block_shape)) * itemsize * len(hashes)
+            header = await _read_header(reader, chunk_timeout)
+            if header.get("error"):
+                # a protocol-level refusal: the connection is still good
+                _CONN_POOL.release(addr, reader, writer)
+                if header.get("fmt_mismatch"):
+                    raise KvFormatError(
+                        f"kvbm peer {addr} serves kv_format={header.get('fmt')!r}, "
+                        f"we run {kv_format!r}")
+                raise KeyError(f"kvbm pull refused: {header['error']}")
+            if header["k_bytes"] > expect or header["v_bytes"] > expect:
+                raise RuntimeError("kvbm frame larger than expected")
+            # k and v are contiguous on the wire: one read, split by offset
+            raw = await asyncio.wait_for(
+                reader.readexactly(header["k_bytes"] + header["v_bytes"]), chunk_timeout)
+            _CONN_POOL.release(addr, reader, writer)
+            shape = (len(hashes), *block_shape)
+            view = memoryview(raw)
+            return (tensor_from_bytes(view[:header["k_bytes"]], name, shape),
+                    tensor_from_bytes(view[header["k_bytes"]:], name, shape))
+        except (KeyError, KvFormatError):
+            raise
+        except (ConnectionError, asyncio.IncompleteReadError, TimeoutError,
+                asyncio.TimeoutError) as e:
+            writer.close()
+            if reused and attempt == 0:
+                continue  # stale keep-alive: the server idled it out
+            raise KvTransferError(f"kvbm peer pull from {addr} failed: {e}") from e
+        except BaseException:
+            writer.close()
+            raise

@@ -12,10 +12,11 @@ share one control plane):
   v1/instances/{namespace}/{component}/{endpoint}/{instance_id} -> Instance json
   v1/mdc/{namespace}/{component}/{model-slug}                   -> ModelDeploymentCard
 
-Not ported: the system-status HTTP server (`DYN_SYSTEM_ENABLED` /
-`DYN_SYSTEM_PORT`) and the canary health checks
-(`DYN_HEALTH_CHECK_ENABLED`); asking for either raises
-`UnsupportedConfigError` instead of serving without it.
+With `DYN_SYSTEM_ENABLED` / `DYN_SYSTEM_PORT` the runtime serves the
+system-status server (`runtime/system_status.py`: /health, /live, /metrics;
+the port offset by `DYN_WORKER_INDEX`, an ephemeral port when it is taken);
+with `DYN_HEALTH_CHECK_ENABLED` it sends canaries to idle endpoints
+(`runtime/health_check.py`) and flips /health to 503 when one fails.
 """
 
 from __future__ import annotations
@@ -28,10 +29,10 @@ import socket
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable, Dict, List, Optional
 
-from ..engine.config import UnsupportedConfigError
 from .config import RuntimeConfig, discovery_address
 from .discovery import DiscoveryClient, DiscoveryServer, Lease, Watch
 from .engine import Context
+from .health_check import HealthCheckManager
 from .metrics import MetricsRegistry
 from .request_plane import (
     EndpointStats,
@@ -39,6 +40,7 @@ from .request_plane import (
     RequestPlaneClient,
     RequestPlaneServer,
 )
+from .system_status import SystemHealth, SystemStatusServer
 
 logger = logging.getLogger(__name__)
 
@@ -103,16 +105,6 @@ class DistributedRuntime:
 
     def __init__(self, config: Optional[RuntimeConfig] = None, static_mode: bool = False):
         self.config = config or RuntimeConfig.from_settings()
-        if self.config.system_enabled:
-            raise UnsupportedConfigError(
-                "the system-status HTTP server (DYN_SYSTEM_ENABLED / "
-                "DYN_SYSTEM_PORT) is not ported to the PyTorch/CUDA runtime yet"
-            )
-        if self.config.health_check_enabled:
-            raise UnsupportedConfigError(
-                "canary health checks (DYN_HEALTH_CHECK_ENABLED) are not "
-                "ported to the PyTorch/CUDA runtime yet"
-            )
         self.static_mode = static_mode
         self.instance_id = int.from_bytes(os.urandom(8), "big") >> 1
         self.discovery: Optional[DiscoveryClient] = None
@@ -131,8 +123,18 @@ class DistributedRuntime:
         self._leased_keys: Dict[str, bytes] = {}
         self._shutdown = asyncio.Event()
         self.etcd_root = ""  # prefix for multi-tenant stores (unused for now)
-        # observability (reference: MetricsRegistry root on the DRT lib.rs:92)
+        # observability (reference: MetricsRegistry root on the DRT lib.rs:92,
+        # SystemHealth, HealthCheckManager)
         self.metrics = MetricsRegistry()
+        self.system_health = SystemHealth()
+        self.system_status_server: Optional[SystemStatusServer] = None
+        self.health_check_manager: Optional[HealthCheckManager] = None
+        if self.config.health_check_enabled:
+            self.health_check_manager = HealthCheckManager(
+                self, self.system_health,
+                idle_timeout=self.config.health_check_idle_timeout,
+                request_timeout=self.config.health_check_request_timeout,
+            )
 
     @classmethod
     async def create(
@@ -158,6 +160,25 @@ class DistributedRuntime:
                 ttl=drt.config.lease_ttl_s
             )
             drt.primary_lease.on_lost = drt._republish_leased_keys
+        if drt.config.system_enabled:
+            port = drt.config.system_port
+            if port > 0:
+                # replicas started from one template offset the port by
+                # their index so co-located ones do not collide
+                port += int(os.environ.get("DYN_WORKER_INDEX") or 0)
+            drt.system_status_server = SystemStatusServer(
+                drt.system_health, drt.metrics, host=drt.config.system_host, port=port)
+            try:
+                await drt.system_status_server.start()
+            except OSError:
+                # a taken port degrades the scrape, never the replica
+                logger.warning("system-status port %d already taken; serving metrics "
+                               "on an ephemeral port instead", port)
+                drt.system_status_server = SystemStatusServer(
+                    drt.system_health, drt.metrics, host=drt.config.system_host, port=0)
+                await drt.system_status_server.start()
+        if drt.health_check_manager is not None:
+            drt.health_check_manager.start()
         return drt
 
     async def _republish_leased_keys(self, lease):
@@ -248,6 +269,8 @@ class DistributedRuntime:
         `graceful=False` skips 2-3 (crash-style teardown, used by tests
         that simulate worker death)."""
         self._shutdown.set()
+        if self.health_check_manager is not None:
+            await self.health_check_manager.stop()
         if graceful:
             await self._mark_instances_draining()
         if self.primary_lease is not None:
@@ -260,6 +283,8 @@ class DistributedRuntime:
                     self.config.graceful_shutdown_timeout,
                     self.server.active_streams,
                 )
+        if self.system_status_server is not None:
+            await self.system_status_server.stop()
         await self.client.close()
         await self.server.stop()
         if self.discovery is not None:

@@ -58,6 +58,51 @@ METRICS = {
     "sched_pending_deadlines": {"kind": "gauge", "layer": "sched", "help": "Requests with an armed TTFT deadline.", "export": True},
     "sched_cost_observations": {"kind": "counter", "layer": "sched", "help": "Cost-model samples observed.", "export": True},
     "sched_tenants_served": {"kind": "gauge", "layer": "sched", "help": "Distinct tenants the fairness tiebreak has served.", "export": True},
+    # ---- KVBM tiers / offload (kvbm/) ---------------------------------
+    "kvbm_g1_hit_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Device prefix-cache hits at admission (G1).", "export": True},
+    "kvbm_g1_miss_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Device prefix-cache misses at admission (G1).", "export": True},
+    "kvbm_onboard_count": {"kind": "counter", "layer": "kvbm", "help": "Tier onboard operations.", "export": True},
+    "kvbm_onboard_ms_sum": {"kind": "counter", "layer": "kvbm", "unit": "ms", "help": "Cumulative onboard latency (mean = sum/count).", "export": True},
+    "kvbm_onboard_hist": {"kind": "histogram", "layer": "kvbm", "unit": "ms", "help": "Onboard latency histogram (stats-dict blob).", "buckets": (1.0, 5.0, 20.0, 100.0, 500.0)},
+    "kvbm_offloaded_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Blocks offloaded device->host.", "export": True},
+    "kvbm_onboarded_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Blocks onboarded back to device.", "export": True},
+    "kvbm_disk_evictions": {"kind": "counter", "layer": "kvbm", "help": "Disk-tier evictions.", "dynamic": True, "export": True},
+    "kvbm_dropped_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Blocks dropped out of the tier chain.", "export": True},
+    "kvbm_host_eviction_policy": {"kind": "info", "layer": "kvbm", "help": "Host tier eviction policy name."},
+    "kvbm_disk_eviction_policy": {"kind": "info", "layer": "kvbm", "help": "Disk tier eviction policy name."},
+    "kvbm_host_blocks": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Blocks resident in the host tier (G2).", "dynamic": True, "export": True},
+    "kvbm_host_capacity": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Host tier capacity.", "dynamic": True},
+    "kvbm_host_hits": {"kind": "counter", "layer": "kvbm", "help": "Host tier lookup hits.", "dynamic": True, "export": True},
+    "kvbm_host_misses": {"kind": "counter", "layer": "kvbm", "help": "Host tier lookup misses.", "dynamic": True, "export": True},
+    "kvbm_host_evictions": {"kind": "counter", "layer": "kvbm", "help": "Host tier evictions.", "dynamic": True, "export": True},
+    "kvbm_disk_blocks": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Blocks resident in the disk tier (G3).", "dynamic": True, "export": True},
+    "kvbm_disk_capacity": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Disk tier capacity.", "dynamic": True},
+    "kvbm_disk_hits": {"kind": "counter", "layer": "kvbm", "help": "Disk tier lookup hits.", "dynamic": True, "export": True},
+    "kvbm_disk_misses": {"kind": "counter", "layer": "kvbm", "help": "Disk tier lookup misses.", "dynamic": True, "export": True},
+    "kvbm_host_load_ms_per_block": {"kind": "gauge", "layer": "kvbm", "unit": "ms", "help": "Observed host-tier load cost per block.", "dynamic": True},
+    "kvbm_disk_load_ms_per_block": {"kind": "gauge", "layer": "kvbm", "unit": "ms", "help": "Observed disk-tier load cost per block.", "dynamic": True},
+    "kvbm_offload_commit_calls": {"kind": "counter", "layer": "kvbm", "help": "Offload commit batches entered.", "export": True},
+    "kvbm_offload_gathers": {"kind": "counter", "layer": "kvbm", "help": "Device gathers staged for offload.", "export": True},
+    "kvbm_offload_queue_depth": {"kind": "gauge", "layer": "kvbm", "help": "Offload batches waiting in the pipeline.", "export": True},
+    "kvbm_offload_staged_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Blocks staged for offload.", "export": True},
+    "kvbm_offload_batches_dropped": {"kind": "counter", "layer": "kvbm", "help": "Offload batches dropped under backpressure.", "export": True},
+    "kvbm_offload_blocks_dropped": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Blocks dropped under offload backpressure.", "export": True},
+    "kvbm_offload_failures": {"kind": "counter", "layer": "kvbm", "help": "Offload batches that failed.", "export": True},
+    "kvbm_onboard_recompute_fallbacks": {"kind": "counter", "layer": "kvbm", "help": "Onboards that fell back to recompute.", "export": True},
+    "kvbm_onboard_src_local_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Onboarded blocks sourced from local tiers.", "export": True},
+    "kvbm_onboard_src_peer_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Onboarded blocks pulled from peers.", "export": True},
+    "kvbm_onboard_src_recompute_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Onboard blocks recomputed.", "export": True},
+    "kvbm_pending_offloads": {"kind": "gauge", "layer": "kvbm", "help": "Offload futures not yet committed.", "export": True},
+    "kvbm_remote_onboards": {"kind": "counter", "layer": "kvbm", "help": "Onboards served from remote peers.", "export": True},
+    "kvbm_remote_blocks_pulled": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Blocks pulled over the cluster KV fabric.", "export": True},
+    "kvbm_peer_bytes_pulled": {"kind": "counter", "layer": "kvbm", "unit": "bytes", "help": "Bytes pulled over the cluster KV fabric.", "export": True},
+    "kvbm_peer_pull_failures": {"kind": "counter", "layer": "kvbm", "help": "Peer pulls that failed (quarantine feed).", "export": True},
+    "kvbm_peer_pull_ms_sum": {"kind": "counter", "layer": "kvbm", "unit": "ms", "help": "Cumulative peer-pull latency (mean = sum/onboards).", "export": True},
+    "kvbm_peer_pull_hist": {"kind": "histogram", "layer": "kvbm", "unit": "ms", "help": "Peer-pull latency histogram (stats-dict blob).", "buckets": (5.0, 20.0, 50.0, 100.0, 250.0, 1000.0)},
+    "kvbm_known_remote_blocks": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Remote blocks known to the fabric index.", "export": True},
+    "kvbm_quarantined_peers": {"kind": "gauge", "layer": "kvbm", "help": "Peers currently quarantined after pull failures.", "export": True},
+    "kvbm_known_checkpoint_blocks": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Checkpoint blocks known cluster-wide.", "export": True},
+    "kvbm_peer_ms_per_block": {"kind": "info", "layer": "kvbm", "unit": "ms", "help": "Per-peer observed pull cost map (addr -> ms/block)."},
 }
 
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75,

@@ -18,8 +18,20 @@ under `--component`, and sends prompts with more than
 `--disagg-threshold` uncached tokens to the prefill pool
 (`worker/disagg_handler.py`), watching its published queue depth.
 
+KVBM: `--kvbm-host-blocks N` keeps a host tier of N blocks (one page of
+every layer, K and V) in pinned memory, `--kvbm-disk-blocks N
+--kvbm-disk-path DIR` a disk tier below it; committed blocks are written
+through, and admission onboards what the device cache lost. A worker with
+tiers joins the announcement mesh (`kvbm/distributed.py`) on its KV data
+plane — a decode-role worker opens one for it — so workers pull each
+other's tiered blocks (G4). `DYN_KV_CHECKPOINT` (session checkpoints into a
+peer's tier) is refused. With `DYN_SYSTEM_PORT` the runtime serves
+/health, /live and /metrics (the engine's stats as `dynamo_worker_*`
+gauges, the `kvbm_*` ones included); with `DYN_HEALTH_CHECK_ENABLED` an
+idle `generate` endpoint gets a one-token canary request.
+
 Flags keep the reference's names. Those whose feature the port lacks
-(parallelism, multi-host, speculative decoding, LoRA, KVBM tiers) raise
+(parallelism, multi-host, speculative decoding, LoRA) raise
 `UnsupportedConfigError` when set; the role is set at start (no `morph`
 endpoint). `--device` (default `cuda`) picks the card; with no CUDA device
 the worker raises instead of running on the CPU, unless `--device cpu`
@@ -39,6 +51,8 @@ resident, so int8 weights leave room for more pages.
     python -m dynamo_tpu_torch.worker --model llama3-3b --discovery tcp://HOST:PORT
     python -m dynamo_tpu_torch.worker --model llama3-3b --model-path DIR --quantize int8
     python -m dynamo_tpu_torch.worker --model-path FILE.gguf
+    DYN_SYSTEM_PORT=9100 python -m dynamo_tpu_torch.worker --model llama3-3b \
+        --kvbm-host-blocks 256 --kvbm-disk-blocks 512 --kvbm-disk-path /var/kvbm
 """
 
 from __future__ import annotations
@@ -143,8 +157,7 @@ def unsupported_flags(args) -> list:
     bad = [f"--{n.replace('_', '-')}" for n in ("tp_size", "ep_size", "pp_size", "sp_size",
                                                "num_hosts") if getattr(args, n) > 1]
     bad += [f"--{n.replace('_', '-')}" for n in (
-        "spec", "lora", "dp_attention", "kvbm_host_blocks",
-        "kvbm_disk_blocks", "kvbm_disk_path", "host_id", "coordinator") if getattr(args, n)]
+        "spec", "lora", "dp_attention", "host_id", "coordinator") if getattr(args, n)]
     return bad
 
 
@@ -182,6 +195,9 @@ def build_engine(args) -> TorchEngine:
         itl_target_ms=args.itl_target_ms,
         seed=args.seed,
         quantize=args.quantize,
+        kvbm_host_blocks=args.kvbm_host_blocks,
+        kvbm_disk_blocks=args.kvbm_disk_blocks,
+        kvbm_disk_path=args.kvbm_disk_path,
         # aggregated serving drives both surfaces, as the reference's "decode"
         role="prefill" if args.role == "prefill" else "decode",
     )
@@ -284,6 +300,7 @@ async def serve(args, engine: Optional[TorchEngine] = None,
     engine.allocator.event_sink = pending_events.append
     drt = None
     data_plane = None
+    kvbm_dist = None
     watchers: list = []
     try:
         # drive every dispatch kind — and so build the kernels with nvcc —
@@ -295,8 +312,10 @@ async def serve(args, engine: Optional[TorchEngine] = None,
             n_warm = await engine.warmup()
             logger.info("engine warmup: %d dispatches in %.1fs", n_warm, time.monotonic() - t0)
 
-        # KV data plane: prefill-capable workers stage finished prompts here
-        if not args.no_kv_data_plane and args.role in ("prefill", "aggregated"):
+        # KV data plane: prefill-capable workers stage finished prompts here;
+        # a worker with KVBM tiers serves its blocks to peers on it
+        if not args.no_kv_data_plane and (
+                engine.kvbm is not None or args.role in ("prefill", "aggregated")):
             data_plane = KvDataPlaneServer(
                 advertise_host=args.kv_data_plane_host, port=args.kv_data_plane_port)
             await data_plane.start()
@@ -310,6 +329,15 @@ async def serve(args, engine: Optional[TorchEngine] = None,
         drt.install_signal_handlers()
         if data_plane is not None:
             await data_plane.register(drt)
+        if engine.kvbm is not None and data_plane is not None:
+            # distributed KVBM: announce our tiered blocks namespace-wide so
+            # any worker can onboard them over the data plane
+            from ..kvbm import KvbmDistributed
+
+            kvbm_dist = KvbmDistributed(drt, engine.kvbm, data_plane, args.namespace,
+                                        "kvbm", drt.instance_id)
+            await kvbm_dist.start()
+            logger.info("distributed KVBM mesh joined (namespace %s)", args.namespace)
         component = args.prefill_component if args.role == "prefill" else args.component
         endpoint = drt.namespace(args.namespace).component(component).endpoint(args.endpoint)
 
@@ -345,6 +373,13 @@ async def serve(args, engine: Optional[TorchEngine] = None,
             drt.metrics.callback_gauge(
                 f"worker_{stat}", f"engine stat {stat}", (lambda k=stat: snap_stat(k))
             )
+        hcm = drt.health_check_manager
+        if hcm is not None:
+            drt.metrics.callback_gauge("worker_health_canaries", "canary requests sent",
+                                       lambda: float(hcm.probes))
+            drt.metrics.callback_gauge("worker_health_canary_failures",
+                                       "canary requests failed",
+                                       lambda: float(hcm.probe_failures))
 
         prefill_client = disagg_router = None
         if args.role == "decode":
@@ -376,6 +411,10 @@ async def serve(args, engine: Optional[TorchEngine] = None,
                 yield item
 
         served = await endpoint.serve_endpoint(handler)
+        if hcm is not None:
+            # the canary: a one-token request through the whole engine
+            hcm.register(served, {"token_ids": [1, 2, 3, 4],
+                                  "stop_conditions": {"max_tokens": 1, "ignore_eos": True}})
         card_key = None
         if args.role != "prefill":
             # the card goes up after the endpoint serves: it is what makes
@@ -408,6 +447,8 @@ async def serve(args, engine: Optional[TorchEngine] = None,
             task.cancel()
         await asyncio.gather(*watchers, return_exceptions=True)
         engine.allocator.event_sink = None
+        if kvbm_dist is not None:
+            await kvbm_dist.close()
         if drt is not None:
             # graceful drain: lease revoked first (routers stop picking this
             # worker), in-flight streams finish within

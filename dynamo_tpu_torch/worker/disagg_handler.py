@@ -12,9 +12,10 @@ on the prefill path (no prefill worker, a dead one, a refused or failed
 pull, a format mismatch) falls back to a local prefill on this worker, so
 disaggregation is strictly an optimization.
 
-Left out here, as the port lacks what they read: the KVBM tier probe (the
-engine has no `kvbm`; its config fields are refused) and the `sla`
-policy's local TTFT estimate (the static token threshold decides).
+Blocks the engine's KVBM tiers hold — locally or announced by a peer —
+count as cached: they onboard at admission, so recomputing them remotely
+would waste the prefill pool. Left out here: the `sla` policy's local TTFT
+estimate (the static token threshold decides).
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ async def maybe_remote_prefill(
     # the cached-prefix probe reads the same hash chain the engine's prefix
     # cache keys on (LoRA-salted chains are refused by the engine)
     hashes = compute_seq_hashes(prompt, page_size, 0)
-    cached_tokens = len(engine.allocator.cached_prefix(hashes)) * page_size
+    n_cached = len(engine.allocator.cached_prefix(hashes))
+    if engine.kvbm is not None and n_cached < len(hashes):
+        n_cached += len(engine.kvbm.probe(hashes[n_cached:]))
+    cached_tokens = n_cached * page_size
     have_workers = bool(prefill_client and prefill_client.instance_ids())
     want_annotation = "remote_prefill" in (request.get("annotations") or [])
 

@@ -178,8 +178,7 @@ def test_stats_keep_reference_key_names(reference):
 @pytest.mark.parametrize("field,value", [
     ("spec_mode", "ngram"),
     ("tp_size", 2), ("pp_size", 2), ("sp_size", 2), ("dp_size", 2),
-    ("kvbm_host_blocks", 16),
-    ("kvbm_disk_blocks", 16), ("lora_pool_slots", 4), ("kvbm_disk_path", "/kv"),
+    ("lora_pool_slots", 4),
     ("role", "aggregated"),
 ])
 def test_unsupported_config_fields_raise(field, value):

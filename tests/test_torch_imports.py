@@ -115,7 +115,8 @@ def test_walk_finds_every_subpackage():
                      "runtime.request_plane", "runtime.discovery", "llm.model_card",
                      "llm.kv_router.publisher", "worker.__main__", "llm.kv_transfer",
                      "llm.disagg", "worker.disagg_handler", "models.loader",
-                     "models.safetensors_io", "llm.gguf"):
+                     "models.safetensors_io", "llm.gguf", "kvbm.storage", "kvbm.manager",
+                     "kvbm.distributed", "runtime.system_status", "runtime.health_check"):
         assert f"dynamo_tpu_torch.{expected}" in names
     importlib.import_module("dynamo_tpu_torch.ops._build")
 

@@ -443,7 +443,8 @@ def test_kvbm_blocks_and_checkpoint_pushes_are_refused_typed():
         server = tkt.KvDataPlaneServer(host="127.0.0.1")
         await server.start()
         try:
-            with pytest.raises(KeyError, match="not ported"):
+            # a data plane without tiers refuses block pulls typed
+            with pytest.raises(KeyError, match="no kvbm tier"):
                 await jkt.pull_kvbm_blocks(server.addr, [1, 2], (L, PS, KH, D), np.float32)
             k = np.zeros((1, L, PS, KH, D), np.float32)
             with pytest.raises(jkt.KvTransferError, match="not ported") as e:

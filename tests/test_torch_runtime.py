@@ -294,8 +294,7 @@ def test_port_client_and_discovery_against_reference_endpoint(binary):
 @pytest.mark.parametrize("flags", [
     ["--tp-size", "2"], ["--ep-size", "2"], ["--pp-size", "2"], ["--sp-size", "2"],
     ["--num-hosts", "2"], ["--spec", "ngram"], ["--lora", "a=random:1"],
-    ["--kvbm-host-blocks", "8"],
-    ["--kvbm-disk-blocks", "8"], ["--kvbm-disk-path", "/kv"], ["--host-id", "1"],
+    ["--host-id", "1"],
     ["--coordinator", "127.0.0.1:1"], ["--dp-attention"],
 ], ids=lambda f: "_".join(f).lstrip("-"))
 def test_unported_worker_flags_raise(flags):
@@ -311,11 +310,3 @@ def test_worker_device_cuda_raises_without_a_card():
         build_engine(parse_args([]))
 
 
-@pytest.mark.parametrize("env", [
-    {"DYN_SYSTEM_PORT": "9100"}, {"DYN_SYSTEM_ENABLED": "1"}, {"DYN_HEALTH_CHECK_ENABLED": "1"},
-], ids=lambda e: next(iter(e)))
-def test_unported_runtime_servers_raise(monkeypatch, env):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(UnsupportedConfigError, match="not ported"):
-        DistributedRuntime()
