@@ -18,15 +18,17 @@ back to back, with the host's time a call), holds the card's
 quantized page writes to the CPU's
 bit for bit, holds the model forwards against the same forwards fed the
 plain attention, then serves a few requests through `TorchEngine.generate`
-at the full width of Llama-3.2-3B (random weights from --seed) in each
+at the full width of Llama-3.2-3B (random weights from --seed; bf16 KV at
+28 layers, the quantized pools at 4) in each
 decode-pool mode and KV format, and checks that every served path went
 through the kernels. The worker phase then serves the same model over the
 wire: in one event loop the port's discovery server, a port worker
 (`dynamo_tpu_torch.worker.serve`) around the engine and a PushRouter
-client, at (scatter, bf16) and (local, int8), 8 requests each in process
-and over the wire (tok/s, TTFT, ITL side by side; each request alone must
-stream the same tokens both ways; the kernels must carry the wire's
-traffic; KV events and worker metrics must reach their topics), and
+client, at (scatter, bf16) (28 layers) and (local, int8) (4 layers), 8
+requests each in process and over the wire (tok/s, TTFT, ITL side by
+side; each request alone must stream the same tokens both ways; the
+kernels must carry the wire's traffic; KV events and worker metrics must
+reach their topics), and
 finally `python -m dynamo_tpu_torch.worker --model llama3-3b` as a
 subprocess with its pool auto-sized, which must register, answer a request
 and drain on SIGTERM. The disagg phases split serving between a prefill
@@ -48,8 +50,8 @@ its decode kernel (per process, from the stats each worker publishes).
 The weights phases: `weights_int8` quantizes the weights to int8 on the
 card (`quantize_tree`), holds the int8 products and the 28-layer f32
 forward to the same over the dequantized weights, and serves the worker
-phase's mix on int8 beside bf16 weights in (scatter, bf16 KV) and (local,
-int8 KV), with one decode step profiled on each; `weights_load` writes the
+phase's mix on int8 beside bf16 weights in (scatter, bf16 KV; 28 layers)
+and (local, int8 KV; 4 layers), with one decode step profiled on each; `weights_load` writes the
 weights as a BF16 index-sharded safetensors checkpoint, loads it back bit
 for bit (seconds, GB/s, host memory), and `python -m
 dynamo_tpu_torch.worker --model-path <it> --quantize int8` (pool
@@ -58,18 +60,29 @@ int8 engine does and drain on SIGTERM; `weights_gguf` writes a 4-layer
 full-width q8_0 .gguf with a vocabulary, loads it with and without int8,
 holds every matrix to numpy's decode of the file and serves two requests
 from each.
-The KVBM phases: `kvbm` (scatter, bf16 KV) and `kvbm_local_int8` serve
-three waves on a 200-page pool at 28 layers — A (8 sessions of 2,048
-tokens, each alone), B (8 other prompts, staggered, which push A out of the
-pool), A2 (each A session extended by a 256-token turn, alone) — with KVBM
-off (recompute) and on (256 host + 512 disk blocks): A2 must onboard from
-both tiers, stream the same tokens as recompute, launch the prefill kernel
-over the onboarded pages, and the tier copies must equal the device pages
-bit for bit; `kvbm` adds an sla-policy run (which arm the onboard budget
-picks for host and disk spans) and a warm restart on the same disk pool.
-`kvbm_peer` starts two CLI workers with host tiers, the status server and
-canaries; worker 2 must pull worker 1's blocks over the data plane and
-stream its tokens, and both /metrics, /health and /live are read.
+The KVBM phases: `kvbm` (scatter, bf16 KV, 28 layers) and
+`kvbm_local_int8` (4 layers) serve three waves on a 200-page pool — A (8
+sessions of 2,048 tokens, each alone), B (8 other prompts, staggered, which
+push A out of the pool), A2 (each A session extended by a 256-token turn,
+alone) — with KVBM off (recompute) and on (256 host + 512 disk blocks): A2
+must onboard from both tiers, stream the same tokens as recompute, launch
+the prefill kernel over the onboarded pages, and the tier copies must equal
+the device pages bit for bit; `kvbm` adds an sla-policy run (which arm the
+onboard budget picks for host and disk spans) and a warm restart on the
+same disk pool.
+`kvbm_peer` starts two CLI workers with host tiers, the status server,
+canaries and session checkpoints; worker 2 must pull worker 1's blocks over
+the data plane and stream its tokens, and both /metrics, /health and /live
+are read; then four streams run through the port's Migration on worker 1,
+which is SIGKILLed mid-decode once their prompts are checkpointed into
+worker 2: each must finish on worker 2 as it did uninterrupted, resumed
+from the checkpoint (the resume gap, the tokens recomputed and the
+checkpoint push ms a block are printed). `durable` does the same in one
+process with two engines, the streams severed by a live `morph` of the
+first; an injected morph error must roll it back to a routable role.
+`disagg_subprocess` also morphs its prefill worker into a decode worker
+over the wire (`morph` endpoint), serves a stream from it, and morphs it
+back.
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -190,8 +203,9 @@ KERNELS = {
 # kernel, format) pairs at a cut depth.
 SERVE_PHASES = [
     ("serve", "scatter", "none", LAYERS),
-    ("serve_local_int8", "local", "int8", LAYERS),
-    ("serve_scatter_int4", "scatter", "int4", LAYERS),
+    # the quantized paths at a cut depth pay for the durable phases' time
+    ("serve_local_int8", "local", "int8", 4),
+    ("serve_scatter_int4", "scatter", "int4", 4),
     ("serve_local_none", "local", "none", 4),
     ("serve_scatter_int8", "scatter", "int8", 4),
     ("serve_local_int4", "local", "int4", 4),
@@ -1263,7 +1277,9 @@ async def serve_all(seed: int, params) -> dict:
 # ---------------------------------------------------------------------- #
 
 # (phase, decode_pool_mode, kv_quant), both at the model's full depth
-WORKER_PHASES = [("worker", "scatter", "none"), ("worker_local_int8", "local", "int8")]
+# (phase, decode_pool_mode, kv_quant, layers): the int8 path at a cut depth
+# pays for the durable phases' time
+WORKER_PHASES = [("worker", "scatter", "none", LAYERS), ("worker_local_int8", "local", "int8", 4)]
 WORKER_LENGTHS = [40, 300, 1500, 120, 700, 64, 1100, 500]
 
 
@@ -1311,7 +1327,8 @@ async def alone(open_stream, clear, reqs) -> list:
     return out
 
 
-async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, params) -> dict:
+async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, layers: int,
+                            params) -> dict:
     """The engine in process, then the same engine behind a port worker on
     this process's discovery server, reached through a PushRouter."""
     from dynamo_tpu_torch.llm.kv_router.publisher import EVENT_TOPIC_FMT, METRICS_TOPIC_FMT
@@ -1319,10 +1336,10 @@ async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, params) 
     from dynamo_tpu_torch.runtime import codec
     from dynamo_tpu_torch.worker.__main__ import parse_args, serve as serve_worker
 
-    model_cfg = llama.LlamaConfig.llama3_2_3b()
+    model_cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=layers)
     engine = TorchEngine(
         EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode=mode, kv_quant=kvq),
-        model_config=model_cfg, params=params, device="cuda",
+        model_config=model_cfg, params=cut_depth(params, layers), device="cuda",
     )
     await engine.warmup()
     reqs, text = make_requests(seed, model_cfg.vocab_size, WORKER_LENGTHS,
@@ -1406,7 +1423,7 @@ async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, params) 
     assert met["worker_id"] == worker.drt.instance_id and "num_running_reqs" in met["stats"]
     wire_tokens = sum(len(r["tokens"]) for r in wire_recs) + MAX_TOKENS * len(wire_alone)
     emit(
-        phase, model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16", decode_pool_mode=mode,
+        phase, model="llama-3.2-3b", layers=layers, dtype="bfloat16", decode_pool_mode=mode,
         kv_quant=kvq, requests=len(reqs), prompt_tokens=[len(r["token_ids"]) for r in reqs],
         max_tokens=MAX_TOKENS, in_process=stream_metrics(local_recs, local_wall),
         over_the_wire=stream_metrics(wire_recs, wire_wall),
@@ -1506,8 +1523,8 @@ async def worker_all(seed: int, params) -> tuple:
     in-process streams and metrics: the aggregated reference of `disagg`."""
     total: dict = {}
     reference = None
-    for phase, mode, kvq in WORKER_PHASES:
-        launches, ref = await worker_in_process(seed, phase, mode, kvq, params)
+    for phase, mode, kvq, layers in WORKER_PHASES:
+        launches, ref = await worker_in_process(seed, phase, mode, kvq, layers, params)
         for key, n in launches.items():
             total[key] = total.get(key, 0) + n
         if (mode, kvq) == ("scatter", "none"):
@@ -1762,7 +1779,8 @@ async def disagg_subprocess(seed: int, reference: dict) -> None:
 
     from dynamo_tpu_torch.llm import kv_transfer
     from dynamo_tpu_torch.llm.kv_router.publisher import METRICS_TOPIC_FMT
-    from dynamo_tpu_torch.runtime import DiscoveryServer, DistributedRuntime, PushRouter, RuntimeConfig
+    from dynamo_tpu_torch.runtime import (DiscoveryServer, DistributedRuntime, PushRouter,
+                                          RouterMode, RuntimeConfig)
 
     server = DiscoveryServer(port=0)
     _, port = await server.start()
@@ -1899,6 +1917,48 @@ async def disagg_subprocess(seed: int, reference: dict) -> None:
                  "pull_wall_ms_per_page": round(1e3 * pull_s / desc.n_pages, 4),
                  "gb_per_s": round(got / pull_s / 1e9, 3)}
         assert got == stat_delta(p_a, p_b, "kv_bytes_served") > 0, (got, p_a.get("kv_bytes_served"))
+
+        # a morph over the wire: the prefill worker turns into a decode
+        # worker (its lanes move to the decode component), serves a stream
+        # as one, and turns back; then the pair serves one more
+        # disaggregated request
+        pre_id = clients["prefill"].instance_ids()[0]
+        morph_clients = {comp: await drt.namespace("dynamo").component(comp).endpoint(
+            "morph").client() for comp in ("prefill", "backend")}
+
+        async def morph(comp, role):
+            c = morph_clients[comp]
+            for _ in range(600):
+                if pre_id in c.ready_instance_ids():
+                    break
+                await asyncio.sleep(0.05)
+            router = PushRouter(c, RouterMode.DIRECT, direct_instance=pre_id)
+            reply = [r async for r in await router.generate({"target_role": role})]
+            assert reply and reply[0].get("ok"), f"disagg_subprocess: morph to {role}: {reply}"
+            return reply[0]
+
+        async def lanes_moved(on: str, off: str):
+            for _ in range(600):
+                if pre_id in clients[on].ready_instance_ids() and \
+                        pre_id not in clients[off].instance_ids():
+                    return
+                await asyncio.sleep(0.05)
+            raise RuntimeError(f"disagg_subprocess: the morphed lanes never moved to {on}")
+
+        to_decode = await morph("prefill", "decode")
+        await lanes_moved("decode", "prefill")
+        as_decode = PushRouter(clients["decode"], RouterMode.DIRECT, direct_instance=pre_id)
+        await clear_on(as_decode)
+        morphed = new_record()
+        await run_stream(as_decode.generate, remote(reqs[0]), morphed)
+        to_prefill = await morph("backend", "prefill")
+        await lanes_moved("prefill", "decode")
+        await asyncio.sleep(1.0)  # the decode worker hears the prefill pool again
+        await clear()
+        back = new_record()
+        await run_stream(stream, reqs[1], back)
+        for c in morph_clients.values():
+            await c.close()
         for c in clients.values():
             await c.close()
         for proc in procs.values():
@@ -1932,6 +1992,10 @@ async def disagg_subprocess(seed: int, reference: dict) -> None:
     d, p = after["decode"], before["decode"]
     n = 2 * len(reqs)
     assert stat_delta(d, p, "kv_pulls_completed") == n and stat_delta(d, p, "kv_pull_fallbacks") == 0
+    assert morphed["remote"] is False and morphed["tokens"] == reference["alone"][0], \
+        "disagg_subprocess: the morphed worker's stream differs from the reference"
+    assert back["remote"] is True and back["tokens"] == reference["alone"][1], \
+        "disagg_subprocess: the pair's stream after the morph back differs"
     emit(
         "disagg_subprocess", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
         decode_pool_mode="scatter", kv_quant="none", num_pages_each=DISAGG_PAGES,
@@ -1947,6 +2011,10 @@ async def disagg_subprocess(seed: int, reference: dict) -> None:
         handoff_in_run=handoff_costs(after["prefill"], before["prefill"], d, p, serial=False),
         serial_probe_cross_process={"prompt_tokens": len(reqs[PROBE_REQ]["token_ids"]), **cross},
         launches={"prefill_worker": pre_calls, "decode_worker": dec_calls},
+        morph={"to_decode_s": round(to_decode["duration_s"], 3),
+               "to_prefill_s": round(to_prefill["duration_s"], 3),
+               "drained": [to_decode["drained"], to_prefill["drained"]],
+               "stream_as_decode_equal": True, "disagg_after_morph_back_equal": True},
         exit_codes=rcs,
     )
 
@@ -1968,8 +2036,8 @@ async def disagg_all(seed: int, params, reference: dict) -> dict:
 # quantization and checkpoint loading)
 # ---------------------------------------------------------------------- #
 
-# (decode_pool_mode, kv_quant) of the weights_int8 serve runs
-WEIGHTS_PATHS = [("scatter", "none"), ("local", "int8")]
+# (decode_pool_mode, kv_quant, layers) of the weights_int8 serve runs
+WEIGHTS_PATHS = [("scatter", "none", LAYERS), ("local", "int8", 4)]
 # int8 projections against the same products over the dequantized weights,
 # per row |a - b|_2 / |b|_2. One bf16 product: the int8 path scales the f32
 # accumulator and rounds once, the dequantized path rounds q * s to bf16
@@ -2128,17 +2196,19 @@ async def weights_int8(seed: int, params: dict) -> dict:
                             seeded_idx=(3,), tag="weights")
     greedy = [i for i in range(len(reqs)) if i != 3]
     total: dict = {}
-    for mode, kvq in WEIGHTS_PATHS:
+    for mode, kvq, layers in WEIGHTS_PATHS:
         runs = {}
+        lcfg = dataclasses.replace(cfg, num_layers=layers)
         for label, p, qz in (("bf16", params, None), ("int8", qparams, "int8")):
-            runs[label] = await serve_mix(seed, f"weights_int8/{label}", p, cfg, mode, kvq, qz, reqs)
+            runs[label] = await serve_mix(seed, f"weights_int8/{label}", cut_depth(p, layers),
+                                          lcfg, mode, kvq, qz, reqs)
             add_launches(total, runs[label].pop("launches"))
         first = {label: r.pop("first_tokens") for label, r in runs.items()}
         emit(
             "weights_int8" if (mode, kvq) == ("scatter", "none") else f"weights_int8_{mode}_{kvq}",
-            model="llama-3.2-3b", layers=LAYERS, decode_pool_mode=mode, kv_quant=kvq,
+            model="llama-3.2-3b", layers=layers, decode_pool_mode=mode, kv_quant=kvq,
             requests=len(reqs), max_tokens=MAX_TOKENS, quantize_s=round(quantize_s, 3),
-            **({"forward_check": check} if (mode, kvq) == WEIGHTS_PATHS[0] else {}),
+            **({"forward_check": check} if (mode, kvq, layers) == WEIGHTS_PATHS[0] else {}),
             int8=runs["int8"], bf16=runs["bf16"],
             weight_bytes_ratio=round(runs["int8"]["weight_bytes"] / runs["bf16"]["weight_bytes"], 4),
             greedy_first_token_agreement=f"{sum(first['bf16'][i] == first['int8'][i] for i in greedy)}"
@@ -2463,9 +2533,14 @@ KVBM_DISK_BLOCKS = 512  # G3: the rest of A, then what falls off the host
 KVBM_SESSIONS = 8
 KVBM_PROMPT, KVBM_B_PROMPT, KVBM_TURN, KVBM_OUT = 2048, 1536, 256, 32
 KVBM_SLA_TTFT_MS = 50.0  # the sla run's TTFT target: host spans fit, disk spans do not
-# (phase, decode_pool_mode, kv_quant, with the sla run and the warm restart)
-KVBM_PHASES = [("kvbm", "scatter", "none", True), ("kvbm_local_int8", "local", "int8", False)]
+# (phase, decode_pool_mode, kv_quant, with the sla run and the warm restart,
+# layers): the int8 path at a cut depth pays for the durable phases' time
+KVBM_PHASES = [("kvbm", "scatter", "none", True, LAYERS),
+               ("kvbm_local_int8", "local", "int8", False, 4)]
 PEER_PAGES, PEER_TAIL = 1024, 40  # peer prompts: 32 pages + a 40-token tail
+# each peer's host tier holds its own wave (264 blocks) and the other's
+# checkpoints of it
+PEER_HOST_BLOCKS = 544
 
 
 def kvbm_waves(seed: int, vocab: int) -> dict:
@@ -2548,7 +2623,7 @@ def tier_bytes_equal(engine, hashes_of) -> dict:
 
 
 async def kvbm_run(seed: int, params, mode: str, kvq: str, waves: dict, disk_path=None,
-                   sla: bool = False, restart: bool = False) -> dict:
+                   sla: bool = False, restart: bool = False, layers: int = LAYERS) -> dict:
     """Waves A (alone), B (staggered) and A2 (alone) on one engine of a
     200-page pool; KVBM on when `disk_path` is given. `restart`: only wave
     A2, on a fresh engine that opens `disk_path` warm."""
@@ -2556,8 +2631,9 @@ async def kvbm_run(seed: int, params, mode: str, kvq: str, waves: dict, disk_pat
 
     rss0 = rss_gib()
     engine = TorchEngine(kvbm_config(seed, mode, kvq, disk_path, sla),
-                         model_config=llama.LlamaConfig.llama3_2_3b(), params=params,
-                         device="cuda")
+                         model_config=dataclasses.replace(llama.LlamaConfig.llama3_2_3b(),
+                                                          num_layers=layers),
+                         params=cut_depth(params, layers), device="cuda")
     out = {"pinned_alloc_s": None if engine.kvbm is None
            else round(engine.kvbm.manager.host_alloc_s, 3)}
     await engine.warmup()
@@ -2648,7 +2724,8 @@ def check_onboard_launches(phase: str, launches: dict, plain: dict, mode: str, k
     assert not any(plain.values()), f"{phase}: plain attention ran: {plain}"
 
 
-async def kvbm_phase(seed: int, params, phase: str, mode: str, kvq: str, extras: bool) -> dict:
+async def kvbm_phase(seed: int, params, phase: str, mode: str, kvq: str, extras: bool,
+                     layers: int) -> dict:
     """KVBM off (recompute), then on (host 256 + disk 512 blocks), on the
     same waves; with `extras` an sla run of wave A2 and a warm restart."""
     import shutil
@@ -2659,8 +2736,8 @@ async def kvbm_phase(seed: int, params, phase: str, mode: str, kvq: str, extras:
     free_gb = shutil.disk_usage(tmp).free / 1e9
     launches: dict = {}
     try:
-        off = await kvbm_run(seed, params, mode, kvq, waves)
-        on = await kvbm_run(seed, params, mode, kvq, waves, disk_path=f"{tmp}/g3")
+        off = await kvbm_run(seed, params, mode, kvq, waves, layers=layers)
+        on = await kvbm_run(seed, params, mode, kvq, waves, disk_path=f"{tmp}/g3", layers=layers)
         for run in (off, on):
             check_onboard_launches(phase, run["launches"], run["plain"], mode, kvq)
         add_launches(launches, on["launches"])
@@ -2690,7 +2767,7 @@ async def kvbm_phase(seed: int, params, phase: str, mode: str, kvq: str, extras:
         if isinstance(run, dict):
             run.pop("tokens", None)
             run.pop("launches", None)
-    emit(phase, model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16", decode_pool_mode=mode,
+    emit(phase, model="llama-3.2-3b", layers=layers, dtype="bfloat16", decode_pool_mode=mode,
          kv_quant=kvq, num_pages=KVBM_PAGES, host_blocks=KVBM_HOST_BLOCKS,
          disk_blocks=KVBM_DISK_BLOCKS, disk_free_gb=round(free_gb, 1),
          sessions=KVBM_SESSIONS, prompt_tokens={"A": KVBM_PROMPT, "B": KVBM_B_PROMPT,
@@ -2703,8 +2780,8 @@ async def kvbm_phase(seed: int, params, phase: str, mode: str, kvq: str, extras:
 
 async def kvbm_all(seed: int, params) -> dict:
     total: dict = {}
-    for phase, mode, kvq, extras in KVBM_PHASES:
-        add_launches(total, await kvbm_phase(seed, params, phase, mode, kvq, extras))
+    for phase, mode, kvq, extras, layers in KVBM_PHASES:
+        add_launches(total, await kvbm_phase(seed, params, phase, mode, kvq, extras, layers))
     return total
 
 
@@ -2748,10 +2825,19 @@ def gauge(metrics: str, name: str) -> float:
 
 async def kvbm_peer(seed: int) -> None:
     """Two `python -m dynamo_tpu_torch.worker` processes on the card, each
-    with a 256-block host tier, the status server and canaries. Wave A goes
-    to worker 1 (addressed directly), then the same prompts to worker 2,
-    which must pull worker 1's blocks over the data plane (G4) and stream
-    the same tokens. Both /metrics are scraped; both drain on SIGTERM."""
+    with a 256-block host tier, the status server, canaries and session
+    checkpoints (DYN_KV_CHECKPOINT; mixed dispatch off, so every decode row
+    runs the decode kernel). Wave A goes to worker 1 (addressed directly);
+    once worker 1's checkpoints have landed, worker 2 drops its tiers and
+    gets the same prompts, and must pull worker 1's blocks over the data
+    plane (G4) and stream the same tokens. Both /metrics are scraped. Then
+    durable sessions: four streams (two greedy, two seeded) are taken
+    uninterrupted on worker 1, all at once, then run again through the port's Migration
+    over a PushRouter that prefers worker 1; once worker 1 has pushed their
+    prompts to worker 2 and each stream has DURABLE_CUT tokens out, worker 1
+    is SIGKILLed. The streams must finish on worker 2 as they did
+    uninterrupted, resumed from the checkpoint with under two pages
+    recomputed each. Worker 2 drains on SIGTERM."""
     import os
     import re
     import signal
@@ -2788,10 +2874,11 @@ async def kvbm_peer(seed: int) -> None:
                                                      delete=False)
             env = dict(os.environ, PYTHONPATH=str(root), DYN_SYSTEM_PORT=str(sys_port),
                        DYN_WORKER_INDEX=str(index), DYN_HEALTH_CHECK_ENABLED="1",
-                       DYN_HEALTH_CHECK_IDLE_TIMEOUT="5")
+                       DYN_HEALTH_CHECK_IDLE_TIMEOUT="5", DYN_KV_CHECKPOINT=DURABLE_CKPT,
+                       DYN_MIXED_DISPATCH="0")
             procs[name] = subprocess.Popen(
                 [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
-                 "--num-pages", str(PEER_PAGES), "--kvbm-host-blocks", str(KVBM_HOST_BLOCKS),
+                 "--num-pages", str(PEER_PAGES), "--kvbm-host-blocks", str(PEER_HOST_BLOCKS),
                  "--seed", str(seed), "--discovery", disc, "--kv-data-plane-host", "127.0.0.1"],
                 cwd=root, env=env, stdout=logs[name], stderr=subprocess.STDOUT)
 
@@ -2810,7 +2897,11 @@ async def kvbm_peer(seed: int) -> None:
         t_ready = time.perf_counter() - t0
         ids = {}
         for name in procs:
-            m = re.search(r"instance=([0-9a-f]+)", Path(logs[name].name).read_text())
+            for _ in range(200):  # the line follows the card's registration
+                m = re.search(r"instance=([0-9a-f]+)", Path(logs[name].name).read_text())
+                if m:
+                    break
+                await asyncio.sleep(0.05)
             ids[name] = int(m.group(1), 16)
         client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
         for _ in range(200):
@@ -2829,12 +2920,35 @@ async def kvbm_peer(seed: int) -> None:
                 out.append(rec)
             return out
 
+        async def stats_of(name) -> dict:
+            """The stats worker `name` publishes next (queued ones dropped)."""
+            while await met_sub.get(timeout=0.01) is not None:
+                pass
+            while True:
+                msg = codec.unpack(await met_sub.get(timeout=10))
+                if msg["worker_id"] == ids[name]:
+                    return msg["stats"]
+
+        async def clear(name):
+            items = [it async for it in await routers[name].generate(
+                {"token_ids": [1], "annotations": ["clear_kv_blocks"]})]
+            assert items and items[0]["event"] == "clear_kv_blocks", items
+
+        async def checkpoints_landed(name):
+            """The worker's offloads stored and its checkpoints pushed."""
+            for _ in range(600):
+                st = await stats_of(name)
+                if (st["kvbm_pending_offloads"] == 0 and st["kvbm_ckpt_queue_depth"] == 0
+                        and st["kvbm_ckpt_blocks_staged"] == st["kvbm_ckpt_blocks_pushed"]
+                        + st["kvbm_ckpt_blocks_dropped"]):
+                    return st
+            raise RuntimeError(f"kvbm_peer: {name}'s checkpoints never settled")
+
         w1 = await serve_wave("w1")
-        # worker 1's blocks are stored and announced before worker 2 asks
-        for _ in range(200):
-            if gauge(scrape(sys_port, "/metrics")[1], "kvbm_pending_offloads") == 0:
-                break
-            await asyncio.sleep(0.05)
+        # worker 1's blocks are stored, announced and checkpointed before
+        # worker 2 drops its copies and asks
+        await checkpoints_landed("w1")
+        await clear("w2")
         await asyncio.sleep(1.0)
         w2 = await serve_wave("w2")
         # each worker's stats as published after the wave
@@ -2855,13 +2969,48 @@ async def kvbm_peer(seed: int) -> None:
             await asyncio.sleep(0.5)
         health = {name: scrape(sys_port + i, "/health") for i, name in enumerate(("w1", "w2"))}
         live = {name: scrape(sys_port + i, "/live")[0] for i, name in enumerate(("w1", "w2"))}
+
+        # durable sessions: the uninterrupted streams, then the same requests
+        # migrated off a worker SIGKILLed mid-decode
+        dreqs = durable_requests(seed, vocab, "peer-durable")
+        whole = await together(routers["w1"].generate, dreqs)
+        await checkpoints_landed("w1")
+        for name in ("w1", "w2"):
+            await clear(name)
+        await asyncio.sleep(1.0)  # each mesh hears the other's `cleared`
+        w1_base = await stats_of("w1")
+        w2_base = await stats_of("w2")
+        reset_counts()
+        mig = RetryClock(PushRouter(
+            client, RouterMode.ROUND_ROBIN,
+            prefer=lambda ready: [ids["w1"]] if ids["w1"] in ready else ready))
+        records = [{"tokens": [], "times": []} for _ in dreqs]
+        tasks = [asyncio.create_task(migrate_stream(mig, r, rec))
+                 for r, rec in zip(dreqs, records)]
+        want = full_pages(dreqs)
+        deadline = time.perf_counter() + 120
+        while True:
+            st = await stats_of("w1")
+            pushed = stat_delta(st, w1_base, "kvbm_ckpt_blocks_pushed")
+            if (pushed >= want and min(len(r["tokens"]) for r in records) >= DURABLE_CUT
+                    and st["kvbm_ckpt_queue_depth"] == 0 and st["kvbm_pending_offloads"] == 0):
+                break
+            assert time.perf_counter() < deadline and not any(t.done() for t in tasks), \
+                "kvbm_peer: the streams never reached the cut with their prompts checkpointed"
+        w1_at_kill = st
+        t_kill = time.perf_counter()
+        procs["w1"].kill()
+        at_kill = [len(r["tokens"]) for r in records]
+        await asyncio.wait_for(asyncio.gather(*tasks), 180)
+        w2_after = await stats_of("w2")
+        proc = procs.pop("w1")
+        rcs["w1"] = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 30)
+        assert rcs["w1"] == -signal.SIGKILL, rcs
         await client.close()
-        for proc in procs.values():
-            proc.send_signal(signal.SIGTERM)
-        for name in list(procs):
-            proc = procs.pop(name)
-            rcs[name] = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
-            assert rcs[name] == 0, f"kvbm_peer: {name} exited {rcs[name]} on SIGTERM: {tail(name)}"
+        procs["w2"].send_signal(signal.SIGTERM)
+        proc = procs.pop("w2")
+        rcs["w2"] = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
+        assert rcs["w2"] == 0, f"kvbm_peer: w2 exited {rcs['w2']} on SIGTERM: {tail('w2')}"
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -2878,6 +3027,8 @@ async def kvbm_peer(seed: int) -> None:
     m1, m2 = metrics["w1"], metrics["w2"]
     assert gauge(m1, "kvbm_offloaded_blocks") > 0, "kvbm_peer: worker 1 offloaded nothing"
     assert gauge(m2, "kvbm_onboard_src_peer_blocks") > 0, "kvbm_peer: worker 2 pulled nothing"
+    assert stats[ids["w2"]]["kvbm_remote_blocks_pulled"] > 0, "kvbm_peer: no pull completed"
+    assert stats[ids["w1"]]["kv_transfers_served"] > 0, "kvbm_peer: worker 1 served no pull"
     for name, m in metrics.items():
         assert gauge(m, "health_canaries") >= 1, f"kvbm_peer: no canary ran on {name}"
         assert health[name][0] == 200 and json.loads(health[name][1])["status"] == "healthy", health
@@ -2889,7 +3040,7 @@ async def kvbm_peer(seed: int) -> None:
     assert not any(calls["plain"].values()), calls
     ttft = {name: [r["ttft_s"] for r in recs] for name, recs in (("w1", w1), ("w2", w2))}
     emit("kvbm_peer", model="llama-3.2-3b", layers=LAYERS, num_pages_each=PEER_PAGES,
-         host_blocks=KVBM_HOST_BLOCKS, sessions=KVBM_SESSIONS,
+         host_blocks=PEER_HOST_BLOCKS, sessions=KVBM_SESSIONS,
          prompt_tokens=KVBM_PROMPT + PEER_TAIL, max_tokens=KVBM_OUT,
          seconds_to_ready=round(t_ready, 2), streams_equal=len(w2),
          ttft_ms={name: {"p50": round(1e3 * pct(t, 50), 2), "p99": round(1e3 * pct(t, 99), 2)}
@@ -2909,6 +3060,302 @@ async def kvbm_peer(seed: int) -> None:
              for name, m in metrics.items()},
          health={name: h[0] for name, h in health.items()}, live=live,
          system_ports=[sys_port, sys_port + 1], exit_codes=rcs)
+
+    for i, (w, r) in enumerate(zip(whole, records)):
+        assert r["tokens"] == w["tokens"], \
+            f"kvbm_peer: stream {i} resumed on worker 2 differs from its uninterrupted stream"
+    resumed = stat_delta(w2_after, w2_base, "migrations_resumed")
+    replayed = stat_delta(w2_after, w2_base, "migration_replayed_tokens")
+    assert resumed == DURABLE_STREAMS, f"kvbm_peer: {resumed} resumes on worker 2"
+    assert stat_delta(w2_after, w2_base, "resume_source_checkpoint") >= 1, w2_after
+    assert replayed < 2 * 64 * DURABLE_STREAMS, f"kvbm_peer: {replayed} tokens recomputed"
+    dcalls = calls_delta(w2_after, w2_base)
+    assert dcalls.get("kernels:paged_decode/none", 0) > 0 and set(dcalls) <= {
+        "kernels:paged_decode/none", "kernels:prefill_attention/none"}, dcalls
+    blocks = stat_delta(w1_at_kill, w1_base, "kvbm_ckpt_blocks_pushed")
+    push_s = stat_delta(w1_at_kill, w1_base, "kvbm_ckpt_push_s")
+    itl = [x for w in whole for x in w["itl_s"]]
+    emit("kvbm_peer_durable", model="llama-3.2-3b", layers=LAYERS, streams=DURABLE_STREAMS,
+         prompt_tokens=[len(r["token_ids"]) for r in dreqs], max_tokens=DURABLE_OUT,
+         tokens_at_kill=at_kill, streams_equal=len(records),
+         **mig.resume(dreqs, records, t_kill),
+         migrations_resumed=resumed, replayed_tokens=replayed,
+         replayed_tokens_per_stream=round(replayed / DURABLE_STREAMS, 1),
+         resume_source={k: stat_delta(w2_after, w2_base, f"resume_source_{k}")
+                        for k in ("checkpoint", "peer", "local", "recompute")},
+         tail_recompute=dev_delta(w2_after, w2_base, "replay"),
+         onboard={k: stat_delta(w2_after, w2_base, k) for k in (
+             "kvbm_onboard_src_local_blocks", "kvbm_onboard_src_peer_blocks",
+             "kvbm_onboard_count", "kvbm_onboard_ms_sum", "kv_onboard_fallbacks")},
+         checkpoint={"blocks_pushed": blocks,
+                     "push_ms_per_block": round(1e3 * push_s / blocks, 3) if blocks else None,
+                     "blocks_dropped": stat_delta(w1_at_kill, w1_base, "kvbm_ckpt_blocks_dropped"),
+                     "received_by_w2": stat_delta(w2_after, w2_base, "kv_checkpoint_blocks_received")},
+         uninterrupted_itl_ms={"p50": round(1e3 * pct(itl, 50), 3),
+                               "p99": round(1e3 * pct(itl, 99), 3)},
+         worker2_calls=dcalls, exit_codes=rcs)
+
+
+# ---------------------------------------------------------------------- #
+# phase: durable (session checkpoints, migration and a live morph, in process)
+# ---------------------------------------------------------------------- #
+
+DURABLE_STREAMS = 4  # two greedy, two seeded
+DURABLE_PROMPT, DURABLE_OUT, DURABLE_CUT = 1000, 256, 128  # cut: tokens out at the sever
+DURABLE_PAGES = 1024  # each engine's pool
+DURABLE_CKPT = "1024"  # DYN_KV_CHECKPOINT: blocks the stage holds at most
+
+
+def durable_requests(seed: int, vocab: int, tag: str) -> list:
+    _, text = make_requests(seed, vocab, [], (), (), tag)
+    return [PreprocessedRequest(
+        token_ids=text(DURABLE_PROMPT + 13 * i, 7000 + i), request_id=f"{tag}-{i}",
+        stop_conditions={"max_tokens": DURABLE_OUT},
+        sampling_options={} if i < 2 else {"temperature": 0.7, "seed": 3000 + i},
+    ).to_dict() for i in range(DURABLE_STREAMS)]
+
+
+def full_pages(reqs) -> int:
+    return sum(len(r["token_ids"]) // 64 for r in reqs)
+
+
+class EnginePair:
+    """Two in-process engines as a router sees them: a stream goes to the
+    first engine its request does not exclude (`router.exclude_instances`),
+    and a StreamSevered the engine raises surfaces as StreamLost with the
+    instance on the context, as the request plane codes a morph's drain."""
+
+    def __init__(self, engines: dict):
+        self.engines = engines  # instance id -> engine
+
+    async def generate(self, request, context):
+        from dynamo_tpu_torch.runtime.push_router import request_excluded_instances
+
+        req = request.to_dict() if hasattr(request, "to_dict") else request
+        excluded = set(request_excluded_instances(req))
+        inst = next(i for i in self.engines if i not in excluded)
+        context.routed_instance = inst
+        return self._stream(self.engines[inst], req)
+
+    @staticmethod
+    async def _stream(engine, req):
+        from dynamo_tpu_torch.runtime.request_plane import StreamLost, StreamSevered
+
+        try:
+            async for item in engine.generate(req, Context()):
+                yield item
+        except StreamSevered as e:
+            raise StreamLost(str(e)) from e
+
+
+async def migrate_stream(router, req: dict, record: dict) -> None:
+    """One request through the port's Migration; `record` gets the tokens
+    and the arrival time of each."""
+    from dynamo_tpu_torch.llm.migration import Migration
+
+    async for ann in Migration(router, migration_limit=2).generate(
+            PreprocessedRequest.from_dict(req), Context()):
+        if ann.is_error():
+            raise RuntimeError(f"migrated stream failed: {ann.comment}")
+        toks = (ann.data or {}).get("token_ids") or []
+        now = time.perf_counter()
+        record["tokens"].extend(toks)
+        record["times"].extend([now] * len(toks))
+
+
+class RetryClock:
+    """A router that notes when each migrated retry is issued through it."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.issued: dict = {}  # request id -> perf_counter at the retry
+
+    def generate(self, request, context=None):
+        if request.get("migration"):
+            self.issued[request["request_id"]] = time.perf_counter()
+        return self.inner.generate(request, context)
+
+    def resume(self, reqs, records, t_cut: float) -> dict:
+        """Per stream, ms from the cut (the kill, or the morph's start) to
+        the retry's issue and to the first token the retry streamed."""
+        issued, gap = [], []
+        for req, rec in zip(reqs, records):
+            t = self.issued[req["request_id"]]
+            issued.append(round(1e3 * (t - t_cut), 2))
+            gap.append(round(1e3 * (next(x for x in rec["times"] if x > t) - t_cut), 2))
+        return {"resume_gap_ms": gap, "retry_issued_ms": issued}
+
+
+async def durable(seed: int, params) -> dict:
+    """Two engines (28 layers, bf16, scatter), each with a 256-block host tier
+    and a data plane, on one discovery service with DYN_KV_CHECKPOINT: A
+    checkpoints its committed blocks into B's tier. Four streams (two greedy,
+    two seeded) are taken uninterrupted on A, all at once, then run again through the
+    port's Migration; once B holds their prompts and each has DURABLE_CUT
+    tokens out, `A.morph("prefill")` severs them and they resume on B, which
+    must classify the resumes `checkpoint`, recompute under two pages each
+    and stream what the uninterrupted streams streamed. Mixed dispatch is
+    off on both, so every decode row runs the decode kernel, as the
+    decode-shaped tail recompute does. Then an injected `worker.morph:error`
+    must roll A back to a routable role."""
+    import os
+
+    from dynamo_tpu_torch.kvbm import KvbmDistributed
+    from dynamo_tpu_torch.llm import kv_transfer
+    from dynamo_tpu_torch.runtime import DiscoveryServer, DistributedRuntime, RuntimeConfig, faults
+
+    server = DiscoveryServer(port=0)
+    _, port = await server.start()
+    cfg = EngineConfig(model="llama3-3b", seed=seed, num_pages=DURABLE_PAGES,
+                       kvbm_host_blocks=KVBM_HOST_BLOCKS, mixed_dispatch=False)
+    members = []  # (drt, engine, plane, dist)
+    os.environ["DYN_KV_CHECKPOINT"] = DURABLE_CKPT
+    try:
+        for _ in range(2):
+            rc = RuntimeConfig.from_settings()
+            rc.discovery_endpoint = f"tcp://127.0.0.1:{port}"
+            drt = await DistributedRuntime.create(rc)
+            engine = TorchEngine(cfg, model_config=llama.LlamaConfig.llama3_2_3b(),
+                                 params=params, device="cuda")
+            plane = kv_transfer.KvDataPlaneServer(host="127.0.0.1")
+            await plane.start()
+            await plane.register(drt)
+            engine.data_plane = plane
+            dist = KvbmDistributed(drt, engine.kvbm, plane, "dynamo", "kvbm", drt.instance_id)
+            await dist.start()
+            members.append((drt, engine, plane, dist))
+    finally:
+        os.environ.pop("DYN_KV_CHECKPOINT", None)
+    (a_drt, a, a_plane, a_dist), (b_drt, b, b_plane, b_dist) = members
+    try:
+        for e in (a, b):
+            await e.warmup()
+        for _ in range(500):
+            if a_dist.checkpoint_peer() is not None:
+                break
+            await asyncio.sleep(0.01)
+        assert a_dist.checkpoint_peer()[0] == b_drt.instance_id, "durable: A has no checkpoint peer"
+        reqs = durable_requests(seed, llama.LlamaConfig.llama3_2_3b().vocab_size, "durable")
+        whole = await together(lambda r: _open(a, r), reqs)
+        # the migrated run starts from empty caches and tiers on both sides:
+        # A checkpoints it afresh, B holds only what A pushes from here on
+        await settle(a)
+        await checkpoints_settled(a_dist)
+        for e in (a, b):
+            e.clear_kv_blocks()
+        await asyncio.sleep(1.0)  # each mesh hears the other's `cleared`
+        pushed0 = b_plane.checkpoint_blocks_received
+        a0, b0 = a.stats(), b.stats()
+        # counts to zero just before the main path is driven
+        reset_counts()
+        router = RetryClock(EnginePair({a_drt.instance_id: a, b_drt.instance_id: b}))
+        records = [{"tokens": [], "times": []} for _ in reqs]
+        tasks = [asyncio.create_task(migrate_stream(router, r, rec))
+                 for r, rec in zip(reqs, records)]
+        want = full_pages(reqs)
+        deadline = time.perf_counter() + 120
+        while (b_plane.checkpoint_blocks_received - pushed0 < want
+               or min(len(r["tokens"]) for r in records) < DURABLE_CUT):
+            assert time.perf_counter() < deadline and not any(t.done() for t in tasks), \
+                "durable: the streams never reached the cut with their prompts checkpointed"
+            await asyncio.sleep(0.002)
+        t_cut = time.perf_counter()
+        at_cut = [len(r["tokens"]) for r in records]
+        morph = await a.morph("prefill")
+        await asyncio.wait_for(asyncio.gather(*tasks), 120)
+        launches = kernel_launches()
+        plain = dict(pa.plain_calls)
+        a1, b1 = a.stats(), b.stats()
+
+        # an injected error mid-morph rolls A back, and A serves again
+        faults.configure("worker.morph:error,times=1", seed=seed)
+        try:
+            await a.morph("decode")
+            raise AssertionError("durable: the injected morph error did not raise")
+        except faults.FaultError:
+            pass
+        finally:
+            faults.reset()
+        a2 = a.stats()
+        after = new_record()
+        await run_request(a, dict(reqs[0], request_id="durable-after-rollback",
+                                  stop_conditions={"max_tokens": 8}), after)
+    finally:
+        for drt, engine, plane, dist in members:
+            kv_transfer._CONN_POOL.evict(plane.addr)
+            await dist.close()
+            await engine.close()
+            await plane.close()
+            await drt.close()
+        await server.stop()
+
+    for i, (w, r) in enumerate(zip(whole, records)):
+        assert len(w["tokens"]) == DURABLE_OUT and r["tokens"] == w["tokens"], \
+            f"durable: stream {i} resumed on B differs from its uninterrupted stream"
+    assert morph["drained"] == DURABLE_STREAMS and morph["to"] == "prefill", morph
+    assert stat_delta(a1, a0, "morph_drained_sessions") == DURABLE_STREAMS, a1
+    assert stat_delta(a1, a0, "morphs_completed") == 1 and a1["engine_role"] == "prefill"
+    resumed = stat_delta(b1, b0, "migrations_resumed")
+    replayed = stat_delta(b1, b0, "migration_replayed_tokens")
+    assert resumed == DURABLE_STREAMS, f"durable: {resumed} resumes on B"
+    assert stat_delta(b1, b0, "resume_source_checkpoint") >= 1, b1
+    assert replayed < 2 * 64 * DURABLE_STREAMS, f"durable: {replayed} tokens recomputed"
+    assert a2["morphs_rolled_back"] == 1 and a2["engine_role"] == "prefill"
+    assert a2["morph_state"] == "serving" and len(after["tokens"]) == 8, "durable: A not routable"
+    used = [("paged_decode", "none"), ("prefill_attention", "none")]
+    assert all(launches.get(u, 0) > 0 for u in used), f"durable: a path kernel never launched: {launches}"
+    assert sum(launches.values()) == sum(launches[u] for u in used), \
+        f"durable: a kernel outside the path launched: {launches}"
+    assert not any(plain.values()), f"durable: plain attention ran: {plain}"
+    itl = [x for w in whole for x in w["itl_s"]]
+    blocks = stat_delta(a1, a0, "kvbm_ckpt_blocks_pushed")
+    push_s = stat_delta(a1, a0, "kvbm_ckpt_push_s")
+    emit("durable", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
+         decode_pool_mode="scatter", kv_quant="none", num_pages_each=DURABLE_PAGES,
+         host_blocks=KVBM_HOST_BLOCKS, streams=DURABLE_STREAMS,
+         prompt_tokens=[len(r["token_ids"]) for r in reqs], max_tokens=DURABLE_OUT,
+         tokens_at_sever=at_cut, streams_equal=len(records),
+         **router.resume(reqs, records, t_cut),
+         migrations_resumed=resumed, replayed_tokens=replayed,
+         replayed_tokens_per_stream=round(replayed / DURABLE_STREAMS, 1),
+         resume_source={k: stat_delta(b1, b0, f"resume_source_{k}")
+                        for k in ("checkpoint", "peer", "local", "recompute")},
+         tail_recompute=dev_delta(b1, b0, "replay"),
+         checkpoint={"blocks_pushed": blocks, "bytes_pushed": stat_delta(a1, a0, "kvbm_ckpt_bytes_pushed"),
+                     "push_ms_per_block": round(1e3 * push_s / blocks, 3) if blocks else None,
+                     "blocks_dropped": stat_delta(a1, a0, "kvbm_ckpt_blocks_dropped"),
+                     "received_by_b": stat_delta(b1, b0, "kv_checkpoint_blocks_received")},
+         morph={"drained": morph["drained"], "duration_s": round(morph["duration_s"], 3),
+                "rolled_back_on_injected_error": a2["morphs_rolled_back"],
+                "role_after_rollback": a2["engine_role"]},
+         uninterrupted_itl_ms={"p50": round(1e3 * pct(itl, 50), 3),
+                               "p99": round(1e3 * pct(itl, 99), 3)},
+         launches={f"{n}/{f}": c for (n, f), c in launches.items() if c}, plain_calls=plain)
+    return launches
+
+
+async def checkpoints_settled(dist) -> None:
+    """Every block the checkpointer staged is pushed or dropped."""
+    for _ in range(3000):
+        await asyncio.sleep(0.01)
+        st = dist.stats()
+        if st["kvbm_ckpt_queue_depth"] == 0 and st["kvbm_ckpt_blocks_staged"] == (
+                st["kvbm_ckpt_blocks_pushed"] + st["kvbm_ckpt_blocks_dropped"]):
+            return
+    raise RuntimeError("durable: the checkpointer never settled")
+
+
+async def together(open_stream, reqs) -> list:
+    """The durable streams uninterrupted, all submitted at once: records
+    (tokens, ITL). With mixed dispatch off, a stream's arithmetic does not
+    depend on the others (decode rows always fill the 64-lane block, a
+    prefill chunk its padded lanes)."""
+    records = [new_record() for _ in reqs]
+    await asyncio.gather(*(run_stream(open_stream, r, rec) for r, rec in zip(reqs, records)))
+    for req, rec in zip(reqs, records):
+        assert rec["finish"] == "length" and len(rec["tokens"]) == DURABLE_OUT, \
+            (req["request_id"], rec["finish"], len(rec["tokens"]))
+    return records
 
 
 def main() -> None:
@@ -2967,6 +3414,9 @@ def main() -> None:
     t0 = time.perf_counter()
     add_launches(launches, asyncio.run(kvbm_all(args.seed, params)))
     seconds["kvbm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_launches(launches, asyncio.run(durable(args.seed, params)))
+    seconds["durable"] = time.perf_counter() - t0
     # the subprocess workers size or place their pools on the card: this
     # process lets go of what it holds first (engines that sat in
     # reference cycles with their tasks included)

@@ -98,8 +98,8 @@ class EngineConfig:
     # only at slot release. None = on.
     incremental_commit: Optional[bool] = None
     # serving role: "decode"/"both" serve whole requests (and decode
-    # handed-off prompts), "prefill" answers disaggregated prefills; it is
-    # reported in stats() and set at start (morphing is not ported)
+    # handed-off prompts), "prefill" answers disaggregated prefills; the
+    # role at start (TorchEngine.morph re-roles a live engine)
     role: str = "decode"
 
     @property

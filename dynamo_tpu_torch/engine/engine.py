@@ -43,15 +43,35 @@ and host reads are the expensive unit:
     copies the step's committed pages to the host on the side stream.
     Admission probes the tiers — and, with the announcement mesh, peer
     workers' tiers (G4) — for the blocks the device prefix cache missed and
-    injects the hits into fresh pages before prefill.
+    injects the hits into fresh pages before prefill. With the mesh's
+    session checkpointer on (`DYN_KV_CHECKPOINT`), each committed block is
+    also replicated into a peer's host tier.
+  * durable sessions: with incremental commit a live stream's full blocks
+    reach the prefix cache and the tiers as decode fills them. A migrated
+    request (`req.migration` > 0, the retry of a stream whose worker died)
+    is classified at admission by where its prefix came from — checkpoint,
+    peer, local or recompute — and the tokens it really recomputes are
+    counted. Its tail past the reused prefix (at most two pages) is
+    recomputed decode-shaped, so the resumed stream is the one that died,
+    bit for bit (scatter pools, unquantized).
+  * role morphing: `morph(role)` re-roles the live engine prefill <->
+    decode (serving -> draining-role -> flipped -> warm -> serving). Streams
+    of a role that goes away are severed with StreamSevered, which the
+    request plane codes as `draining`, so each caller's migration resumes
+    the session on a peer; any failure but `faults.MorphCrash` rolls the
+    role back.
+  * estimates: `estimated_prefill_wait_ms`, `estimated_req_ms` and
+    `estimated_role_tok_s` read the scheduler's cost model; `stats()`
+    publishes them as `sched_est_*`, which admission gates, the disagg
+    router and planners read.
 
 The KV pool is written in place. There is nothing to compile per shape, so
 `warmup()` only builds the kernel library and drives one dispatch of each
 kind. All device work runs on one executor thread so a blocking copy never
 stalls the event loop. Left out of this port so far (each raises a typed
-error when asked for): the session checkpointer, role morphing, the
-multi-host shard handoff, speculative decoding, guided decoding, LoRA,
-multimodal, multi-host, tensor/pipeline/sequence parallelism. The KV pool may be stored at 8 or 4
+error when asked for): the multi-host shard handoff, speculative decoding,
+guided decoding, LoRA, multimodal, multi-host, tensor/pipeline/sequence
+parallelism. The KV pool may be stored at 8 or 4
 bits (`kv_quant`): quantized on write, dequantized inside the attention
 kernels. The weights may be int8 weight-only quantized (`quantize="int8"`,
 models/quant.py): random weights are quantized on the device after their
@@ -93,7 +113,17 @@ from ..ops.kv_quant import (
     pack_pages,
     resolve_kv_quant,
 )
+from ..runtime import faults
+from ..runtime.config import env_bool, env_float
 from ..runtime.engine import Context
+from ..runtime.metrics import (
+    SCHED_EST_DECODE_TOK_S,
+    SCHED_EST_PREFILL_TOK_S,
+    SCHED_EST_REQ_MS,
+    SCHED_EST_TTFT_MS,
+)
+from ..runtime.push_router import request_excluded_instances
+from ..runtime.request_plane import StreamSevered
 from .bucketing import next_pow2 as _next_pow2
 from .config import EngineConfig, UnsupportedConfigError
 from .kv_cache import PageAllocator, alloc_kv_arrays
@@ -170,6 +200,9 @@ class _Slot:
     tenant: str = ""
     kv_holder: Optional[dict] = None  # router holder hint for a peer onboard
     onboard: Optional[tuple] = None  # KVBM: (fresh pages, hashes) to inject
+    migration: int = 0  # > 0: the retry of a stream whose worker died
+    migration_counted: bool = False  # its resume is classified once
+    replay: bool = False  # migrated: its tail is recomputed decode-shaped
 
 
 class StreamedPullHandle:
@@ -211,6 +244,8 @@ class StreamedPullHandle:
                 item = await slot.queue.get()
                 if item is None:
                     return
+                if isinstance(item, Exception):
+                    raise item  # a morph's StreamSevered, see TorchEngine._drain
                 yield item
         finally:
             slot.done = True
@@ -336,12 +371,18 @@ class TorchEngine:
             ),
         )
         self._mixed_enabled = (
-            config.mixed_dispatch if config.mixed_dispatch is not None else True
+            config.mixed_dispatch if config.mixed_dispatch is not None
+            else env_bool("DYN_MIXED_DISPATCH", True)
         )
         self._incremental_commit = (
             config.incremental_commit
             if config.incremental_commit is not None else True
         )
+        # a migrated resume recomputes its un-checkpointed tail with the
+        # decode forward (see _dispatch_replays): exact where the decode
+        # block writes the pool in place and unquantized
+        self._replay_tail = (config.decode_pool_mode == "scatter"
+                             and config.kv_quant == "none")
         # row-start alignment of the flat packer: whatever the ragged
         # kernel asks for (packer and kernel agree through this function)
         self._mixed_align = ragged_tile_q(c.dtype)
@@ -429,6 +470,26 @@ class TorchEngine:
         self.kvbm_onboard_count = 0
         self.kv_onboard_fallbacks = 0
         self._kvbm_futs: List[concurrent.futures.Future] = []  # gathers to await
+        # migration accounting: streams resumed here after a worker death,
+        # the tokens they really re-prefilled and where their prefix came from
+        self.migrations_resumed = 0
+        self.migration_replayed_tokens = 0
+        self.resume_source_checkpoint = 0
+        self.resume_source_peer = 0
+        self.resume_source_local = 0
+        self.resume_source_recompute = 0
+        # role morphing: the live role and the state machine's position,
+        # written only by morph()
+        self._role = config.role
+        self._morph_state = "serving"
+        self._severed_queues: List[asyncio.Queue] = []
+        self.morphs_completed = 0
+        self.morphs_rolled_back = 0
+        self.morph_drained_sessions = 0
+        self.morph_last_duration_s = 0.0
+        # held for each step: a morph severs streams between two steps,
+        # never while a dispatch of theirs is in flight
+        self._step_lock = asyncio.Lock()
 
     # ------------------------------------------------------------------ #
     # lifecycle / interface
@@ -566,6 +627,13 @@ class TorchEngine:
         slot.priority = int(req.priority or 0)
         slot.tenant = req.tenant or ""
         slot.kv_holder = req.kv_holder
+        slot.migration = int(req.migration or 0)
+        if slot.migration and self.kvbm is not None and self.kvbm.distributed is not None:
+            # the retry names the worker(s) that lost this stream: the KV
+            # fabric stops pulling from them too, so the onboard never dials
+            # a corpse whose announcements outlive it
+            for inst in request_excluded_instances(req):
+                self.kvbm.distributed.note_peer_failure(inst)
         slot.arrival_s = time.monotonic()
         self.scheduler.assign_deadline(slot)
         return slot
@@ -574,9 +642,18 @@ class TorchEngine:
         async for item in self._drain(self._entry_slot(request, context)):
             yield item
 
+    def _morph_guard(self):
+        """Refuse new streams mid-morph the way the drain cut the live ones:
+        StreamSevered rides the `draining` code, so the caller's migration
+        re-routes instead of failing. ("warm" is admitted: warmup_role
+        drives generate.)"""
+        if self._morph_state in ("draining-role", "flipped"):
+            raise StreamSevered(f"worker is morphing ({self._morph_state}); stream re-routed")
+
     def _entry_slot(self, request: Any, context: Context) -> _Slot:
-        """Shared prologue of every entry: coerce and check the request,
-        build its slot."""
+        """Shared prologue of every entry: refuse it mid-morph, coerce and
+        check the request, build its slot."""
+        self._morph_guard()
         req = (
             request
             if isinstance(request, PreprocessedRequest)
@@ -607,6 +684,11 @@ class TorchEngine:
                 item = await slot.queue.get()
                 if item is None:
                     return
+                if isinstance(item, Exception):
+                    # _sever_all's StreamSevered: raised out of the handler,
+                    # the request plane codes it `draining` and the caller
+                    # migrates
+                    raise item
                 yield item
         finally:
             slot.done = True
@@ -660,7 +742,10 @@ class TorchEngine:
         prefill worker's EARLY descriptor while its prefill still runs, so
         the transfer overlaps the peer's compute; the first decode step
         dispatches once the last chunk and the first token have both
-        landed."""
+        landed. Mid-morph it returns None: the serial path then refuses the
+        stream."""
+        if self._morph_state in ("draining-role", "flipped"):
+            return None
         slot = self._entry_slot(request, context)
         slot.preloaded = (None, None, None, int(desc["n_tokens"]))
         slot.pull_desc = dict(desc)
@@ -668,11 +753,165 @@ class TorchEngine:
         self._enqueue(slot)
         return StreamedPullHandle(self, slot, str(desc.get("transfer_id", "")))
 
-    async def morph(self, target_role: str, **_):
-        """Live role morphing is not ported yet: a role is set at start."""
-        raise UnsupportedConfigError(
-            "role morphing (JaxEngine.morph) is not supported by the PyTorch/CUDA port yet"
-        )
+    # ------------------------------------------------------------------ #
+    # live role morphing
+    # ------------------------------------------------------------------ #
+
+    _ROLES = {
+        "prefill": {"prefill"},
+        "decode": {"decode"},
+        "both": {"prefill", "decode"},
+    }
+
+    async def warmup_role(self, role: str) -> int:
+        """Re-warm for the INCOMING role of a morph: drive the role's
+        dispatches through the real generate path (a short-output prefill
+        per bucket for prefill; two short-prompt decode blocks for decode)
+        before the flipped worker takes traffic, as the reference does.
+        The port compiles nothing per shape, so there is no compile
+        baseline to refresh: this pays any first-dispatch cost of the new
+        traffic mix. Returns the requests driven."""
+        rng = np.random.RandomState(0xD74B)
+        vocab = self.model_config.vocab_size
+        K = self.config.decode_block_steps
+
+        async def _drain(isl: int, max_tokens: int):
+            req = PreprocessedRequest(
+                token_ids=rng.randint(5, max(vocab - 1, 6), size=isl).tolist(),
+                stop_conditions={"max_tokens": max_tokens, "ignore_eos": True},
+                sampling_options={"temperature": 1.0},
+            ).to_dict()
+            async for _ in self.generate(req, Context()):
+                pass
+
+        buckets = [b for b in self.config.prefill_buckets
+                   if b <= self.config.max_model_len] or [self.config.prefill_buckets[0]]
+        n = 0
+        if "prefill" in self._ROLES[role]:
+            for b in buckets:
+                await _drain(max(b - 8, 4), 1)
+                n += 1
+        if "decode" in self._ROLES[role]:
+            for _ in range(2):
+                await _drain(max(buckets[0] - 8, 4), K + 2)
+                n += 1
+        return n
+
+    async def _await_sever_consumed(self, timeout_s: float):
+        """Hold the flip until every severed stream's sentinel has been read
+        by its consumer (which is now migrating); DYN_MORPH_DRAIN_TIMEOUT_S
+        bounds the wait, and its expiry fails the morph (rollback)."""
+        t0 = time.monotonic()
+        while any(not q.empty() for q in self._severed_queues):
+            if time.monotonic() - t0 > timeout_s:
+                raise TimeoutError(f"morph drain exceeded {timeout_s}s budget "
+                                   "(severed stream consumer never woke)")
+            await asyncio.sleep(0.01)
+        self._severed_queues = []
+
+    async def morph(self, target_role: str, *,
+                    on_flip: Optional[Callable[[], Any]] = None) -> dict:
+        """Re-role this live engine: serving -> draining-role -> flipped ->
+        warm -> serving. Streams of a role that goes away are severed (their
+        sessions resume on peers through migration); `on_flip` is awaited
+        between the flip and the re-warm, so the worker moves its discovery
+        lanes with the drain; `warmup_role` then warms the incoming role.
+
+        Any exception mid-morph rolls the role back (the severed sessions
+        have already moved: nothing to restore), except faults.MorphCrash,
+        which propagates so the worker tears itself down like a crash."""
+        if target_role not in self._ROLES:
+            raise ValueError(f"unknown role {target_role!r}")
+        if self._morph_state != "serving":
+            raise RuntimeError(f"morph re-entered while {self._morph_state!r}")
+        old_role = self._role
+        if target_role == old_role:
+            return {"from": old_role, "to": target_role, "drained": 0, "duration_s": 0.0}
+        t0 = time.monotonic()
+        self._morph_state = "draining-role"
+        try:
+            f = faults.FAULTS
+            if f.enabled:
+                # `worker.morph` mid-drain: `error` rolls back, `crash` crashes
+                act = await f.on("worker.morph")
+                if act == "crash":
+                    raise faults.MorphCrash("injected crash mid-drain")
+            drained = 0
+            # sever when a lane the old role served goes away ("both" keeps
+            # every lane, so growing into it drains nothing)
+            if self._ROLES[old_role] - self._ROLES[target_role]:
+                async with self._step_lock:
+                    drained = self._sever_all(
+                        f"worker morphing {old_role}->{target_role}; stream re-routed")
+                if drained:
+                    await self._await_sever_consumed(
+                        env_float("DYN_MORPH_DRAIN_TIMEOUT_S", 10.0))
+            self.morph_drained_sessions += drained
+            self._morph_state = "flipped"
+            if f.enabled:
+                # `worker.morph` mid-flip: after the drain
+                act = await f.on("worker.morph")
+                if act == "crash":
+                    raise faults.MorphCrash("injected crash mid-flip")
+            self._role = target_role
+            if on_flip is not None:
+                await on_flip()
+            self._morph_state = "warm"
+            await self.warmup_role(target_role)
+        except asyncio.CancelledError:
+            raise
+        except faults.MorphCrash:
+            raise  # the worker tears itself down mid-morph: no rollback
+        except Exception:
+            self._role = old_role
+            self._morph_state = "serving"
+            self.morphs_rolled_back += 1
+            raise
+        self._morph_state = "serving"
+        self.morphs_completed += 1
+        self.morph_last_duration_s = time.monotonic() - t0
+        return {"from": old_role, "to": target_role, "drained": drained,
+                "duration_s": self.morph_last_duration_s}
+
+    # ------------------------------------------------------------------ #
+    # estimates (the cost model's view, published by stats())
+    # ------------------------------------------------------------------ #
+
+    def estimated_role_tok_s(self) -> Dict[str, float]:
+        """Marginal per-role throughput from the cost model's EWMAs (s/token
+        of prefill dispatches and decode blocks): what prices a planner's
+        re-role. 0.0 while the model is cold on a kind."""
+        pf = self.scheduler.cost.per_token("prefill")
+        dc = self.scheduler.cost.per_token("block")
+        return {"prefill": 1.0 / pf if pf else 0.0, "decode": 1.0 / dc if dc else 0.0}
+
+    def estimated_prefill_wait_ms(self, n_new_tokens: int = 0) -> Optional[float]:
+        """Estimated local TTFT contribution of the prefill queue for a
+        hypothetical `n_new_tokens`-token arrival: the tokens still to
+        prefill across admitted and waiting slots plus the new prompt, at
+        the cost model's per-token prefill rate. None until a prefill was
+        observed (the disagg router then keeps the static threshold)."""
+        pending = int(n_new_tokens)
+        for s in self.slots:
+            if s is not None and not s.done and s.preloaded is None and s.onboard is None:
+                pending += max(len(s.kv_prompt) - s.prefill_pos, 0)
+        for s in self._waiting:
+            pending += len(s.prompt)
+        return self.scheduler.estimate_wait_ms(pending)
+
+    def estimated_req_ms(self) -> float:
+        """Marginal TTFT one more admitted request adds: a typical-length
+        prompt at the observed per-token prefill rate (an admission gate's
+        optimism-debt unit). 0.0 when the model is cold or nothing is
+        queued."""
+        per_tok = self.scheduler.cost.per_token("prefill")
+        if per_tok is None:
+            return 0.0
+        lens = [len(s.kv_prompt) for s in self.slots if s is not None and not s.done]
+        lens += [len(s.prompt) for s in self._waiting]
+        if not lens:
+            return 0.0
+        return (sum(lens) / len(lens)) * per_tok * 1000.0
 
     def clear_kv_blocks(self) -> int:
         """Admin flush: evict every unreferenced prefix-cache page (emitting
@@ -704,7 +943,6 @@ class TorchEngine:
             **self.allocator.stats(),
         }
         out["num_preemptions"] = self.num_preemptions
-        out["engine_role"] = self.config.role
         out["kv_format_mismatches"] = self.kv_format_mismatches
         if self.kvbm is not None:
             out.update(self.kvbm.stats())
@@ -721,6 +959,8 @@ class TorchEngine:
         if self.data_plane is not None:
             out["kv_transfers_served"] = self.data_plane.transfers_served
             out["kv_bytes_served"] = self.data_plane.bytes_served
+            out["kv_checkpoint_pushes"] = self.data_plane.checkpoint_pushes
+            out["kv_checkpoint_blocks_received"] = self.data_plane.checkpoint_blocks_received
         out["kv_pulls_completed"] = self.kv_pulls_completed
         out["kv_pages_pulled"] = self.kv_pages_pulled
         # port-side handoff counters: pulls that fell back to a local
@@ -739,6 +979,22 @@ class TorchEngine:
         ) if self.disagg_streamed_handoffs else 0.0
         out["kv_streamed_stages"] = self.kv_streamed_stages
         out["kv_streamed_fallbacks"] = self.kv_streamed_fallbacks
+        # what a worker death cost the streams resumed here
+        out["migrations_resumed"] = self.migrations_resumed
+        out["migration_replayed_tokens"] = self.migration_replayed_tokens
+        out["resume_source_checkpoint"] = self.resume_source_checkpoint
+        out["resume_source_peer"] = self.resume_source_peer
+        out["resume_source_local"] = self.resume_source_local
+        out["resume_source_recompute"] = self.resume_source_recompute
+        est_role = self.estimated_role_tok_s()
+        out[SCHED_EST_PREFILL_TOK_S] = round(est_role["prefill"], 1)
+        out[SCHED_EST_DECODE_TOK_S] = round(est_role["decode"], 1)
+        out["engine_role"] = self._role
+        out["morph_state"] = self._morph_state
+        out["morphs_completed"] = self.morphs_completed
+        out["morphs_rolled_back"] = self.morphs_rolled_back
+        out["morph_drained_sessions"] = self.morph_drained_sessions
+        out["morph_last_duration_s"] = round(self.morph_last_duration_s, 3)
         # process-wide attention calls (kernel launches, plain calls)
         out["attention_calls"] = attention_counts()
         out["kv_skip_ahead_blocks"] = self.prefix_skip_ahead_blocks
@@ -760,6 +1016,9 @@ class TorchEngine:
             round(self.mixed_steps / denom, 4) if denom else 1.0
         )
         out.update(self.scheduler.stats())
+        est = self.estimated_prefill_wait_ms()
+        out[SCHED_EST_TTFT_MS] = round(est, 1) if est is not None else 0.0
+        out[SCHED_EST_REQ_MS] = round(self.estimated_req_ms(), 1)
         recent = self.scheduler.recent_decisions()
         if recent:
             out["sched_last_decision"] = recent[-1]
@@ -791,7 +1050,8 @@ class TorchEngine:
                 await self._wake.wait()
                 continue
             try:
-                progressed = await self._step_once()
+                async with self._step_lock:
+                    progressed = await self._step_once()
             except Exception as e:  # noqa: BLE001 — engine loop must not die silently
                 logger.exception("engine step failed; failing active requests")
                 self._fail_all(f"engine step failed: {type(e).__name__}: {e}")
@@ -806,6 +1066,7 @@ class TorchEngine:
         block), then collect ALL host-needed values in one fetch."""
         self._admit_waiting()
         progressed = await self._run_injections()
+        progressed |= await self._dispatch_replays()
         dispatched = False
         if await self._dispatch_mixed():
             progressed = True
@@ -921,6 +1182,8 @@ class TorchEngine:
                     rate * 1000.0 * cfg.page_size if rate is not None else None,
                     hint_instance=hint_inst)
         n_onboard = len(onboard_hashes)
+        if slot.migration:
+            self._count_resume(slot, hashes, n_cached, onboard_hashes)
         self._seat(slot, cached_pages + fresh, hashes[:n_cached])
         slot.prefill_pos = min((n_cached + n_onboard) * cfg.page_size, len(kv_prompt))
         if n_onboard:
@@ -929,6 +1192,7 @@ class TorchEngine:
         # logits) — back off one position
         if slot.prefill_pos >= len(kv_prompt):
             slot.prefill_pos = len(kv_prompt) - 1
+        slot.replay = bool(slot.migration and self._replay_tail and slot.prefill_pos > 0)
         self.scheduler.on_admit(slot)
         if slot.kv_pull and slot.kv_stream and self.data_plane is not None:
             # streamed handoff: stage NOW, before any prefill runs — the
@@ -1256,7 +1520,7 @@ class TorchEngine:
         finished and released on the way)."""
         cands = []
         for s in self.slots:
-            if s is None or s.prefill_pos >= len(s.kv_prompt):
+            if s is None or s.prefill_pos >= len(s.kv_prompt) or self._replays(s):
                 continue
             if s.done or s.context.is_stopped():
                 self._emit_finish(s, "cancelled")
@@ -1362,6 +1626,74 @@ class TorchEngine:
             {"first": first_dev, "done": completions, "progressed": progressed}
         )
         return True
+
+    def _replays(self, s: _Slot) -> bool:
+        """A migrated slot whose remaining tail (at most two pages) is
+        recomputed decode-shaped instead of prefilled."""
+        return (s.replay and s.onboard is None
+                and 0 < len(s.kv_prompt) - s.prefill_pos <= 2 * self.config.page_size)
+
+    async def _dispatch_replays(self) -> bool:
+        """Recompute a migrated resume's tail — the tokens past the prefix
+        its checkpoint or cache held — as the dead stream computed them:
+        one token a row through the decode forward, the rows padded to the
+        decode block's batch and table shapes, so every row's arithmetic,
+        and the KV it writes, is the decode step's. A prefilled tail would
+        differ in the last bits and let the continuation drift from the
+        stream that died; this way a resumed stream is the same stream.
+        Each dispatch covers up to max_num_seqs positions; the last one
+        samples the stream's next token, which completes like a prefill."""
+        cfg = self.config
+        did = False
+        for s in list(self.slots):
+            if s is None or not self._replays(s):
+                continue
+            if s.done or s.context.is_stopped():
+                self._emit_finish(s, "cancelled")
+                self._release_slot(s)
+                continue
+            B = cfg.max_num_seqs
+            start = s.prefill_pos
+            n = min(len(s.kv_prompt) - start, B)
+            toks = np.zeros((B,), np.int32)
+            positions = np.zeros((B,), np.int32)
+            seq_lens = np.zeros((B,), np.int32)
+            tables = np.full((B, cfg.max_pages_per_seq), SCRATCH_PAGE, np.int32)
+            toks[:n] = s.kv_prompt[start : start + n]
+            positions[:n] = np.arange(start, start + n)
+            seq_lens[:n] = positions[:n] + 1
+            tables[:n] = self.page_tables[s.slot_idx]
+            pens = np.array([[s.presence_penalty, s.frequency_penalty,
+                              s.repetition_penalty]], np.float32)
+            first = await self._run_on_device(
+                partial(self._dev_replay, toks, positions, seq_lens, tables, n - 1,
+                        np.array([s.temperature], np.float32),
+                        np.array([s.top_k], np.int32), np.array([s.top_p], np.float32),
+                        np.array([s.sample_seed], np.int64), pens,
+                        self.recent[s.slot_idx][None].copy()),
+                tag="replay")
+            s.prefill_pos += n
+            done = [(s, 0)] if s.prefill_pos >= len(s.kv_prompt) else []
+            self._pending_prefill.append(
+                {"first": first, "done": done, "progressed": [(s, s.prefill_pos)]})
+            did = True
+        return did
+
+    @torch.no_grad()
+    def _dev_replay(self, toks, positions, seq_lens, tables, last, temps, top_ks, top_ps,
+                    seeds, pens, pen_rows):
+        """Decode-shaped tail recompute (see _dispatch_replays): writes the
+        rows' KV and samples the token after row `last`."""
+        pos_d = self._dev(positions)
+        logits, _, _ = llama.decode_forward(
+            self.params, self.model_config, self._dev(toks), pos_d,
+            self.kv_k, self.kv_v, self._dev(tables), self._dev(seq_lens),
+        )
+        samp = self._samp(temps, top_ks, top_ps, seeds, pens)
+        row = logits[last:last + 1]
+        first = sample_lp(penalized(row, samp, self._dev(pen_rows)), samp,
+                          pos_d[last:last + 1], raw=row)
+        return self._result(*first)
 
     def _fill_recent(self, idx: int, slot: _Slot):
         """Load the lane's penalty window from the tokens so far (prompt +
@@ -1721,7 +2053,6 @@ class TorchEngine:
         of another KV format falls back to prefilling that span (counted);
         any other error propagates."""
         from ..llm.kv_transfer import KvFormatError
-        from ..runtime import faults
 
         alloc_pages, hashes = slot.onboard
         slot.onboard = None
@@ -1743,6 +2074,10 @@ class TorchEngine:
             logger.warning("KVBM onboard miss: %s; prefilling instead", e)
             self.kv_onboard_fallbacks += 1
             slot.prefill_pos = len(slot.committed_hashes) * self.config.page_size
+            if slot.migration:
+                # replayed tokens are counted by outcome: admission counted
+                # these blocks as reused, and they now re-prefill
+                self.migration_replayed_tokens += len(hashes) * self.config.page_size
             return
         phys = np.array([p + 1 for p in alloc_pages], np.int32)  # scratch shift
         await self._run_on_device(partial(self._dev_onboard, phys, k, v), tag="kvbm_onboard")
@@ -2397,6 +2732,58 @@ class TorchEngine:
             if slot.slot_idx >= 0:
                 self._release_slot(slot)
         self._waiting = []
+
+    def _sever_all(self, message: str) -> int:
+        """The morph drain: cut every live stream with a StreamSevered
+        sentinel (not _fail_all's terminal error). The consumer raises it,
+        the request plane codes it `draining`, and each caller's migration
+        resumes the session on a peer. The batch state resets as in
+        _fail_all. No None follows the sentinel (the consumer raises and
+        reads no further), so an empty queue means the consumer has it:
+        morph() waits for that on the kept queues. Returns the streams cut."""
+        self._inflight.clear()
+        self._pending_prefill = []
+        self._carry_valid = False
+        self._dirty_lanes.clear()
+        self._dirty_tables.clear()
+        self.scheduler.reset()
+        queues: List[asyncio.Queue] = []
+        for slot in list(self.slots) + self._waiting:
+            if slot is None:
+                continue
+            if not slot.done:
+                slot.queue.put_nowait(StreamSevered(message))
+                slot.done = True
+                queues.append(slot.queue)
+            if slot.slot_idx >= 0:
+                self._release_slot(slot)
+        self._waiting = []
+        self._severed_queues = queues
+        return len(queues)
+
+    def _count_resume(self, slot: _Slot, hashes: List[int], n_cached: int,
+                      onboard_hashes: List[int]):
+        """Classify a migrated request's resume at admission: `checkpoint`
+        when a reused block is a session-checkpoint replica, `peer` when
+        the onboard pulls another worker's blocks, `local` when this
+        worker's own cache or tiers cover the prefix, else `recompute`."""
+        if slot.migration_counted:
+            return
+        slot.migration_counted = True
+        self.migrations_resumed += 1
+        ps = self.config.page_size
+        reused_blocks = n_cached + len(onboard_hashes)
+        self.migration_replayed_tokens += max(len(slot.kv_prompt) - reused_blocks * ps, 0)
+        reused = list(hashes[:n_cached]) + list(onboard_hashes)
+        if self.kvbm is not None and reused and self.kvbm.any_checkpoint(reused):
+            self.resume_source_checkpoint += 1
+        elif self.kvbm is not None and any(
+                not self.kvbm.manager.has(h) for h in onboard_hashes):
+            self.resume_source_peer += 1
+        elif reused_blocks:
+            self.resume_source_local += 1
+        else:
+            self.resume_source_recompute += 1
 
     # -- emission / teardown --------------------------------------------- #
 

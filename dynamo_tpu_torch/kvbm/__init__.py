@@ -12,6 +12,7 @@ stream. Offload is write-through at block-commit time, so a G1 eviction
 never needs a device read-back.
 """
 
+from .checkpoint import KvCheckpointer
 from .distributed import KvbmDistributed
 from .manager import KvbmConfig, KvBlockManager, KvbmConnector
 from .storage import DiskTier, HostTier
@@ -19,6 +20,7 @@ from .storage import DiskTier, HostTier
 __all__ = [
     "DiskTier",
     "HostTier",
+    "KvCheckpointer",
     "KvbmConfig",
     "KvBlockManager",
     "KvbmConnector",

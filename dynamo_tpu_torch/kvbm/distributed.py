@@ -14,9 +14,10 @@ Port of `dynamo_tpu/kvbm/distributed.py`, a symmetric announcement mesh
 
 The remote peers' pools are the G4 tier. A peer whose pull failed is
 quarantined for a while; an owner whose tiers dropped a block retracts it.
-The session checkpointer that replicates blocks into a peer's host tier
-(`DYN_KV_CHECKPOINT`) is not ported: asking for it raises
-UnsupportedConfigError at start, and the checkpoint tags stay empty.
+With `DYN_KV_CHECKPOINT=N` the session checkpointer (`kvbm/checkpoint.py`)
+replicates this worker's committed blocks into its ring successor's host
+tier; replicas pushed here are tagged and announced as `checkpoint`, which
+is how a survivor classifies a migrated stream's resume.
 """
 
 from __future__ import annotations
@@ -24,33 +25,14 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-import os
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
-from ..engine.config import UnsupportedConfigError
-
 logger = logging.getLogger(__name__)
 
 KVBM_TOPIC_FMT = "kvbm_blocks/{namespace}/{component}"
-
-
-def checkpoint_queue_blocks(raw: Optional[str] = None) -> int:
-    """DYN_KV_CHECKPOINT as the reference parses it: off/''/0 -> 0, an
-    integer N -> N blocks; a typo disables with a warning."""
-    raw = raw if raw is not None else os.environ.get("DYN_KV_CHECKPOINT")
-    if not raw:
-        return 0
-    raw = raw.strip().lower()
-    if raw in ("off", "0", "false", "no"):
-        return 0
-    try:
-        return max(int(raw), 0)
-    except ValueError:
-        logger.warning("DYN_KV_CHECKPOINT=%r is not an integer; checkpointing off", raw)
-        return 0
 
 
 class KvbmDistributed:
@@ -81,9 +63,16 @@ class KvbmDistributed:
         # per-peer pull time EWMA (ms a block, by data-plane addr): the
         # budget's third arm; None until a pull is observed
         self._pull_ms_per_block: Dict[str, float] = {}
-        # hashes a peer announced as session-checkpoint replicas: mirrored,
-        # read by nothing until the checkpointer is ported
+        # session checkpointing (DYN_KV_CHECKPOINT): None when off
+        self.checkpointer = None
+        self._ckpt_task: Optional[asyncio.Task] = None
+        # hashes known to be checkpoint replicas (pushed into our tiers, or
+        # announced as such): the engine's resume classifier reads them
         self._ckpt_hashes: set = set()
+        # peers that refused a checkpoint push for a structural reason (no
+        # tier, another kv_format or block geometry): excluded from
+        # checkpoint peering until their data plane's lease goes
+        self._ckpt_ineligible: Set[int] = set()
         # peers whose data plane failed us, quarantined until the deadline;
         # a fresh announcement lifts it, lease expiry removes it
         self._dead: Dict[int, float] = {}
@@ -97,11 +86,8 @@ class KvbmDistributed:
 
     async def start(self):
         from ..llm.kv_transfer import DATA_PLANE_ROOT
+        from .checkpoint import KvCheckpointer, checkpoint_queue_blocks
 
-        if checkpoint_queue_blocks() > 0:
-            raise UnsupportedConfigError(
-                "session checkpointing (DYN_KV_CHECKPOINT) is not supported by "
-                "the PyTorch/CUDA port yet")
         self._loop = asyncio.get_running_loop()
         if self.drt.discovery is None:
             return
@@ -114,6 +100,10 @@ class KvbmDistributed:
         for item in self._addr_watch.snapshot:
             self._on_addr(item["key"], item["value"])
         self._addr_task = asyncio.create_task(self._addr_loop(self._addr_watch))
+        ckpt_blocks = checkpoint_queue_blocks()
+        if ckpt_blocks > 0:
+            self.checkpointer = KvCheckpointer(self, ckpt_blocks)
+            self._ckpt_task = asyncio.create_task(self.checkpointer.run())
         # announcements are fire-and-forget: a late joiner asks everyone to
         # re-announce (peers reply with their full hash sets)
         self.announce("sync_request", [])
@@ -122,6 +112,7 @@ class KvbmDistributed:
         inst = int(key.rsplit("/", 1)[-1], 16)
         if raw is None:
             self._addrs.pop(inst, None)
+            self._ckpt_ineligible.discard(inst)
             self._drop_owner(inst, None)
             return
         try:
@@ -220,6 +211,15 @@ class KvbmDistributed:
         """A pull from this peer failed: skip it until the deadline."""
         self._dead[int(inst)] = time.monotonic() + ttl_s
 
+    def note_checkpoint_ineligible(self, inst: int):
+        """This peer refused a checkpoint push for a structural reason: skip
+        it as a checkpoint target while it advertises this instance id (a
+        TTL quarantine would re-pick it at every expiry). Its pull roles
+        are untouched."""
+        if len(self._ckpt_ineligible) >= 1024:
+            self._ckpt_ineligible.pop()
+        self._ckpt_ineligible.add(int(inst))
+
     def _quarantined(self, inst: int) -> bool:
         dl = self._dead.get(int(inst))
         if dl is None:
@@ -242,6 +242,21 @@ class KvbmDistributed:
 
     def any_checkpoint(self, hashes: Sequence[int]) -> bool:
         return any(int(h) in self._ckpt_hashes for h in hashes)
+
+    def checkpoint_peer(self) -> Optional[Tuple[int, str]]:
+        """The replication target: the ring successor, i.e. the first live,
+        non-quarantined, eligible peer with a data plane whose id follows
+        this worker's (wrapping). Stable, so one session's blocks land on
+        one peer; per-worker distinct, so a fleet's replication spreads."""
+        me = self.instance_id
+        ring = sorted(self._addrs)
+        for inst in [i for i in ring if i > me] + [i for i in ring if i < me]:
+            if self._quarantined(inst) or inst in self._ckpt_ineligible:
+                continue
+            addr = self._addrs.get(inst)
+            if addr:
+                return inst, addr
+        return None
 
     # -- probe / pull (G4) ----------------------------------------------- #
 
@@ -368,8 +383,10 @@ class KvbmDistributed:
             "kvbm_known_remote_blocks": sum(1 for owners in self._owners.values() if owners),
             "kvbm_quarantined_peers": sum(1 for i in list(self._dead) if self._quarantined(i)),
             "kvbm_known_checkpoint_blocks": len(self._ckpt_hashes),
-            "kvbm_ckpt_ineligible_peers": 0,  # no checkpoint pushes yet
+            "kvbm_ckpt_ineligible_peers": len(self._ckpt_ineligible),
         }
+        if self.checkpointer is not None:
+            out.update(self.checkpointer.stats())
         for addr, ms in self._pull_ms_per_block.items():
             out.setdefault("kvbm_peer_ms_per_block", {})[addr] = round(ms, 3)
         return out
@@ -377,7 +394,10 @@ class KvbmDistributed:
     async def close(self):
         for t in list(self._bg):
             t.cancel()
-        tasks = [t for t in (self._task, self._addr_task, self._drain_task) if t is not None]
+        if self.checkpointer is not None:
+            self.checkpointer.close()
+        tasks = [t for t in (self._task, self._addr_task, self._drain_task, self._ckpt_task)
+                 if t is not None]
         for t in tasks:
             t.cancel()
         await asyncio.gather(*tasks, *self._bg, return_exceptions=True)

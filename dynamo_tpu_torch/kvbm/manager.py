@@ -318,6 +318,9 @@ class _OffloadBatch:
     event: object = None
     ready: bool = False  # gather enqueued (k/v set)
     dropped: bool = False  # backpressure victim: the tier thread skips it
+    # "offload" = this worker's own commits (staged for checkpointing);
+    # "promotion" = peer-pulled blocks, already durable on their owner
+    origin: str = "offload"
 
 
 class KvbmConnector:
@@ -422,7 +425,8 @@ class KvbmConnector:
         """Promote peer-pulled blocks (`[n, ...]`) into the host tier off the
         onboard's critical path, through the same bounded queue."""
         batch = _OffloadBatch(hashes=[int(h) for h in hashes], parents=list(parents),
-                              k=k.transpose(0, 1), v=v.transpose(0, 1), ready=True)
+                              k=k.transpose(0, 1), v=v.transpose(0, 1), ready=True,
+                              origin="promotion")
         with self._offload_cv:
             if self._stopped:
                 return
@@ -498,6 +502,13 @@ class KvbmConnector:
         if self.distributed is not None:
             self.distributed.announce_threadsafe("stored", batch.hashes)
             self._announce_evictions()
+            # session checkpointing: this worker's own committed blocks are
+            # staged for replication into a peer's tier (bounded, never
+            # blocks this thread); a promotion batch's blocks are already
+            # durable on the peer that served them
+            ck = self.distributed.checkpointer
+            if ck is not None and batch.origin == "offload":
+                ck.stage_threadsafe(batch.hashes, batch.parents)
 
     def _announce_evictions(self):
         """Retract fully-dropped hashes from the mesh (any thread)."""
@@ -537,6 +548,9 @@ class KvbmConnector:
             if self.distributed is not None:
                 self.distributed.announce_threadsafe("stored", hashes)
                 self._announce_evictions()
+                ck = self.distributed.checkpointer
+                if ck is not None:
+                    ck.stage_threadsafe(hashes, parents)
 
         with self._pending_lock:
             self._pending += 1
@@ -634,8 +648,9 @@ class KvbmConnector:
             self.onboard_recompute_fallbacks += 1
 
     def any_checkpoint(self, hashes: Sequence[int]) -> bool:
-        """Session-checkpoint replicas: none until the checkpointer is
-        ported (DYN_KV_CHECKPOINT is refused)."""
+        """True when any of `hashes` is a session-checkpoint replica (pushed
+        into this worker's tiers by a peer, or announced as checkpointed
+        elsewhere): the engine's resume classifier."""
         return self.distributed is not None and self.distributed.any_checkpoint(hashes)
 
     async def load_async(self, hashes: Sequence[int], run,

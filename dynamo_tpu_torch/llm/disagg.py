@@ -32,9 +32,7 @@ logger = logging.getLogger(__name__)
 @dataclass
 class DisaggConfig:
     """Conditional-disagg thresholds (the reference's field names and
-    defaults). The reference's TTFT-estimate trigger (`min_remote_tokens`,
-    `ttft_headroom`) is not ported: its input, the scheduler's `sla`
-    estimate, is not on the port's disagg path."""
+    defaults)."""
 
     enabled: bool = True
     # remote prefill iff (prompt_len - prefix_hit_tokens) > threshold
@@ -43,11 +41,20 @@ class DisaggConfig:
     max_prefill_queue: int = 64
     # a published queue depth older than this is unknown, not gospel
     queue_depth_ttl_s: float = 5.0
+    # prompts with at most this many uncached tokens never go remote on the
+    # TTFT estimate (the KV transfer would cost more than the prefill)
+    min_remote_tokens: int = 16
+    # offload when the estimated LOCAL prefill wait exceeds this fraction
+    # of the TTFT target
+    ttft_headroom: float = 0.5
 
 
 class DisaggregatedRouter:
     """Decide local vs remote prefill from the prefill pool's published
-    queue depth (with a staleness TTL) and the static token threshold."""
+    queue depth (with a staleness TTL), the static token threshold and,
+    when the caller passes one, the local engine's estimated prefill wait
+    (`TorchEngine.estimated_prefill_wait_ms`): a prompt under the threshold
+    still goes remote when the local queue would spend the TTFT budget."""
 
     def __init__(self, config: Optional[DisaggConfig] = None):
         self.config = config or DisaggConfig()
@@ -79,6 +86,8 @@ class DisaggregatedRouter:
         prefix_hit_tokens: int,
         have_prefill_workers: bool,
         *,
+        local_ttft_est_ms: Optional[float] = None,
+        ttft_target_ms: Optional[float] = None,
         now: Optional[float] = None,
     ) -> bool:
         if not self.config.enabled or not have_prefill_workers:
@@ -88,6 +97,14 @@ class DisaggregatedRouter:
         ):
             return False
         uncached = prompt_len - prefix_hit_tokens
+        if local_ttft_est_ms is not None and ttft_target_ms:
+            # the TTFT trigger: a tiny remainder stays local, a queue that
+            # would spend the budget sends the prompt remote; otherwise the
+            # static threshold decides
+            if uncached <= self.config.min_remote_tokens:
+                return False
+            if local_ttft_est_ms > self.config.ttft_headroom * ttft_target_ms:
+                return True
         return uncached > self.config.remote_prefill_threshold_tokens
 
 

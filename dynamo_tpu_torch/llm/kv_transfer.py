@@ -31,10 +31,14 @@ kv_format}` is answered from the worker's tiers (`kvbm_source`, set by
 kvbm/distributed.py) with ONE frame — a header `{"n", "k_bytes", "v_bytes",
 "shape", "dtype", "fmt"}` then the stacked K and V bytes — or refused typed
 (no tiers, a block miss, a `kv_format` mismatch) before a byte moves;
-`pull_kvbm_blocks` is the client. Not ported yet: the session-checkpoint
-push (`{"ckpt": ...}`, answered with a typed `{"error": ...}` header that
-marks this worker ineligible) and the multi-host shard path (descriptors
-with `shards`), which the engine refuses.
+`pull_kvbm_blocks` is the client. Session-checkpoint pushes ride the same
+handshake the other way: `{"ckpt": {"blocks", "parents", "fmt", "k_bytes",
+"v_bytes"}}` followed by the stacked K and V bytes is stored into the
+worker's tiers and answered `{"ok": true, "stored": n}`, or drained and
+refused typed (no tiers, another `kv_format`, another block geometry, a
+payload over CHECKPOINT_MAX_PAYLOAD); `push_checkpoint_blocks` is the
+client (kvbm/checkpoint.py). Not ported yet: the multi-host shard path
+(descriptors with `shards`), which the engine refuses.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import struct
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Any, Awaitable, Callable, Dict, Optional, Tuple
+from typing import Any, Awaitable, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +79,10 @@ _MAGIC_RANGE = 0xD7A04B1E  # ranged pull handshake
 _HDR = struct.Struct("<II")  # magic, header length
 
 DATA_PLANE_ROOT = "v1/kv_data_plane/"
+
+# the server's cap on one checkpoint push's block payload; the checkpointer
+# sizes its batches to half of it
+CHECKPOINT_MAX_PAYLOAD = 512 << 20
 
 # process-local rendezvous: (addr, transfer_id) -> _Staged. The in-process
 # device-direct path (co-located prefill/decode engines) resolves here and
@@ -288,6 +296,9 @@ class KvDataPlaneServer:
         # fallback must not pass for a working handoff)
         self.transfers_served = 0
         self.bytes_served = 0
+        # session-checkpoint pushes stored into this worker's tiers
+        self.checkpoint_pushes = 0
+        self.checkpoint_blocks_received = 0
         # distributed KVBM (kvbm/distributed.py): when set, `{"blocks": [...]}`
         # requests are served from these tiers
         self.kvbm_source = None
@@ -468,10 +479,10 @@ class KvDataPlaneServer:
     async def _serve_range(self, body: bytes, writer: asyncio.StreamWriter,
                            reader: asyncio.StreamReader):
         """One ranged request -> one (k, v) frame; `fin` releases the
-        transfer; `blocks` pulls KVBM blocks; checkpoint pushes are refused."""
+        transfer; `blocks` pulls KVBM blocks; `ckpt` pushes them here."""
         req = msgpack_lite.unpackb(body)
         if req.get("ckpt") is not None:
-            await self._refuse_checkpoint(req["ckpt"], reader, writer)
+            await self._serve_checkpoint(req["ckpt"], reader, writer)
             return
         if req.get("blocks") is not None:
             await self._serve_kvbm_blocks(req, writer)
@@ -551,24 +562,84 @@ class KvDataPlaneServer:
         self.transfers_served += 1
         self.bytes_served += len(kb) + len(vb)
 
-    async def _refuse_checkpoint(self, meta: dict, reader: asyncio.StreamReader,
-                                 writer: asyncio.StreamWriter):
-        """Session-checkpoint pushes are not ported: drain the pushed bytes
-        (so the kept connection stays framed) and answer typed, marking
-        this worker ineligible as the reference does for a worker without
-        tiers. An absurd size closes the connection instead."""
-        payload = int(meta.get("k_bytes") or 0) + int(meta.get("v_bytes") or 0)
-        if payload < 0 or payload > (1 << 30):
-            raise RuntimeError(f"checkpoint push payload absurd ({payload} bytes)")
-        while payload > 0:
-            chunk = await asyncio.wait_for(
-                reader.read(min(payload, 1 << 20)), self.chunk_timeout)
+    async def _drain_payload(self, reader: asyncio.StreamReader, n: int):
+        """Read and discard the `n` bytes of a refused push, so the kept
+        connection stays framed for the next request."""
+        while n > 0:
+            chunk = await asyncio.wait_for(reader.read(min(n, 1 << 20)), self.chunk_timeout)
             if not chunk:
-                raise asyncio.IncompleteReadError(b"", payload)
-            payload -= len(chunk)
-        await self._send_header(writer, {
-            "error": "session-checkpoint pushes are not ported to the PyTorch/CUDA worker",
-            "ckpt_ineligible": True})
+                raise asyncio.IncompleteReadError(b"", n)
+            n -= len(chunk)
+
+    async def _serve_checkpoint(self, meta: dict, reader: asyncio.StreamReader,
+                                writer: asyncio.StreamWriter):
+        """A peer's session-checkpoint push into OUR tiers: the header names
+        the hashes, their chain parents, the format and the sizes; the
+        block bytes follow on the connection. A refusal drains the payload
+        and answers typed before any byte is interpreted."""
+        hashes = [int(h) for h in meta.get("blocks") or []]
+        parents = [None if p is None else int(p)
+                   for p in (meta.get("parents") or [None] * len(hashes))]
+        k_bytes = int(meta.get("k_bytes") or 0)
+        v_bytes = int(meta.get("v_bytes") or 0)
+        payload = k_bytes + v_bytes
+        if not hashes or len(hashes) > 4096 or len(parents) != len(hashes) or payload <= 0:
+            raise RuntimeError(f"bad checkpoint push ({len(hashes)} blocks, {payload} bytes)")
+        cap = CHECKPOINT_MAX_PAYLOAD
+        if payload > cap:
+            # well-formed but oversized: the pusher's sizing bug, answered on
+            # the kept connection (a torn one would read as a dead peer)
+            if payload > 2 * cap:
+                raise RuntimeError(f"checkpoint push payload absurd ({payload} bytes)")
+            await self._drain_payload(reader, payload)
+            await self._send_header(writer, {
+                "error": f"checkpoint payload too large ({payload} > {cap})",
+                "peer_blameless": True})
+            return
+        src = self.kvbm_source
+        if src is None:
+            await self._drain_payload(reader, payload)
+            await self._send_header(writer, {"error": "no kvbm tier here",
+                                             "ckpt_ineligible": True})
+            return
+        my_fmt = str(getattr(src, "kv_format", "none"))
+        want_fmt = str(meta.get("fmt", "none"))
+        if want_fmt != my_fmt:
+            await self._drain_payload(reader, payload)
+            await self._send_header(writer, {
+                "error": f"kv_format mismatch: holding {my_fmt}, peer pushes {want_fmt}",
+                "fmt_mismatch": True, "fmt": my_fmt})
+            return
+        expect = int(np.prod(src.block_shape)) * src.dtype.itemsize * len(hashes)
+        if k_bytes != expect or v_bytes != expect:
+            # the block geometry is fixed for this process: structural
+            await self._drain_payload(reader, payload)
+            await self._send_header(writer, {
+                "error": f"checkpoint size mismatch ({k_bytes}+{v_bytes} != 2x{expect})",
+                "ckpt_ineligible": True})
+            return
+        raw = memoryview(await asyncio.wait_for(reader.readexactly(payload),
+                                                self.chunk_timeout))
+        name = dtype_name(src.dtype)
+        shape = (len(hashes), *src.block_shape)
+        k = tensor_from_bytes(raw[:k_bytes], name, shape)
+        v = tensor_from_bytes(raw[k_bytes:], name, shape)
+
+        def store():
+            for i, h in enumerate(hashes):
+                src.store(h, k[i], v[i], parent=parents[i])
+
+        # tier stores copy host memory (and may cascade to disk): off the
+        # event loop past the small-read threshold of the pull path
+        if payload <= (256 << 10) and getattr(src, "disk", None) is None:
+            store()
+        else:
+            await asyncio.get_running_loop().run_in_executor(None, store)
+        self.checkpoint_pushes += 1
+        self.checkpoint_blocks_received += len(hashes)
+        if self.kvbm_distributed is not None:
+            self.kvbm_distributed.note_checkpoint_received(hashes)
+        await self._send_header(writer, {"ok": True, "stored": len(hashes)})
 
     async def _send_header(self, writer, header: dict):
         body = msgpack_lite.packb(header)
@@ -900,6 +971,73 @@ async def pull_kvbm_blocks(
             if reused and attempt == 0:
                 continue  # stale keep-alive: the server idled it out
             raise KvTransferError(f"kvbm peer pull from {addr} failed: {e}") from e
+        except BaseException:
+            writer.close()
+            raise
+
+
+def _block_bytes(x) -> memoryview:
+    """Raw bytes of stacked host blocks: a numpy array or a tensor (a bf16
+    tensor as its 16-bit words)."""
+    if isinstance(x, np.ndarray):
+        return host_bytes(x, "")
+    return host_bytes(x, dtype_name(x.dtype))
+
+
+async def push_checkpoint_blocks(
+    addr: str,
+    hashes: Sequence[int],
+    parents: Sequence[Optional[int]],
+    k,
+    v,
+    kv_format: str = "none",
+    connect_timeout: float = 2.0,
+    chunk_timeout: float = 30.0,
+) -> int:
+    """Push session-checkpoint blocks into a peer's host tier. `k`/`v` are
+    stacked `[n, *block_shape]` host blocks in this worker's `kv_format`.
+    Returns the number of blocks the peer stored. Raises KvFormatError when
+    the peer holds another format, KvTransferError on a refusal (with
+    `ckpt_ineligible` set for a structural one, `peer_blameless` for an
+    oversized batch) or a transport failure. A stale pooled connection earns
+    one fresh retry."""
+    kb, vb = _block_bytes(k), _block_bytes(v)
+    for attempt in (0, 1):
+        reader, writer, reused = await _CONN_POOL.acquire(
+            addr, connect_timeout, fresh=attempt > 0)
+        try:
+            body = msgpack_lite.packb({"ckpt": {
+                "blocks": [int(h) for h in hashes],
+                "parents": [None if p is None else int(p) for p in parents],
+                "fmt": str(kv_format),
+                "k_bytes": len(kb),
+                "v_bytes": len(vb),
+            }})
+            writer.write(_HDR.pack(_MAGIC_RANGE, len(body)) + body)
+            writer.write(kb)
+            writer.write(vb)
+            await asyncio.wait_for(writer.drain(), chunk_timeout)
+            header = await _read_header(reader, chunk_timeout)
+            if header.get("error"):
+                _CONN_POOL.release(addr, reader, writer)
+                if header.get("fmt_mismatch"):
+                    raise KvFormatError(
+                        f"checkpoint peer {addr} holds kv_format={header.get('fmt')!r}, "
+                        f"we push {kv_format!r}")
+                err = KvTransferError(f"checkpoint push refused: {header['error']}")
+                err.ckpt_ineligible = bool(header.get("ckpt_ineligible"))
+                err.peer_blameless = bool(header.get("peer_blameless"))
+                raise err
+            _CONN_POOL.release(addr, reader, writer)
+            return int(header.get("stored") or 0)
+        except KvTransferError:
+            raise
+        except (ConnectionError, asyncio.IncompleteReadError, TimeoutError,
+                asyncio.TimeoutError) as e:
+            writer.close()
+            if reused and attempt == 0:
+                continue  # stale keep-alive: one fresh retry
+            raise KvTransferError(f"checkpoint push to {addr} failed: {e}") from e
         except BaseException:
             writer.close()
             raise

@@ -24,6 +24,10 @@ NUM_WAITING_REQS = "num_waiting_reqs"
 NUM_RUNNING_REQS = "num_running_reqs"
 KV_ACTIVE_BLOCKS = "kv_active_blocks"
 KV_TOTAL_BLOCKS = "kv_total_blocks"
+SCHED_EST_TTFT_MS = "sched_est_ttft_ms"
+SCHED_EST_REQ_MS = "sched_est_req_ms"
+SCHED_EST_PREFILL_TOK_S = "sched_est_prefill_tok_s"
+SCHED_EST_DECODE_TOK_S = "sched_est_decode_tok_s"
 
 #: The reference's registry entries (`dynamo_tpu/runtime/metrics.py:METRICS`)
 #: for the stats `TorchEngine.stats()` publishes. `export=True` entries
@@ -36,6 +40,33 @@ METRICS = {
     "kv_pool_bytes": {"kind": "gauge", "layer": "engine", "unit": "bytes", "help": "Resident KV pool bytes including scales.", "export": True},
     KV_ACTIVE_BLOCKS: {"kind": "gauge", "layer": "engine", "unit": "blocks", "help": "KV blocks referenced by live sequences.", "wire": True, "export": True},
     KV_TOTAL_BLOCKS: {"kind": "gauge", "layer": "engine", "unit": "blocks", "help": "Total KV blocks in the device pool.", "wire": True, "export": True},
+    # ---- the KV data plane, disagg handoff and migration resumes ----
+    "kv_format_mismatches": {"kind": "counter", "layer": "engine", "help": "Typed mixed-precision KV transfer rejections.", "export": True},
+    "kv_transfers_served": {"kind": "counter", "layer": "engine", "help": "Data-plane KV transfers served to peers.", "export": True},
+    "kv_bytes_served": {"kind": "counter", "layer": "engine", "unit": "bytes", "help": "Data-plane KV bytes served to peers.", "export": True},
+    "kv_checkpoint_pushes": {"kind": "counter", "layer": "engine", "help": "Session-checkpoint pushes accepted into local tiers.", "export": True},
+    "kv_checkpoint_blocks_received": {"kind": "counter", "layer": "engine", "unit": "blocks", "help": "Checkpoint blocks received from peers.", "export": True},
+    "kv_pulls_completed": {"kind": "counter", "layer": "engine", "help": "Remote KV pulls completed (disagg onboarding).", "export": True},
+    "kv_pages_pulled": {"kind": "counter", "layer": "engine", "unit": "blocks", "help": "KV pages pulled from remote workers.", "export": True},
+    "disagg_streamed_handoffs": {"kind": "counter", "layer": "engine", "help": "Streamed prefill->decode handoffs started.", "export": True},
+    "disagg_chunks_before_first_token": {"kind": "counter", "layer": "engine", "help": "KV chunks landed before the first decode token.", "export": True},
+    "disagg_first_token_before_last_chunk": {"kind": "counter", "layer": "engine", "help": "First tokens emitted while KV chunks were in flight.", "export": True},
+    "disagg_streamed_handoff_ratio": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Overlapped handoffs / streamed handoffs.", "export": True},
+    "kv_streamed_stages": {"kind": "counter", "layer": "engine", "help": "Prefill-side streamed KV stages shipped.", "export": True},
+    "kv_streamed_fallbacks": {"kind": "counter", "layer": "engine", "help": "Streamed handoffs that fell back to blocking pulls.", "export": True},
+    "migrations_resumed": {"kind": "counter", "layer": "engine", "help": "Decode streams resumed here after a worker death.", "export": True},
+    "migration_replayed_tokens": {"kind": "counter", "layer": "engine", "unit": "tokens", "help": "Tokens re-prefilled to resume migrated streams.", "export": True},
+    "resume_source_checkpoint": {"kind": "counter", "layer": "engine", "help": "Migration resumes seeded from a peer checkpoint.", "export": True},
+    "resume_source_peer": {"kind": "counter", "layer": "engine", "help": "Migration resumes seeded from live peer KV.", "export": True},
+    "resume_source_local": {"kind": "counter", "layer": "engine", "help": "Migration resumes seeded from local tiers.", "export": True},
+    "resume_source_recompute": {"kind": "counter", "layer": "engine", "help": "Migration resumes that fully re-prefilled.", "export": True},
+    # role morphing: the live prefill<->decode re-role state machine
+    "engine_role": {"kind": "info", "layer": "engine", "help": "Current serving role (prefill/decode/both/aggregated)."},
+    "morph_state": {"kind": "info", "layer": "engine", "help": "Role-morph state machine position (serving/draining-role/flipped/warm)."},
+    "morphs_completed": {"kind": "counter", "layer": "engine", "help": "Live role morphs that reached the new role's warm state.", "export": True},
+    "morphs_rolled_back": {"kind": "counter", "layer": "engine", "help": "Role morphs that failed mid-flight and restored the original role.", "export": True},
+    "morph_drained_sessions": {"kind": "counter", "layer": "engine", "help": "In-flight sessions severed to peers by morph drains (resumed via migration).", "export": True},
+    "morph_last_duration_s": {"kind": "gauge", "layer": "engine", "unit": "seconds", "help": "Wall-clock of the last completed morph (drain + flip + re-warm).", "export": True},
     "kv_cached_blocks": {"kind": "gauge", "layer": "engine", "unit": "blocks", "help": "Unreferenced blocks held for prefix reuse.", "export": True},
     "kv_prefix_hit_blocks_total": {"kind": "counter", "layer": "engine", "unit": "blocks", "help": "Prefix-cache block hits at admission.", "export": True},
     "kv_skip_ahead_blocks": {"kind": "counter", "layer": "engine", "unit": "blocks", "help": "Prefill blocks skipped via prefix skip-ahead.", "export": True},
@@ -58,7 +89,11 @@ METRICS = {
     "sched_pending_deadlines": {"kind": "gauge", "layer": "sched", "help": "Requests with an armed TTFT deadline.", "export": True},
     "sched_cost_observations": {"kind": "counter", "layer": "sched", "help": "Cost-model samples observed.", "export": True},
     "sched_tenants_served": {"kind": "gauge", "layer": "sched", "help": "Distinct tenants the fairness tiebreak has served.", "export": True},
-    # ---- KVBM tiers / offload (kvbm/) ---------------------------------
+    SCHED_EST_TTFT_MS: {"kind": "gauge", "layer": "sched", "unit": "ms", "help": "Projected TTFT for one more admitted request — the gate's admission ceiling and the disagg router's routing signal.", "wire": True, "export": True},
+    SCHED_EST_REQ_MS: {"kind": "gauge", "layer": "sched", "unit": "ms", "help": "Marginal TTFT cost of one more admitted request (the gate's optimism debt between publishes).", "wire": True, "export": True},
+    SCHED_EST_PREFILL_TOK_S: {"kind": "gauge", "layer": "sched", "unit": "tok/s", "help": "Per-worker marginal prefill throughput estimate from the cost-model EWMAs — prices the planner's re-role (morph vs spawn) decision.", "wire": True, "export": True},
+    SCHED_EST_DECODE_TOK_S: {"kind": "gauge", "layer": "sched", "unit": "tok/s", "help": "Per-worker marginal decode throughput estimate from the cost-model EWMAs — prices the planner's re-role (morph vs spawn) decision.", "wire": True, "export": True},
+    # ---- KVBM tiers / offload / checkpoint (kvbm/) ---------------------------------
     "kvbm_g1_hit_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Device prefix-cache hits at admission (G1).", "export": True},
     "kvbm_g1_miss_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Device prefix-cache misses at admission (G1).", "export": True},
     "kvbm_onboard_count": {"kind": "counter", "layer": "kvbm", "help": "Tier onboard operations.", "export": True},
@@ -93,6 +128,14 @@ METRICS = {
     "kvbm_onboard_src_peer_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Onboarded blocks pulled from peers.", "export": True},
     "kvbm_onboard_src_recompute_blocks": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Onboard blocks recomputed.", "export": True},
     "kvbm_pending_offloads": {"kind": "gauge", "layer": "kvbm", "help": "Offload futures not yet committed.", "export": True},
+    "kvbm_ckpt_blocks_staged": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Checkpoint blocks staged for replication.", "export": True},
+    "kvbm_ckpt_blocks_pushed": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Checkpoint blocks pushed to replica holders.", "export": True},
+    "kvbm_ckpt_bytes_pushed": {"kind": "counter", "layer": "kvbm", "unit": "bytes", "help": "Checkpoint bytes pushed to replica holders.", "export": True},
+    "kvbm_ckpt_blocks_dropped": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Checkpoint blocks dropped (refuse-newest backpressure).", "export": True},
+    "kvbm_ckpt_push_failures": {"kind": "counter", "layer": "kvbm", "help": "Checkpoint pushes that failed.", "export": True},
+    "kvbm_ckpt_format_refusals": {"kind": "counter", "layer": "kvbm", "help": "Checkpoint pushes refused on KV-format mismatch.", "export": True},
+    "kvbm_ckpt_queue_depth": {"kind": "gauge", "layer": "kvbm", "help": "Checkpoint batches waiting to push.", "export": True},
+    "kvbm_ckpt_last_peer": {"kind": "info", "layer": "kvbm", "help": "Last checkpoint replica peer address."},
     "kvbm_remote_onboards": {"kind": "counter", "layer": "kvbm", "help": "Onboards served from remote peers.", "export": True},
     "kvbm_remote_blocks_pulled": {"kind": "counter", "layer": "kvbm", "unit": "blocks", "help": "Blocks pulled over the cluster KV fabric.", "export": True},
     "kvbm_peer_bytes_pulled": {"kind": "counter", "layer": "kvbm", "unit": "bytes", "help": "Bytes pulled over the cluster KV fabric.", "export": True},
@@ -102,6 +145,7 @@ METRICS = {
     "kvbm_known_remote_blocks": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Remote blocks known to the fabric index.", "export": True},
     "kvbm_quarantined_peers": {"kind": "gauge", "layer": "kvbm", "help": "Peers currently quarantined after pull failures.", "export": True},
     "kvbm_known_checkpoint_blocks": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Checkpoint blocks known cluster-wide.", "export": True},
+    "kvbm_ckpt_ineligible_peers": {"kind": "gauge", "layer": "kvbm", "help": "Peers refused as checkpoint targets (format skew).", "export": True},
     "kvbm_peer_ms_per_block": {"kind": "info", "layer": "kvbm", "unit": "ms", "help": "Per-peer observed pull cost map (addr -> ms/block)."},
 }
 

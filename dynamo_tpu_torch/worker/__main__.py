@@ -24,16 +24,28 @@ every layer, K and V) in pinned memory, `--kvbm-disk-blocks N
 through, and admission onboards what the device cache lost. A worker with
 tiers joins the announcement mesh (`kvbm/distributed.py`) on its KV data
 plane — a decode-role worker opens one for it — so workers pull each
-other's tiered blocks (G4). `DYN_KV_CHECKPOINT` (session checkpoints into a
-peer's tier) is refused. With `DYN_SYSTEM_PORT` the runtime serves
+other's tiered blocks (G4). `DYN_KV_CHECKPOINT=N` turns on session
+checkpoints: the worker's committed blocks (N staged at most) are
+replicated into its ring successor's host tier, so a stream whose worker
+dies resumes on a survivor from the replica and re-prefills only a tail.
+With `DYN_SYSTEM_PORT` the runtime serves
 /health, /live and /metrics (the engine's stats as `dynamo_worker_*`
 gauges, the `kvbm_*` ones included); with `DYN_HEALTH_CHECK_ENABLED` an
 idle `generate` endpoint gets a one-token canary request.
 
+Role morphing: a prefill or decode worker also serves a `morph` endpoint
+beside `generate`. `{"target_role": "prefill"|"decode"}` re-roles the live
+worker: both lanes go `morphing`, the engine severs the streams of the role
+that goes away (their callers migrate them), `generate` and `morph` move to
+the new role's component (born `morphing`), the metrics and KV-event
+publishers follow, the model card is dropped or registered, the engine
+re-warms, and the lanes go `ready`. A failed morph restores the old lanes;
+`DYN_MORPH_DRAIN_TIMEOUT_S` (default 10) bounds the wait for the severed
+streams. An aggregated worker answers with a typed error.
+
 Flags keep the reference's names. Those whose feature the port lacks
 (parallelism, multi-host, speculative decoding, LoRA) raise
-`UnsupportedConfigError` when set; the role is set at start (no `morph`
-endpoint). `--device` (default `cuda`) picks the card; with no CUDA device
+`UnsupportedConfigError` when set. `--device` (default `cuda`) picks the card; with no CUDA device
 the worker raises instead of running on the CPU, unless `--device cpu`
 asks for it.
 
@@ -62,7 +74,7 @@ import asyncio
 import logging
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -76,11 +88,14 @@ from ..llm.tokenizers import load_tokenizer
 from ..models.loader import _find_gguf, config_from_gguf, load_llama_params
 from ..models.quant import param_bytes
 from ..runtime import DistributedRuntime, RuntimeConfig, init_logging
-from ..runtime.component import Endpoint, ServedEndpoint
+from ..runtime.component import STATE_MORPHING, STATE_READY, Endpoint, ServedEndpoint
 from ..runtime.metrics import worker_exported_stats
 from .disagg_handler import maybe_remote_prefill
 
 logger = logging.getLogger("dynamo_tpu_torch.worker")
+
+# the health canary: a one-token request through the whole engine
+CANARY = {"token_ids": [1, 2, 3, 4], "stop_conditions": {"max_tokens": 1, "ignore_eos": True}}
 
 
 def parse_args(argv=None):
@@ -217,7 +232,8 @@ def gguf_checkpoint(args) -> Optional[str]:
 
 @dataclass
 class Worker:
-    """A serving worker, handed to `serve`'s `started` future."""
+    """A serving worker, handed to `serve`'s `started` future. A morph moves
+    the lanes: `endpoint`, `served`, the publishers and `card_key` follow."""
 
     drt: DistributedRuntime
     engine: TorchEngine
@@ -226,6 +242,10 @@ class Worker:
     kv_publisher: Optional[KvEventPublisher]
     metrics_publisher: WorkerMetricsPublisher
     card_key: Optional[str]  # None on a prefill worker (no card)
+    role: str = "aggregated"  # the live role
+    morph_served: Optional[ServedEndpoint] = None  # prefill/decode roles
+    # the morph control handler: `async for reply in morph(request, ctx)`
+    morph: Optional[Callable[..., Any]] = None
 
 
 async def _watch_prefill_queue(drt, args, prefill_client, router: DisaggregatedRouter):
@@ -338,8 +358,11 @@ async def serve(args, engine: Optional[TorchEngine] = None,
                                         "kvbm", drt.instance_id)
             await kvbm_dist.start()
             logger.info("distributed KVBM mesh joined (namespace %s)", args.namespace)
-        component = args.prefill_component if args.role == "prefill" else args.component
-        endpoint = drt.namespace(args.namespace).component(component).endpoint(args.endpoint)
+        def role_component(role: str) -> str:
+            return args.prefill_component if role == "prefill" else args.component
+
+        endpoint = (drt.namespace(args.namespace).component(role_component(args.role))
+                    .endpoint(args.endpoint))
 
         publisher = None
         if args.kv_events:
@@ -382,7 +405,9 @@ async def serve(args, engine: Optional[TorchEngine] = None,
                                        lambda: float(hcm.probe_failures))
 
         prefill_client = disagg_router = None
-        if args.role == "decode":
+        if args.role in ("prefill", "decode"):
+            # both disagg roles: a prefill worker may be morphed into a
+            # decode worker, which then needs the conditional-disagg wiring
             prefill_client = await (drt.namespace(args.namespace)
                                     .component(args.prefill_component)
                                     .endpoint(args.endpoint).client())
@@ -402,7 +427,7 @@ async def serve(args, engine: Optional[TorchEngine] = None,
                 # admin flush (reference service_v2.rs:319-339 clear-kv-blocks)
                 yield {"event": "clear_kv_blocks", "comment": [str(engine.clear_kv_blocks())]}
                 return
-            if disagg_router is not None:
+            if worker.role == "decode" and disagg_router is not None:
                 stream = maybe_remote_prefill(
                     engine, prefill_client, disagg_router, request, context)
             else:
@@ -410,16 +435,8 @@ async def serve(args, engine: Optional[TorchEngine] = None,
             async for item in stream:
                 yield item
 
-        served = await endpoint.serve_endpoint(handler)
-        if hcm is not None:
-            # the canary: a one-token request through the whole engine
-            hcm.register(served, {"token_ids": [1, 2, 3, 4],
-                                  "stop_conditions": {"max_tokens": 1, "ignore_eos": True}})
-        card_key = None
-        if args.role != "prefill":
-            # the card goes up after the endpoint serves: it is what makes
-            # a frontend build a pipeline to this worker
-            card = ModelDeploymentCard(
+        def make_card() -> ModelDeploymentCard:
+            return ModelDeploymentCard(
                 name=args.model_name or args.model,
                 tokenizer=card_tokenizer(gguf_checkpoint(args)),
                 kv_cache_block_size=args.page_size,
@@ -427,15 +444,111 @@ async def serve(args, engine: Optional[TorchEngine] = None,
                 migration_limit=args.migration_limit,
                 lora_adapters=[],
             )
-            card_key = await register_llm(endpoint, card)
+
+        async def apply_lanes(role: str):
+            """Reconcile discovery to `role`: move `generate` and `morph` to
+            the role's component (the new lanes born `morphing` until the
+            morph commits), re-home the metrics and KV-event publishers, and
+            drop or register the model card. The engine's morph awaits this
+            between its flip and its re-warm; a rollback calls it again
+            toward the old role."""
+            nonlocal metrics_pub, publisher
+            new_ep = (drt.namespace(args.namespace).component(role_component(role))
+                      .endpoint(args.endpoint))
+            if new_ep.subject != worker.endpoint.subject:
+                morph_ep = (drt.namespace(args.namespace).component(role_component(role))
+                            .endpoint("morph"))
+                if hcm is not None:
+                    hcm.unregister(worker.served.instance.subject)
+                for lane in (worker.served, worker.morph_served):
+                    if lane is not None:
+                        await lane.remove()
+                worker.served = await new_ep.serve_endpoint(handler)
+                if hcm is not None:
+                    hcm.register(worker.served, CANARY)
+                await worker.served.set_state(STATE_MORPHING)
+                worker.morph_served = await morph_ep.serve_endpoint(morph_handler)
+                await worker.morph_served.set_state(STATE_MORPHING)
+                worker.endpoint = new_ep
+                # the load-signal and KV-event topics are per component
+                await metrics_pub.close()
+                metrics_pub = WorkerMetricsPublisher(drt, new_ep, drt.instance_id,
+                                                     engine.stats)
+                await metrics_pub.start()
+                worker.metrics_publisher = metrics_pub
+                if publisher is not None:
+                    await publisher.close()
+                    publisher = KvEventPublisher(drt, new_ep, drt.instance_id)
+                    await publisher.start()
+                    engine.allocator.event_sink = publisher.publish
+                    worker.kv_publisher = publisher
+            if role != "prefill" and worker.card_key is None:
+                worker.card_key = await register_llm(worker.endpoint, make_card())
+            elif role == "prefill" and worker.card_key is not None:
+                drt._leased_keys.pop(worker.card_key, None)
+                if drt.discovery is not None:
+                    await drt.discovery.delete(worker.card_key)
+                worker.card_key = None
+
+        async def set_lane_states(state: str):
+            for lane in (worker.served, worker.morph_served):
+                if lane is not None:
+                    await lane.set_state(state)
+
+        async def morph_handler(request, context):
+            """`{"target_role": "prefill"|"decode"}` -> one reply: `{"ok":
+            true, "from", "to", "drained", "duration_s"}`, or `{"error": ...}`
+            (a bad role, an aggregated worker, a rolled-back morph). An
+            injected MorphCrash propagates."""
+            from ..runtime import faults
+
+            target = (request or {}).get("target_role", "")
+            if target not in ("prefill", "decode"):
+                yield {"error": f"bad target_role {target!r}"}
+                return
+            if args.role == "aggregated":
+                yield {"error": "aggregated worker has no role to morph"}
+                return
+            if worker.role == target:
+                yield {"ok": True, "noop": True, "role": target}
+                return
+            old_role = worker.role
+            await set_lane_states(STATE_MORPHING)
+            try:
+                summary = await engine.morph(target, on_flip=lambda: apply_lanes(target))
+            except (faults.MorphCrash, asyncio.CancelledError):
+                raise
+            except Exception as e:  # noqa: BLE001 — a typed reply for the caller
+                # the engine rolled back (its severed sessions are already
+                # migrating): restore the old lanes, routable
+                await apply_lanes(old_role)
+                await set_lane_states(STATE_READY)
+                yield {"error": f"morph rolled back: {type(e).__name__}: {e}"}
+                return
+            worker.role = target
+            await set_lane_states(STATE_READY)
+            yield {"ok": True, **summary}
+
+        worker = Worker(drt, engine, endpoint, None, publisher, metrics_pub, None,
+                        role=args.role, morph=morph_handler)
+        worker.served = await endpoint.serve_endpoint(handler)
+        if args.role in ("prefill", "decode"):
+            worker.morph_served = await (drt.namespace(args.namespace)
+                                         .component(role_component(args.role))
+                                         .endpoint("morph").serve_endpoint(morph_handler))
+        if hcm is not None:
+            hcm.register(worker.served, CANARY)
+        if args.role != "prefill":
+            # the card goes up after the endpoint serves: it is what makes
+            # a frontend build a pipeline to this worker
+            worker.card_key = await register_llm(endpoint, make_card())
         logger.info(
             "torch worker up: model=%s role=%s device=%s num_pages=%d instance=%x",
             args.model_name or args.model, args.role, engine.device,
             engine.config.num_pages, drt.instance_id,
         )
         if started is not None:
-            started.set_result(Worker(drt, engine, endpoint, served, publisher,
-                                      metrics_pub, card_key))
+            started.set_result(worker)
         try:
             await drt.wait_for_shutdown()
         finally:

@@ -14,8 +14,10 @@ disaggregation is strictly an optimization.
 
 Blocks the engine's KVBM tiers hold — locally or announced by a peer —
 count as cached: they onboard at admission, so recomputing them remotely
-would waste the prefill pool. Left out here: the `sla` policy's local TTFT
-estimate (the static token threshold decides).
+would waste the prefill pool. Under the `sla` policy the engine's
+estimated local prefill wait (`estimated_prefill_wait_ms`) joins the static
+token threshold: a short prompt still goes remote when the local queue
+would spend the TTFT target.
 """
 
 from __future__ import annotations
@@ -53,7 +55,16 @@ async def maybe_remote_prefill(
     have_workers = bool(prefill_client and prefill_client.instance_ids())
     want_annotation = "remote_prefill" in (request.get("annotations") or [])
 
-    if not disagg_router.prefill_remote(len(prompt), cached_tokens, have_workers):
+    # under the sla policy the engine's estimated local prefill wait joins
+    # the static threshold (fifo keeps the threshold rule alone)
+    est_ms = target_ms = None
+    if engine.scheduler.policy == "sla":
+        est_ms = engine.estimated_prefill_wait_ms(len(prompt) - cached_tokens)
+        target_ms = engine.scheduler.sla.ttft_target_ms
+    if not disagg_router.prefill_remote(
+        len(prompt), cached_tokens, have_workers,
+        local_ttft_est_ms=est_ms, ttft_target_ms=target_ms,
+    ):
         if want_annotation:
             yield {"event": "remote_prefill", "comment": ["false"]}
         async for item in engine.generate(request, context):

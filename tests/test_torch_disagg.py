@@ -50,7 +50,7 @@ from dynamo_tpu.llm.disagg import DisaggregatedRouter as JaxDisaggRouter
 from dynamo_tpu.llm.tokens import compute_seq_hashes
 from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.runtime.engine import Context as JaxContext
-from dynamo_tpu_torch.engine import EngineConfig, TorchEngine, UnsupportedConfigError
+from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.llm import kv_transfer as tkt
 from dynamo_tpu_torch.llm.disagg import DisaggConfig, DisaggregatedRouter
 from dynamo_tpu_torch.models import llama as tllama
@@ -355,8 +355,9 @@ def test_dead_descriptor_falls_back_to_local_prefill(weights, cross, caplog):
 
 
 def test_morph_and_the_sharded_handoff_are_refused_typed(weights, cross, caplog):
-    """Role morphing raises; a multi-host descriptor (`shards`) is refused
-    typed and the request prefills locally with the same stream."""
+    """A morph to a role the engine has not got is refused typed; a
+    multi-host descriptor (`shards`) is refused typed and the request
+    prefills locally with the same stream."""
     sharded = tkt.KvTransferDescriptor(
         transfer_id="0123456789abcdef", addr=f"127.0.0.1:{free_port()}", n_pages=5,
         n_tokens=len(PROMPT), page_size=8, page_shape=[2, 8, 1, 8], dtype="float32",
@@ -366,8 +367,8 @@ def test_morph_and_the_sharded_handoff_are_refused_typed(weights, cross, caplog)
     async def main():
         dec = torch_engine(weights, decode_pool_mode=cross["mode"])
         try:
-            with pytest.raises(UnsupportedConfigError, match="morphing"):
-                await dec.morph("prefill")
+            with pytest.raises(ValueError, match="unknown role"):
+                await dec.morph("router")
             rest, _ = await collect(dec.generate_decode_from_pull(
                 make_req(), Context(), cross["aggregated"][0], sharded.to_dict()))
             return rest, dec.stats()

@@ -107,6 +107,25 @@ def test_importing_every_module_builds_nothing_and_pulls_no_jax():
     assert after == before
 
 
+@pytest.mark.parametrize("module", ["kvbm.checkpoint", "llm.migration"])
+def test_copied_reference_modules_stand_alone(module):
+    """The port's own copies of reference modules that hold no JAX: alone in
+    a fresh interpreter they pull in neither jax nor the JAX package."""
+    import subprocess
+
+    path = PKG / (module.replace(".", "/") + ".py")
+    assert path in _sources()
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module('dynamo_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_walk_finds_every_subpackage():
     names = {m.name for m in pkgutil.walk_packages([str(PKG)], "dynamo_tpu_torch.")}
     for expected in ("engine.engine", "engine.scheduler.policy", "ops.paged_attention",
@@ -116,7 +135,8 @@ def test_walk_finds_every_subpackage():
                      "llm.kv_router.publisher", "worker.__main__", "llm.kv_transfer",
                      "llm.disagg", "worker.disagg_handler", "models.loader",
                      "models.safetensors_io", "llm.gguf", "kvbm.storage", "kvbm.manager",
-                     "kvbm.distributed", "runtime.system_status", "runtime.health_check"):
+                     "kvbm.distributed", "runtime.system_status", "runtime.health_check",
+                     "kvbm.checkpoint", "llm.migration"):
         assert f"dynamo_tpu_torch.{expected}" in names
     importlib.import_module("dynamo_tpu_torch.ops._build")
 

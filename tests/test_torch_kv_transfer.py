@@ -11,8 +11,9 @@
   against the port's server, in f32, bf16 and packed int8 rows, at chunk
   sizes of 1 page, a divisor and a non-divisor of the transfer; the ranged
   pull and its `fin`; an oversized frame and an oversized handshake; an
-  unknown transfer; the TTL reaper releasing unpulled pages; the requests
-  the port refuses (KVBM blocks, checkpoint pushes); a zero-page transfer.
+  unknown transfer; the TTL reaper releasing unpulled pages; a data plane
+  without tiers refusing KVBM block pulls and checkpoint pushes typed; a
+  zero-page transfer.
 * The conditional-disagg router and the inline payload against the
   reference's.
 
@@ -447,7 +448,7 @@ def test_kvbm_blocks_and_checkpoint_pushes_are_refused_typed():
             with pytest.raises(KeyError, match="no kvbm tier"):
                 await jkt.pull_kvbm_blocks(server.addr, [1, 2], (L, PS, KH, D), np.float32)
             k = np.zeros((1, L, PS, KH, D), np.float32)
-            with pytest.raises(jkt.KvTransferError, match="not ported") as e:
+            with pytest.raises(jkt.KvTransferError, match="no kvbm tier") as e:
                 await jkt.push_checkpoint_blocks(server.addr, [7], [None], k, k)
             assert e.value.ckpt_ineligible
         finally:

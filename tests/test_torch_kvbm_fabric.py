@@ -10,8 +10,9 @@
   shared discovery service) and a JAX engine from a port worker's, each
   token-identical to the local prefill of the owner.
 * The mesh: an owner whose tier drops a block retracts it from its peers'
-  mirrors; a peer whose pull failed is quarantined; DYN_KV_CHECKPOINT is
-  refused at start.
+  mirrors; a peer whose pull failed is quarantined; a DYN_KV_CHECKPOINT
+  typo is refused at start, a block count replicates committed blocks into
+  the peer's tier.
 """
 
 import asyncio
@@ -36,7 +37,7 @@ from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.runtime import DistributedRuntime as RefRuntime
 from dynamo_tpu.runtime import RuntimeConfig as RefRuntimeConfig
 from dynamo_tpu.runtime.engine import Context as JaxContext
-from dynamo_tpu_torch.engine import EngineConfig, TorchEngine, UnsupportedConfigError
+from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.kvbm import KvbmDistributed
 from dynamo_tpu_torch.kvbm.manager import KvBlockManager, KvbmConfig, KvbmConnector
 from dynamo_tpu_torch.llm import kv_transfer as tkt
@@ -322,7 +323,7 @@ def test_engine_onboards_from_a_peer_of_the_other_package(weights, owner, puller
 
 
 # ---------------------------------------------------------------------- #
-# the mesh: retraction, quarantine, refused checkpointing
+# the mesh: retraction, quarantine, checkpointing
 # ---------------------------------------------------------------------- #
 
 
@@ -431,11 +432,37 @@ def test_failed_pull_quarantines_the_peer():
 
 
 def test_session_checkpointing_is_refused_at_start(monkeypatch):
-    monkeypatch.setenv("DYN_KV_CHECKPOINT", "64")
-    conn = KvbmConnector(_FakeEngine(), KvBlockManager(KvbmConfig(host_blocks=2),
-                                                       (2, 4, 2, 4), torch.float32))
-    drt = type("Drt", (), {"discovery": None})()
-    dist = KvbmDistributed(drt, conn, None, "dynamo", "kvbm", 1)
-    with pytest.raises(UnsupportedConfigError, match="DYN_KV_CHECKPOINT"):
-        run(dist.start())
-    assert not dist.any_checkpoint([1, 2]) and not conn.any_checkpoint([1])
+    """A DYN_KV_CHECKPOINT typo is refused at start (checkpointing stays off,
+    the worker runs); a block count starts the checkpointer, whose pushes
+    land in the peer's tier tagged `checkpoint` on both sides."""
+    async def main():
+        disc = DiscoveryServer(port=0)
+        host, port = await disc.start()
+        addr = f"tcp://{host}:{port}"
+        monkeypatch.setenv("DYN_KV_CHECKPOINT", "sixty-four")
+        b = await _fake_member(addr, host_blocks=4)
+        monkeypatch.setenv("DYN_KV_CHECKPOINT", "64")
+        a = await _fake_member(addr, host_blocks=4)
+        try:
+            assert b[3].checkpointer is None and a[3].checkpointer is not None
+            await _until(lambda: b[0].instance_id in a[3]._addrs, "a sees b's data plane")
+            a[1].offload_commit([21, 22], [1, 2])
+            a[1].flush_step()
+            await _until(lambda: b[2].checkpoint_blocks_received == 2, "b holds 21, 22")
+            assert b[1].manager.has(21) and b[1].any_checkpoint([22])
+            await _until(lambda: a[3].any_checkpoint([21]), "a hears the checkpoint tag")
+            stats = a[3].stats()
+            assert stats["kvbm_ckpt_blocks_pushed"] == 2
+            assert stats["kvbm_ckpt_last_peer"] == f"{b[0].instance_id:x}"
+            k, v = b[1].manager.read_blocks([21, 22])[1:]
+            assert torch.equal(k, a[1].manager.read_blocks([21, 22])[1])
+        finally:
+            for drt, conn, dp, dist in (a, b):
+                tkt._CONN_POOL.evict(dp.addr)
+                await dist.close()
+                conn.shutdown()
+                await dp.close()
+                await drt.close()
+            await disc.stop()
+
+    run(main())

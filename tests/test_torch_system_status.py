@@ -9,8 +9,10 @@
 * A canary against a hanging handler turns /health to 503, and a handler
   that answers again turns it back to 200.
 * A port worker with KVBM tiers, DYN_SYSTEM_PORT and DYN_HEALTH_CHECK_ENABLED
-  exports the `kvbm_*` stats as `dynamo_worker_*` gauges, runs its canary
-  and answers /health and /live.
+  exports the `kvbm_*` stats — and the data plane's, the disagg handoff's,
+  the scheduler estimates', migration's, morphing's and the checkpointer's —
+  as `dynamo_worker_*` gauges, runs its canary and answers /health and
+  /live.
 """
 
 import asyncio
@@ -39,6 +41,21 @@ from .test_torch_engine import numpy_params
 from .test_torch_runtime import start_worker, stop_worker
 
 LIMIT = 60
+# the engine stats the port computed before its registry exported them
+C2_STATS = ("kv_pulls_completed", "kv_pages_pulled", "kv_transfers_served", "kv_bytes_served",
+            "kv_format_mismatches", "kv_streamed_stages", "kv_streamed_fallbacks",
+            "disagg_streamed_handoffs", "disagg_chunks_before_first_token",
+            "disagg_first_token_before_last_chunk", "disagg_streamed_handoff_ratio")
+# the exported rows of the estimates, migration accounting, morphing and
+# the session checkpointer
+NEW_ROWS = ("sched_est_ttft_ms", "sched_est_req_ms", "sched_est_prefill_tok_s",
+            "sched_est_decode_tok_s", "kv_checkpoint_pushes", "kv_checkpoint_blocks_received",
+            "migrations_resumed", "migration_replayed_tokens", "resume_source_checkpoint",
+            "resume_source_peer", "resume_source_local", "resume_source_recompute",
+            "morphs_completed", "morphs_rolled_back", "morph_drained_sessions",
+            "morph_last_duration_s", "kvbm_ckpt_blocks_staged", "kvbm_ckpt_blocks_pushed",
+            "kvbm_ckpt_bytes_pushed", "kvbm_ckpt_blocks_dropped", "kvbm_ckpt_push_failures",
+            "kvbm_ckpt_format_refusals", "kvbm_ckpt_queue_depth", "kvbm_ckpt_ineligible_peers")
 
 
 @pytest.fixture(autouse=True)
@@ -260,3 +277,7 @@ def test_worker_exports_kvbm_gauges_and_runs_its_canary(monkeypatch, tmp_path):
     for name in ("kvbm_offloaded_blocks", "kvbm_onboarded_blocks", "kvbm_host_hits",
                  "kvbm_disk_hits", "kvbm_offload_gathers", "health_canaries"):
         assert f"dynamo_worker_{name}" in metrics, name
+    # the data plane's and the disagg handoff's counters, the migration,
+    # morph, checkpoint and estimate rows: each a `dynamo_worker_*` gauge
+    for name in C2_STATS + NEW_ROWS:
+        assert f"dynamo_worker_{name} " in metrics or f"dynamo_worker_{name}{{" in metrics, name
