@@ -83,6 +83,22 @@ first; an injected morph error must roll it back to a routable role.
 `disagg_subprocess` also morphs its prefill worker into a decode worker
 over the wire (`morph` endpoint), serves a stream from it, and morphs it
 back.
+The `spec_guided` phases serve 8 greedy prompts built from repeated
+phrases on a plain engine, a split-spec engine (`spec_mode="ngram"`, mixed
+dispatch off: spec blocks verify on the prefill kernel at B=64, T=5) and a
+fused-spec engine (verify rows on the ragged kernel, a staircase of 5 rows a
+lane) — `spec_guided` at 28 layers, bf16 KV; `spec_guided_int8` and
+`spec_guided_int4` at 4 layers — and hold each spec stream equal to the
+plain one, or parted only at a near-tie (the plain logits' top-two gap at
+the first divergent position within SPEC_GAP_ULPS bf16 ulps; in a quantized
+pool both tokens within that plus the pool's quantization shift of the top
+logit); guided choice
+and json_schema requests on the plain and the fused-spec engines must fit
+their constraint, and at 28 layers the ITL of 4 unguided lanes is read
+alone and beside a guided lane. The kernel phase holds the prefill kernel
+at the verify shape and the ragged kernel on the staircase against their
+plain versions in every format and times them (the `@verify` and
+`@staircase` entries of the kernels line).
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -212,8 +228,13 @@ SERVE_PHASES = [
 ]
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; `at_s` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - T_START, 1)}), flush=True)
 
 
 def time_ms(fn, warm: int = 3, reps: int = 20) -> float:
@@ -833,6 +854,63 @@ def check_ragged(rng, measured, rng_bf16):
         torch.cuda.empty_cache()
 
 
+# the speculative verify's shapes (spec_guided phase): the split verify runs
+# the prefill kernel at B = lanes, T = 1 + d; the fused verify packs 1 + d
+# one-token rows a lane on the ragged kernel, row j at ctx L-1+j over the
+# lane's table (a staircase: row j sees its siblings 0..j-1)
+SPEC_LANES, SPEC_T = 64, 5
+
+
+def check_spec_shapes(rng, measured) -> None:
+    H, KH, D, ps, P, pages = 24, 8, 128, 64, 33, 2049
+    lens = rng.integers(200, 2000, size=SPEC_LANES)  # L: tokens in the lane's KV + 1
+    # prefill at the verify shape: chunk positions L-1 .. L-1+d per lane
+    q, k, v, pos, tab, totals, starts = prefill_case(
+        rng, SPEC_LANES, SPEC_T, H, KH, D, ps, P, pages, torch.bfloat16,
+        starts=lens - 1, reals=[SPEC_T] * SPEC_LANES)
+    visible = float(sum(SPEC_T * (L - 1) + SPEC_T * (SPEC_T + 1) // 2 for L in lens))
+    ctx_tokens = float(sum(L - 1 + SPEC_T for L in lens))
+    key = torch.arange(P * ps, device=DEV)
+    mask = ((key[None, None, :] <= pos[:, :, None]) &
+            (key[None, None, :] < totals[:, None, None]))[:, None]
+    # the same lanes as a staircase pack on the ragged kernel (its tables
+    # are the lanes' tables, one row each)
+    R = SPEC_LANES * SPEC_T
+    rq = q.reshape(R, H, D).contiguous()
+    r_tab = tab.repeat_interleave(SPEC_T, dim=0).contiguous()
+    j = np.tile(np.arange(SPEC_T), SPEC_LANES)
+    r_ctx = i32(np.repeat(lens - 1, SPEC_T) + j)
+    r_starts, r_lens = i32(np.arange(R)), i32(np.ones(R, np.int32))
+    for fmt in FORMATS:
+        kk, vv = pool_in(k, v, fmt)
+        bytes_moved = (ctx_tokens * kv_bytes_per_token(KH, D, fmt)
+                       + scale_bytes(ctx_tokens / ps, KH, fmt) + 2 * q.numel() * 2)
+        b_ms, b_by = bound(bytes_moved, 4.0 * H * D * visible)
+        kd, vd = dense_ctx(kk, tab, q.dtype), dense_ctx(vv, tab, q.dtype)
+        # one library call for both: the staircase is the same function
+        lib = sdpa_ms(q.transpose(1, 2), kd, vd, mask)
+        del kd, vd
+        for name, args, plain_fn, fn, lib_ms, shape in (
+            ("prefill_attention@verify", (q, kk, vv, pos, tab, totals, starts),
+             pa.prefill_attention_batched_plain, pa.prefill_attention_batched, lib,
+             f"B={SPEC_LANES} T={SPEC_T} H={H} KH={KH} D={D} ps={ps} ctx 199-1999"),
+            ("ragged_attention@staircase", (rq, kk, vv, r_tab, r_starts, r_lens, r_ctx),
+             pa.ragged_attention_plain, pa.ragged_attention, lib,
+             f"N=R={R} ({SPEC_LANES} lanes x {SPEC_T} one-token rows) H={H} KH={KH} D={D}"),
+        ):
+            out, ref = fn(*args), plain_fn(*args)
+            err, rel = check_full(name, fmt, out, ref, "spec shape")
+            del out, ref
+            times = time_kernel(lambda: fn(*args))
+            measured[(name, fmt)] = {
+                "max_abs_err": err, "max_row_rel_err": rel, **times,
+                "tflops": tflops(4.0 * H * D * visible, times["ms"]),
+                "plain_ms": time_ms(lambda: plain_fn(*args), 1, 3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "shape": shape,
+            }
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(seed: int) -> dict:
     measured: dict = {}
     rng = np.random.default_rng(seed)
@@ -847,7 +925,9 @@ def phase_kernels(seed: int) -> dict:
     for check in (lambda r, m: check_decode(r, m, rng_dec, shapes, rng_new),
                   lambda r, m: check_decode_local(r, m, rng_dec, shapes, rng_new),
                   lambda r, m: check_prefill(r, m, rng_bf16),
-                  lambda r, m: check_ragged(r, m, rng_bf16)):
+                  lambda r, m: check_ragged(r, m, rng_bf16),
+                  # the speculative verify's shapes, from their own generator
+                  lambda r, m: check_spec_shapes(np.random.default_rng(seed + 11), m)):
         check(rng, measured)
         torch.cuda.empty_cache()
     emit("kernels", tol_f32_tiny=TOL_F32_TINY, tol_bf16_full=TOL_BF16_FULL,
@@ -2037,7 +2117,8 @@ async def disagg_all(seed: int, params, reference: dict) -> dict:
 # ---------------------------------------------------------------------- #
 
 # (decode_pool_mode, kv_quant, layers) of the weights_int8 serve runs
-WEIGHTS_PATHS = [("scatter", "none", LAYERS), ("local", "int8", 4)]
+# (the scatter run at 8 layers, to pay for the spec_guided phases)
+WEIGHTS_PATHS = [("scatter", "none", 8), ("local", "int8", 4)]
 # int8 projections against the same products over the dequantized weights,
 # per row |a - b|_2 / |b|_2. One bf16 product: the int8 path scales the f32
 # accumulator and rounds once, the dequantized path rounds q * s to bf16
@@ -2535,7 +2616,9 @@ KVBM_PROMPT, KVBM_B_PROMPT, KVBM_TURN, KVBM_OUT = 2048, 1536, 256, 32
 KVBM_SLA_TTFT_MS = 50.0  # the sla run's TTFT target: host spans fit, disk spans do not
 # (phase, decode_pool_mode, kv_quant, with the sla run and the warm restart,
 # layers): the int8 path at a cut depth pays for the durable phases' time
-KVBM_PHASES = [("kvbm", "scatter", "none", True, LAYERS),
+# `kvbm` at 8 layers (a block is then 2.10 MB, not 7.34), to pay
+# for the spec_guided phases' time
+KVBM_PHASES = [("kvbm", "scatter", "none", True, 8),
                ("kvbm_local_int8", "local", "int8", False, 4)]
 PEER_PAGES, PEER_TAIL = 1024, 40  # peer prompts: 32 pages + a 40-token tail
 # each peer's host tier holds its own wave (264 blocks) and the other's
@@ -2748,13 +2831,14 @@ async def kvbm_phase(seed: int, params, phase: str, mode: str, kvq: str, extras:
         assert kv["kvbm_onboarded_blocks"] > 0 and kv["kv_onboard_fallbacks"] == 0, f"{phase}: {kv}"
         result = {"off": off, "on": on}
         if extras:
-            sla = await kvbm_run(seed, params, mode, kvq, waves, disk_path=f"{tmp}/sla", sla=True)
+            sla = await kvbm_run(seed, params, mode, kvq, waves, disk_path=f"{tmp}/sla", sla=True,
+                                 layers=layers)
             add_launches(launches, sla["launches"])
             result["sla"] = {"decisions": sla["sla_decisions"], "wave_a2": sla["wave_a2"],
                              "streams_equal_recompute": sum(
                                  a == b for a, b in zip(off["tokens"], sla["tokens"]))}
             warm = await kvbm_run(seed, params, mode, kvq, waves, disk_path=f"{tmp}/g3",
-                                  restart=True)
+                                  restart=True, layers=layers)
             add_launches(launches, warm["launches"])
             for i, (a, b) in enumerate(zip(off["tokens"], warm["tokens"])):
                 assert a == b, f"{phase}: A2 request {i} after a warm restart differs"
@@ -3186,8 +3270,13 @@ class RetryClock:
         return {"resume_gap_ms": gap, "retry_issued_ms": issued}
 
 
+# `durable` at 8 layers (a block is then 2.10 MB), to pay for the
+# spec_guided phases' time
+DURABLE_LAYERS = 8
+
+
 async def durable(seed: int, params) -> dict:
-    """Two engines (28 layers, bf16, scatter), each with a 256-block host tier
+    """Two engines (DURABLE_LAYERS layers, bf16, scatter), each with a 256-block host tier
     and a data plane, on one discovery service with DYN_KV_CHECKPOINT: A
     checkpoints its committed blocks into B's tier. Four streams (two greedy,
     two seeded) are taken uninterrupted on A, all at once, then run again through the
@@ -3215,8 +3304,10 @@ async def durable(seed: int, params) -> dict:
             rc = RuntimeConfig.from_settings()
             rc.discovery_endpoint = f"tcp://127.0.0.1:{port}"
             drt = await DistributedRuntime.create(rc)
-            engine = TorchEngine(cfg, model_config=llama.LlamaConfig.llama3_2_3b(),
-                                 params=params, device="cuda")
+            engine = TorchEngine(
+                cfg, model_config=dataclasses.replace(llama.LlamaConfig.llama3_2_3b(),
+                                                      num_layers=DURABLE_LAYERS),
+                params=cut_depth(params, DURABLE_LAYERS), device="cuda")
             plane = kv_transfer.KvDataPlaneServer(host="127.0.0.1")
             await plane.start()
             await plane.register(drt)
@@ -3310,7 +3401,7 @@ async def durable(seed: int, params) -> dict:
     itl = [x for w in whole for x in w["itl_s"]]
     blocks = stat_delta(a1, a0, "kvbm_ckpt_blocks_pushed")
     push_s = stat_delta(a1, a0, "kvbm_ckpt_push_s")
-    emit("durable", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
+    emit("durable", model="llama-3.2-3b", layers=DURABLE_LAYERS, dtype="bfloat16",
          decode_pool_mode="scatter", kv_quant="none", num_pages_each=DURABLE_PAGES,
          host_blocks=KVBM_HOST_BLOCKS, streams=DURABLE_STREAMS,
          prompt_tokens=[len(r["token_ids"]) for r in reqs], max_tokens=DURABLE_OUT,
@@ -3356,6 +3447,284 @@ async def together(open_stream, reqs) -> list:
         assert rec["finish"] == "length" and len(rec["tokens"]) == DURABLE_OUT, \
             (req["request_id"], rec["finish"], len(rec["tokens"]))
     return records
+
+
+# ---------------------------------------------------------------------- #
+# phase: spec_guided (speculative and guided decoding)
+# ---------------------------------------------------------------------- #
+
+SPEC_CFG = dict(spec_mode="ngram", spec_draft_len=SPEC_T - 1, spec_ngram=2, spec_rounds=4)
+# (phase, kv_quant, layers, dtype): the model's depth in bf16, the quantized
+# pools cut; an f32 run at a cut depth, where shapes round alike and the
+# streams must be the plain ones
+SPEC_PHASES = [("spec_guided", "none", LAYERS, torch.bfloat16),
+               ("spec_guided_int8", "int8", 4, torch.bfloat16),
+               ("spec_guided_int4", "int4", 4, torch.bfloat16),
+               ("spec_guided_f32", "none", 4, torch.float32)]
+# where a spec stream parts from the plain one, the plain logits' top-two gap
+# at that position must be a near-tie: at most this many ulps of the compute
+# type at the top logit (bf16: the verify pass computes each position in
+# GEMMs of another shape than plain decode, and bf16 rounds by shape; f32:
+# only the summation order differs). In a quantized pool the spec path
+# quantizes other writes (a rejected draft can raise a page's scale and
+# requantize the committed rows, as in the reference), so each arm's own
+# token must lie within that many ulps plus the shift the pool's
+# quantization makes to these logits of the recomputed top; a wrong token
+# lies some 4 logit std (~140 bf16 ulps at the top logit) below it
+SPEC_GAP_ULPS = {torch.bfloat16: 4, torch.float32: 1024}
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float32: 23}
+SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "col": {"enum": ["red", "green"]}}}
+SPEC_TOKENIZER: dict = {}  # vocab -> the ByteTokenizer every spec engine serves
+PHRASES = ["the cache block stores keys. ", "decode the next token now. ",
+           "pages hold the stream. ", "verify each draft in one pass. "]
+
+
+def spec_requests(seed: int, vocab: int, tag: str) -> list:
+    """8 greedy byte-tokenized prompts of 60-900 tokens built from a few
+    repeated phrases (text a prompt-lookup draft can match)."""
+    tok = ByteTokenizer(vocab)
+    rng = np.random.default_rng(seed + 17)
+    reqs = []
+    for i, n in enumerate([60, 240, 900, 120, 480, 300, 700, 90]):
+        text = f"{tag} {i}: "
+        while len(text) < n:
+            text += PHRASES[int(rng.integers(len(PHRASES)))]
+        reqs.append(PreprocessedRequest(
+            token_ids=tok.encode(text[:n]), request_id=f"{tag}-{i}",
+            stop_conditions={"max_tokens": MAX_TOKENS, "ignore_eos": True},
+            sampling_options={"temperature": 0.0}).to_dict())
+    return reqs
+
+
+def guided_requests(vocab: int, tag: str) -> list:
+    """A greedy guided_choice request and a seeded sampled json_schema one
+    (a greedy random-weight model can pick the schema's optional whitespace
+    forever)."""
+    tok = ByteTokenizer(vocab)
+    return [PreprocessedRequest(
+        token_ids=tok.encode(f"{tag} {i}: answer in the format asked."), request_id=f"{tag}-g{i}",
+        stop_conditions={"max_tokens": 320}, sampling_options=samp,
+        eos_token_ids=[ByteTokenizer.EOS], guided=g).to_dict()
+        for i, (g, samp) in enumerate([
+            ({"kind": "choice", "choices": ["yes", "no", "maybe"]}, {"temperature": 0.0}),
+            ({"kind": "json_schema", "schema": SCHEMA}, {"temperature": 1.0, "seed": 7})])]
+
+
+def check_guided_outputs(phase: str, vocab: int, records: list) -> list:
+    tok = ByteTokenizer(vocab)
+    texts = [tok.decode(r["tokens"]) for r in records]
+    assert texts[0] in ("yes", "no", "maybe"), (phase, texts[0])
+    obj = json.loads(texts[1])
+    assert set(obj) == {"ok", "col"} and isinstance(obj["ok"], bool) \
+        and obj["col"] in ("red", "green"), (phase, texts[1])
+    assert all(r["finish"] == "eos" for r in records), (phase, [r["finish"] for r in records])
+    return texts
+
+
+async def staggered(engine, reqs) -> tuple:
+    records = [new_record() for _ in reqs]
+    t0 = time.perf_counter()
+    tasks = []
+    for req, rec in zip(reqs, records):
+        tasks.append(asyncio.create_task(run_request(engine, req, rec)))
+        await asyncio.sleep(STAGGER_S)
+    await asyncio.gather(*tasks)
+    return records, time.perf_counter() - t0
+
+
+@torch.no_grad()
+def top2_gap(params: dict, cfg, tokens: list, kvq: str, also=()) -> dict:
+    """The plain logits after `tokens` (one batched-prefill forward on a
+    fresh pool of format `kvq`): the top two, their gap and the gap in ulps
+    of the compute type at the top logit; for a quantized pool also the
+    largest shift its quantization makes to the logits of the top two and
+    of the tokens `also` (against the same forward over a full-precision
+    pool)."""
+    from dynamo_tpu_torch.engine.kv_cache import alloc_kv_arrays
+
+    T, ps = len(tokens), 64
+    P = -(-T // ps)
+    kv_k, kv_v = alloc_kv_arrays(cfg.num_layers, P + 1, ps, cfg.num_kv_heads, cfg.head_dim,
+                                 dtype=cfg.dtype, device=DEV, kv_quant=kvq)
+    args = (i32([tokens]), i32([list(range(T))]))
+    tab = (i32([list(range(1, P + 1))]), i32([0]), i32([T - 1]))
+    logits = llama.prefill_forward_batched(params, cfg, *args, kv_k, kv_v, *tab)[0][0].float()
+    top = torch.topk(logits, 2)
+    a, b = (float(x) for x in top.values)
+    ulp = 2.0 ** (np.floor(np.log2(max(abs(a), 1e-30))) - MANTISSA_BITS[cfg.dtype])
+    shift = 0.0
+    if kvq != "none":
+        kv_k, kv_v = alloc_kv_arrays(cfg.num_layers, P + 1, ps, cfg.num_kv_heads,
+                                     cfg.head_dim, dtype=cfg.dtype, device=DEV)
+        full = llama.prefill_forward_batched(params, cfg, *args, kv_k, kv_v, *tab)[0][0].float()
+        idx = torch.cat([top.indices, torch.tensor(list(also), dtype=torch.long, device=DEV)])
+        shift = float((logits - full).abs()[idx].max())
+    lag = [(a - float(logits[t])) / ulp for t in also]
+    return {"top": [int(x) for x in top.indices], "logits": [a, b], "gap": a - b,
+            "gap_ulps": (a - b) / ulp, "lag_ulps": lag, "quant_shift": shift,
+            "quant_shift_ulps": shift / ulp, "logit_std": float(logits.std())}
+
+
+def divergences(phase: str, arm: str, params, cfg, kvq: str, reqs, plain: list,
+                got: list) -> list:
+    """Each request whose spec stream parts from the plain one: the first
+    divergent position, the plain logits' top-two gap there and each arm's
+    token's lag behind the top, which must be a near-tie (SPEC_GAP_ULPS)."""
+    out = []
+    for req, a, b in zip(reqs, plain, got):
+        if a == b:
+            continue
+        p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap = top2_gap(params, cfg, list(req["token_ids"]) + a[:p], kvq, also=(a[p], b[p]))
+        rep = {"request": req["request_id"], "position": p, "plain": a[p], "spec": b[p], **gap}
+        out.append(rep)
+        worst = gap["gap_ulps"] if kvq == "none" else max(gap["lag_ulps"])
+        assert worst <= SPEC_GAP_ULPS[cfg.dtype] + gap["quant_shift_ulps"], \
+            f"{phase}/{arm}: streams part at no near-tie: {rep}"
+    return out
+
+
+def arm_metrics(records, wall) -> dict:
+    itl = [x for r in records for x in r["itl_s"]]
+    ttft = [r["ttft_s"] for r in records]
+    return {"output_tok_s": round(sum(len(r["tokens"]) for r in records) / wall, 1),
+            "ttft_ms": {"p50": round(1e3 * pct(ttft, 50), 2), "p99": round(1e3 * pct(ttft, 99), 2)},
+            "itl_ms": {"p50": round(1e3 * pct(itl, 50), 3), "p99": round(1e3 * pct(itl, 99), 3)}}
+
+
+async def guided_itl(engine, vocab: int, guided: dict) -> dict:
+    """ITL of 4 unguided greedy lanes started together, alone and beside the
+    seeded guided request `guided` run again (the same tokens, so its FSM
+    states are cached)."""
+    tok = ByteTokenizer(vocab)
+    out = {}
+    for arm in ("alone", "with_guided"):
+        reqs = [PreprocessedRequest(
+            token_ids=tok.encode(f"itl {arm} {i}: " + PHRASES[i] * 4), request_id=f"itl-{arm}-{i}",
+            stop_conditions={"max_tokens": MAX_TOKENS, "ignore_eos": True},
+            sampling_options={"temperature": 0.0}).to_dict() for i in range(4)]
+        if arm == "with_guided":
+            reqs.append(dict(guided, request_id="itl-guided"))
+        records = [new_record() for _ in reqs]
+        await asyncio.gather(*(run_request(engine, r, rec) for r, rec in zip(reqs, records)))
+        itl = [x for rec in records[:4] for x in rec["itl_s"]]
+        out[arm] = {"p50": round(1e3 * pct(itl, 50), 3), "p99": round(1e3 * pct(itl, 99), 3)}
+    return out
+
+
+def guided_fsm_cold_s(vocab: int) -> float:
+    """Seconds to compile a guided regex ('[ab]*') on a fresh compiler and
+    tokenizer and read its start state's mask: the vocabulary decode, the
+    token trie and one mask walk that an engine pays for its first guided
+    spec."""
+    from dynamo_tpu_torch.llm.guided import GuidedCompiler
+
+    t0 = time.perf_counter()
+    fsm = GuidedCompiler(ByteTokenizer(vocab)).compile({"kind": "regex", "regex": "[ab]*"})
+    fsm.allowed(fsm.start_state)
+    return round(time.perf_counter() - t0, 3)
+
+
+async def spec_guided(seed: int, params, phase: str, kvq: str, layers: int,
+                      dtype: torch.dtype) -> dict:
+    """Plain, split-spec (mixed dispatch off) and fused-spec engines serve
+    the same repetitive traffic; the spec streams must equal the plain ones
+    or part only at a near-tie. Guided choice and json_schema requests on
+    the plain and the fused-spec engines must fit their constraint. Each
+    arm's kernel launches are read over its own traffic."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=layers, dtype=dtype)
+    if layers != LAYERS:
+        params = cut_depth(params, layers)
+    if dtype != torch.bfloat16:
+        params = {k: None if v is None else (
+            {n: x.to(dtype) for n, x in v.items()} if k == "layers" else v.to(dtype))
+            for k, v in params.items()}
+    reqs = spec_requests(seed, cfg.vocab_size, phase)
+    tokenizer = SPEC_TOKENIZER.setdefault(cfg.vocab_size, ByteTokenizer(cfg.vocab_size))
+    arms = {"plain": dict(), "spec_split": dict(SPEC_CFG, mixed_dispatch=False),
+            "spec_fused": dict(SPEC_CFG, mixed_dispatch=True)}
+    res, streams, launches = {}, {}, {}
+    for arm, kw in arms.items():
+        engine = TorchEngine(EngineConfig(model="llama3-3b", seed=seed, kv_quant=kvq, **kw),
+                             model_config=cfg, params=params, device="cuda")
+        engine.tokenizer = tokenizer  # one vocabulary walk for every engine's FSMs
+        t0 = time.perf_counter()
+        await engine.warmup()
+        warm_s = time.perf_counter() - t0
+        reset_counts()
+        base = engine.stats()
+        records, wall = await staggered(engine, reqs)
+        stats = engine.stats()
+        launches[arm] = kernel_launches()
+        plain_calls = dict(pa.plain_calls)
+        assert all(len(r["tokens"]) == MAX_TOKENS for r in records), (phase, arm)
+        assert not any(plain_calls.values()), f"{phase}/{arm}: plain attention ran: {plain_calls}"
+        used = {"plain": ("prefill_attention", "ragged_attention", "paged_decode"),
+                "spec_split": ("prefill_attention",),
+                "spec_fused": ("prefill_attention", "ragged_attention")}[arm]
+        for name in used:
+            assert launches[arm].get((name, kvq), 0) > 0, f"{phase}/{arm}: {name} never launched"
+        streams[arm] = [r["tokens"] for r in records]
+        res[arm] = {**arm_metrics(records, wall),
+                    "warmup_s": round(warm_s, 3),
+                    "mixed_steps": stats["mixed_steps"] - base["mixed_steps"],
+                    "dev_time": dev_time_delta(stats, base),
+                    "launches": {f"{n}/{f}": c for (n, f), c in launches[arm].items() if c}}
+        if arm != "plain":
+            for key in ("spec_num_drafts", "spec_num_draft_tokens", "spec_num_accepted_tokens",
+                        "mixed_rows_spec"):
+                res[arm][key] = stats[key] - base[key]
+            res[arm]["spec_mean_accepted_len"] = round(
+                1.0 + res[arm]["spec_num_accepted_tokens"] / max(res[arm]["spec_num_drafts"], 1), 3)
+            assert res[arm]["spec_num_drafts"] > 0, (phase, arm)
+        if arm == "spec_fused":
+            assert res[arm]["mixed_rows_spec"] > 0, f"{phase}: no fused verify rows"
+        if arm == "spec_fused" or (arm == "plain" and layers == LAYERS):
+            # guided requests (refused typed by a split-only spec engine;
+            # on the plain engine at full depth, for the ITL reading)
+            reset_counts()
+            g_reqs = guided_requests(cfg.vocab_size, f"{phase}-{arm}")
+            g_recs = [new_record() for _ in g_reqs]
+            t0 = time.perf_counter()
+            await asyncio.gather(*(run_request(engine, r, rec) for r, rec in zip(g_reqs, g_recs)))
+            res[arm]["guided_s"] = round(time.perf_counter() - t0, 3)
+            res[arm]["guided_texts"] = check_guided_outputs(phase, cfg.vocab_size, g_recs)
+            g_launch = kernel_launches()
+            assert g_launch.get(("paged_decode", kvq), 0) > 0, f"{phase}/{arm}: no guided decode"
+            assert not any(pa.plain_calls.values()), f"{phase}/{arm}: plain attention ran"
+            add_launches(launches[arm], g_launch)
+            if arm == "plain" and layers == LAYERS:
+                res[arm]["unguided_itl_ms"] = await guided_itl(engine, cfg.vocab_size, g_reqs[1])
+        await engine.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    div = {arm: divergences(phase, arm, params, cfg, kvq, reqs, streams["plain"], streams[arm])
+           for arm in ("spec_split", "spec_fused")}
+    emit(phase, model="llama-3.2-3b", layers=layers, dtype=str(dtype).split(".")[-1],
+         kv_quant=kvq, spec=SPEC_CFG, requests=len(reqs),
+         prompt_tokens=[len(r["token_ids"]) for r in reqs], max_tokens=MAX_TOKENS,
+         gap_bound_ulps=SPEC_GAP_ULPS[dtype],
+         streams_equal={arm: sum(a == b for a, b in zip(streams["plain"], streams[arm]))
+                        for arm in ("spec_split", "spec_fused")},
+         split_equal_fused=sum(a == b for a, b in zip(streams["spec_split"],
+                                                      streams["spec_fused"])),
+         divergences=div, arms=res,
+         guided_fsm_cold_s=guided_fsm_cold_s(cfg.vocab_size) if layers == LAYERS else None)
+    # the verify shapes' launches: the prefill kernel's in the split arm
+    # (spec blocks and prompts), the ragged kernel's in the fused arm
+    return {("prefill_attention@verify", kvq): launches["spec_split"].get(("prefill_attention", kvq), 0),
+            ("ragged_attention@staircase", kvq): launches["spec_fused"].get(("ragged_attention", kvq), 0),
+            **{key: sum(launches[a].get(key, 0) for a in arms) for key in
+               {k for a in arms for k in launches[a]}}}
+
+
+async def spec_guided_all(seed: int, params) -> dict:
+    total: dict = {}
+    for phase, kvq, layers, dtype in SPEC_PHASES:
+        add_launches(total, await spec_guided(seed, params, phase, kvq, layers, dtype))
+    return total
 
 
 def main() -> None:
@@ -3417,6 +3786,9 @@ def main() -> None:
     t0 = time.perf_counter()
     add_launches(launches, asyncio.run(durable(args.seed, params)))
     seconds["durable"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_launches(launches, asyncio.run(spec_guided_all(args.seed, params)))
+    seconds["spec_guided"] = time.perf_counter() - t0
     # the subprocess workers size or place their pools on the card: this
     # process lets go of what it holds first (engines that sat in
     # reference cycles with their tasks included)
@@ -3449,6 +3821,21 @@ def main() -> None:
                if key in measured[(name, fmt)]},
         }
         for name, k in KERNELS.items() for fmt in FORMATS
+    ] + [
+        # the same kernels at the speculative verify's shapes; launches: the
+        # prefill kernel's in the split-spec arms, the ragged kernel's in the
+        # fused-spec arms of the spec_guided phases
+        {
+            "name": f"{name}/{fmt}", "route": "cuda",
+            "source": KERNELS[name.split("@")[0]]["source"],
+            "replaces": KERNELS[name.split("@")[0]]["replaces"]["none" if fmt == "none" else "quant"],
+            "launches": launches[(name, fmt)],
+            **{key: measured[(name, fmt)][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops", "ms_back_to_back", "host_us", "shape")},
+            "body": KERNELS[name.split("@")[0]]["body"],
+        }
+        for name in ("prefill_attention@verify", "ragged_attention@staircase") for fmt in FORMATS
     ]}
     emit("total", seconds=round(time.perf_counter() - t_all, 1),
          phase_seconds={k: round(v, 1) for k, v in seconds.items()})

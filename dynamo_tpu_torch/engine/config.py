@@ -55,10 +55,14 @@ class EngineConfig:
     # KV page format: "none" | "int8" | "int4" (per-page-per-head f32
     # scales); None = DYN_KV_QUANT, else "none"
     kv_quant: Optional[str] = None
-    spec_mode: Optional[str] = None  # speculative decoding (not ported)
+    # speculative decoding (engine/spec.py): "ngram" drafts spec_draft_len
+    # tokens from the most recent spec_ngram-gram in a per-lane ring of the
+    # last spec_hist tokens; each decode block runs spec_rounds
+    # draft-verify rounds
+    spec_mode: Optional[str] = None
     spec_draft_len: int = 4
     spec_ngram: int = 2
-    spec_hist: int = 512
+    spec_hist: int = 512  # history ring size (tokens) per lane
     spec_rounds: int = 4
     # sampling defaults
     default_temperature: float = 0.0
@@ -108,13 +112,16 @@ class EngineConfig:
 
     @property
     def block_advance(self) -> int:
-        """Max tokens one fused block advances a lane."""
+        """Max tokens one fused block advances a lane: K decode steps, or
+        spec_rounds draft-verify rounds of up to 1+d tokens."""
+        if self.spec_mode:
+            return self.spec_rounds * (self.spec_draft_len + 1)
         return self.decode_block_steps
 
     def unsupported_fields(self) -> List[str]:
         """Names of the fields set to a value this port cannot honour."""
         bad = []
-        if self.spec_mode:
+        if self.spec_mode not in (None, "", "ngram"):
             bad.append("spec_mode")
         for name in ("tp_size", "dp_size", "pp_size", "sp_size"):
             if getattr(self, name) != 1:

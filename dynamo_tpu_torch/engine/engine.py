@@ -60,6 +60,18 @@ and host reads are the expensive unit:
     request plane codes as `draining`, so each caller's migration resumes
     the session on a peer; any failure but `faults.MorphCrash` rolls the
     role back.
+  * speculative decoding (`spec_mode="ngram"`, engine/spec.py): each
+    decode block is `spec_rounds` draft-verify rounds; a lane drafts d
+    tokens from the most recent n-gram match in its on-device history ring
+    and verifies all 1+d in ONE batched-prefill pass (T = 1+d), accepting
+    the longest matching prefix, so a greedy stream is the plain one token
+    for token. In the fused mixed step a spec lane packs 1+d one-token
+    verify rows on the ragged kernel (a staircase: row j attends its
+    siblings 0..j-1) and is accepted on the host.
+  * guided decoding (llm/guided.py): a request's `guided` spec compiles off
+    the event loop to a token FSM; its lane's admissible-token bitmask rides
+    the prefill, a single-step decode and the mixed step, and the FSM
+    advances on every emitted token.
   * estimates: `estimated_prefill_wait_ms`, `estimated_req_ms` and
     `estimated_role_tok_s` read the scheduler's cost model; `stats()`
     publishes them as `sched_est_*`, which admission gates, the disagg
@@ -69,9 +81,8 @@ The KV pool is written in place. There is nothing to compile per shape, so
 `warmup()` only builds the kernel library and drives one dispatch of each
 kind. All device work runs on one executor thread so a blocking copy never
 stalls the event loop. Left out of this port so far (each raises a typed
-error when asked for): the multi-host shard handoff, speculative decoding,
-guided decoding, LoRA, multimodal, multi-host, tensor/pipeline/sequence
-parallelism. The KV pool may be stored at 8 or 4
+error when asked for): the multi-host shard handoff, LoRA, multimodal,
+multi-host, tensor/pipeline/sequence parallelism. The KV pool may be stored at 8 or 4
 bits (`kv_quant`): quantized on write, dequantized inside the attention
 kernels. The weights may be int8 weight-only quantized (`quantize="int8"`,
 models/quant.py): random weights are quantized on the device after their
@@ -127,7 +138,9 @@ from ..runtime.request_plane import StreamSevered
 from .bucketing import next_pow2 as _next_pow2
 from .config import EngineConfig, UnsupportedConfigError
 from .kv_cache import PageAllocator, alloc_kv_arrays
-from .sampling import SamplingParams, penalized, sample_lp
+from .sampling import SamplingParams, penalized, sample_lp, unpack_mask
+from .sampling import split as key_split
+from .spec import hist_write, ngram_draft, verify_accept
 from .scheduler import SlaConfig, StepPlanner
 
 logger = logging.getLogger(__name__)
@@ -137,11 +150,30 @@ SCRATCH_PAGE = 0  # physical page 0 is the dump target for masked lanes
 
 class UnsupportedRequestError(ValueError):
     """A request field asks for a feature this port has not implemented
-    (multimodal parts, guided decoding, LoRA, embeddings, unknown
-    `disagg_params` keys). Raised from `generate`, never silently dropped."""
+    (multimodal parts, LoRA, embeddings, unknown `disagg_params` keys) or
+    one this engine's configuration cannot serve (guided decoding on a
+    split-only speculative engine, penalties or logprobs under speculative
+    decoding). Raised from `generate`, never silently dropped."""
 
 
 DISAGG_PARAMS = ("return_kv", "kv_pull", "kv_stream")  # the keys served
+
+
+class _EvenTokensFsm:
+    """A one-state token FSM admitting the even token ids: warmup's guided
+    request takes the masked prefill and decode without compiling a spec
+    over the vocabulary."""
+
+    start_state = 0
+
+    def __init__(self, vocab: int):
+        self._row = np.arange(vocab) % 2 == 0
+
+    def allowed(self, state: int) -> np.ndarray:
+        return self._row
+
+    def advance(self, state: int, token: int) -> int:
+        return state
 
 
 @dataclass
@@ -203,6 +235,8 @@ class _Slot:
     migration: int = 0  # > 0: the retry of a stream whose worker died
     migration_counted: bool = False  # its resume is classified once
     replay: bool = False  # migrated: its tail is recomputed decode-shaped
+    guided_fsm: Optional[Any] = None  # llm/guided.TokenFsm (structured output)
+    guided_state: int = 0  # current FSM state; advanced per emitted token
 
 
 class StreamedPullHandle:
@@ -386,9 +420,11 @@ class TorchEngine:
         # row-start alignment of the flat packer: whatever the ragged
         # kernel asks for (packer and kernel agree through this function)
         self._mixed_align = ragged_tile_q(c.dtype)
-        # ONE fixed row bucket: the row axis only sizes scalar operands
+        # ONE fixed row bucket: the row axis only sizes scalar operands.
+        # Under spec every decode lane may pack 1 + spec_draft_len verify rows.
+        rows_per_lane = 1 + (config.spec_draft_len if config.spec_mode else 0)
         self._mixed_row_bucket = _next_pow2(
-            config.max_num_seqs + config.max_prefill_batch
+            config.max_num_seqs * rows_per_lane + config.max_prefill_batch
         )
         # fused-vs-split visibility (stats()): is the fused path actually
         # taken, and what padding does each path pay per step
@@ -399,6 +435,24 @@ class TorchEngine:
         self.split_padded_tokens = 0
         self.split_real_tokens = 0
         self.mixed_rows_plain = 0
+        self.mixed_rows_guided = 0
+        self.mixed_rows_spec = 0
+        # speculative decoding: host mirror of the device history ring, the
+        # acceptance counters, and the key chain of the spec blocks' draws
+        # (threefry key words of PRNGKey(seed + 1); the reference splits one
+        # engine key that its prefill and mixed dispatches also split)
+        self.hist = (
+            np.zeros((B, config.spec_hist), np.int32) if config.spec_mode else None
+        )
+        self._hist_dev = None
+        self.spec_num_drafts = 0
+        self.spec_num_draft_tokens = 0
+        self.spec_num_accepted_tokens = 0
+        self._spec_key = (0, (config.seed + 1) & 0xFFFFFFFF)
+        # guided decoding: the FSM compiler over the served vocabulary
+        # (built on first use from self.tokenizer) and a request counter
+        self._guided = None
+        self.guided_requests = 0
         self._last_prefill_shape = None  # (padded, real) of the latest dispatch
         self._last_decode_shape = None
         # set by _dispatch_mixed when only the in-flight decode pipeline
@@ -528,10 +582,12 @@ class TorchEngine:
 
     async def warmup(self) -> int:
         """Build the kernel library (on CUDA) and drive one dispatch of each
-        kind — batched prefill, decode reset/patch/block, the mixed step —
-        through the real `generate` path before serving traffic. Returns the
-        number of device dispatches made. The warmup prompts' cached pages
-        are evicted from the device afterwards (KVBM tiers keep theirs)."""
+        kind — batched prefill, decode reset/patch/block (the spec block on
+        a spec engine), the mixed step, and a guided request's masked
+        prefill and decode — through the real serving path before serving
+        traffic. Returns the number of device dispatches made. The warmup
+        prompts' cached pages are evicted from the device afterwards (KVBM
+        tiers keep theirs)."""
         if self._on_cuda:
             from ..ops import _build
 
@@ -563,6 +619,19 @@ class TorchEngine:
         await started.wait()
         t2 = asyncio.create_task(_drain(None))
         await asyncio.gather(t1, t2)
+        if not self.config.spec_mode or self._mixed_enabled:
+            # a guided request: the masked prefill and decode, on a fixed
+            # mask (no FSM compile: the first real guided request pays its
+            # own, off the event loop)
+            req = PreprocessedRequest(
+                token_ids=rng.randint(5, max(vocab - 1, 6), size=isl).tolist(),
+                stop_conditions={"max_tokens": 3},
+                sampling_options={"temperature": 1.0},
+                guided={"kind": "regex", "regex": "[ab]*"},
+            )
+            req._compiled_fsm = _EvenTokensFsm(vocab)
+            async for _ in self._drain(self._entry_slot(req, Context())):
+                pass
         # the device prefix cache only: a warm disk tier survives the warmup
         self.allocator.clear_cache()
         return self._dispatch_count() - before
@@ -574,12 +643,8 @@ class TorchEngine:
                 cnt for tag, (cnt, _) in self._dev_time.items() if tag != "fetch"
             )
 
-    @staticmethod
-    def _check_request(req: PreprocessedRequest) -> None:
-        bad = [
-            name for name in ("multimodal", "guided", "lora_name")
-            if getattr(req, name)
-        ]
+    def _check_request(self, req: PreprocessedRequest) -> None:
+        bad = [name for name in ("multimodal", "lora_name") if getattr(req, name)]
         if req.embed:
             bad.append("embed")
         bad += [f"disagg_params.{k}" for k in (req.disagg_params or {})
@@ -588,6 +653,70 @@ class TorchEngine:
             raise UnsupportedRequestError(
                 f"request fields not supported by the PyTorch/CUDA port yet: {bad}"
             )
+        err = self._check_spec_sampling(req) or self._check_guided(req)
+        if err is not None:
+            raise UnsupportedRequestError(err)
+
+    def _check_spec_sampling(self, req: PreprocessedRequest) -> Optional[str]:
+        """Penalties and logprobs have no hook in the speculative verify
+        pass: a spec engine refuses them rather than ignore them."""
+        if not self.config.spec_mode:
+            return None
+        s = req.sampling_options or {}
+        if (s.get("presence_penalty") or s.get("frequency_penalty")
+                or (s.get("repetition_penalty") or 1.0) != 1.0):
+            return ("sampling penalties are not supported with speculative "
+                    "decoding (the verify pass has no penalty hook); run the "
+                    "worker without --spec")
+        if s.get("logprobs"):
+            return ("logprobs are not supported with speculative decoding "
+                    "(the verify pass emits accepted drafts without per-token "
+                    "logprobs); run the worker without --spec")
+        return None
+
+    def _check_guided(self, req: PreprocessedRequest) -> Optional[str]:
+        """Guided rows are single-token and host-authoritative each step, so
+        under spec they ride the fused mixed step beside the verify rows; a
+        split-only spec engine refuses them (dropping the constraint would
+        be a wrong answer, not a degraded one)."""
+        if req.guided and self.config.spec_mode and not self._mixed_enabled:
+            return ("guided decoding is incompatible with speculative decoding "
+                    "without the mixed dispatch (run the worker without --spec)")
+        return None
+
+    def _guided_compiler(self):
+        if self._guided is None:
+            from ..llm.guided import GuidedCompiler
+            from ..llm.tokenizers import ByteTokenizer
+
+            self._guided = GuidedCompiler(
+                self.tokenizer or ByteTokenizer(self.model_config.vocab_size))
+        return self._guided
+
+    def _compile_guided(self, req: PreprocessedRequest):
+        """The request's token FSM (None when unguided); a spec the compiler
+        rejects raises UnsupportedRequestError."""
+        if not req.guided:
+            return None
+        try:
+            return self._guided_compiler().compile(req.guided)
+        except ValueError as e:
+            raise UnsupportedRequestError(f"guided spec rejected: {e}") from e
+
+    def _guided_lane_mask(self, fsm, state: int) -> np.ndarray:
+        """fsm.allowed(state) trimmed or padded to the MODEL vocabulary (the
+        tokenizer's may differ; logits rows past it are inadmissible)."""
+        V = self.model_config.vocab_size
+        row = fsm.allowed(state)
+        if len(row) >= V:
+            return row[:V]
+        out = np.zeros((V,), bool)
+        out[: len(row)] = row
+        return out
+
+    def _advance_guided(self, slot: _Slot, token: int) -> None:
+        if slot.guided_fsm is not None:
+            slot.guided_state = slot.guided_fsm.advance(slot.guided_state, token)
 
     def _new_slot(self, req: PreprocessedRequest, context: Context) -> _Slot:
         stop = req.stop_conditions or {}
@@ -622,6 +751,12 @@ class TorchEngine:
             int(seed) & 0xFFFFFFFF if seed is not None else secrets.randbits(32)
         )
         slot.want_top_logprobs = min(int(sampling.get("top_logprobs") or 0), 5)
+        if req.guided:
+            # compiled off the event loop by _entry_slot_async; the compiler's
+            # cache answers the synchronous entries
+            slot.guided_fsm = getattr(req, "_compiled_fsm", None) or self._compile_guided(req)
+            slot.guided_state = slot.guided_fsm.start_state
+            self.guided_requests += 1
         if len(slot.prompt) + slot.max_tokens > self.config.max_model_len:
             slot.max_tokens = max(self.config.max_model_len - len(slot.prompt), 1)
         slot.priority = int(req.priority or 0)
@@ -639,7 +774,7 @@ class TorchEngine:
         return slot
 
     async def generate(self, request: Any, context: Context) -> AsyncIterator[dict]:
-        async for item in self._drain(self._entry_slot(request, context)):
+        async for item in self._drain(await self._entry_slot_async(request, context)):
             yield item
 
     def _morph_guard(self):
@@ -650,9 +785,8 @@ class TorchEngine:
         if self._morph_state in ("draining-role", "flipped"):
             raise StreamSevered(f"worker is morphing ({self._morph_state}); stream re-routed")
 
-    def _entry_slot(self, request: Any, context: Context) -> _Slot:
-        """Shared prologue of every entry: refuse it mid-morph, coerce and
-        check the request, build its slot."""
+    def _entry_request(self, request: Any) -> PreprocessedRequest:
+        """Refuse the entry mid-morph, coerce and check the request."""
         self._morph_guard()
         req = (
             request
@@ -662,6 +796,21 @@ class TorchEngine:
         self._check_request(req)
         if not req.token_ids:
             raise ValueError("request has no prompt tokens")
+        return req
+
+    async def _entry_slot_async(self, request: Any, context: Context) -> _Slot:
+        """`_entry_slot` with a guided spec compiled OFF the event loop (the
+        DFA construction and the vocabulary walk are pure Python and can
+        take seconds on a cold schema; live streams must not stall)."""
+        req = self._entry_request(request)
+        if req.guided:
+            req._compiled_fsm = await asyncio.to_thread(self._compile_guided, req)
+        return self._entry_slot(req, context, checked=True)
+
+    def _entry_slot(self, request: Any, context: Context, checked: bool = False) -> _Slot:
+        """Shared prologue of every entry: refuse it mid-morph, coerce and
+        check the request (unless `checked`), build its slot."""
+        req = request if checked else self._entry_request(request)
         self.start()
         slot = self._new_slot(req, context)
         disagg = req.disagg_params or {}
@@ -701,7 +850,7 @@ class TorchEngine:
         """Disagg decode entry: continue decoding from remotely prefilled KV
         that arrived inline (host pages in the wire layout). The first token
         was produced by the prefill worker and is NOT re-emitted."""
-        slot = self._entry_slot(request, context)
+        slot = await self._entry_slot_async(request, context)
         slot.preloaded = (first_token, kv_k_pages, kv_v_pages, n_tokens)
         async for item in self._drain(slot):
             yield item
@@ -713,10 +862,11 @@ class TorchEngine:
         prefill the prompt locally and resume from the prefill worker's
         already-emitted first token — the fallback a failed pull takes,
         entered before any foreign byte is read."""
-        slot = self._entry_slot(request, context)
+        slot = await self._entry_slot_async(request, context)
         slot.generated = 1
         slot.last_token = first_token
         slot.seq.append(first_token)
+        self._advance_guided(slot, first_token)
         slot.resume_token = first_token
         slot.prefill_pos = 0
         async for item in self._drain(slot):
@@ -729,7 +879,7 @@ class TorchEngine:
         on its data plane; the engine allocates the prompt's pages, then
         injects chunks as they land while the decode batch keeps stepping.
         Falls back to local prefill if the pull fails."""
-        slot = self._entry_slot(request, context)
+        slot = await self._entry_slot_async(request, context)
         slot.preloaded = (first_token, None, None, int(desc["n_tokens"]))
         slot.pull_desc = desc
         async for item in self._drain(slot):
@@ -1011,6 +1161,18 @@ class TorchEngine:
             1.0 - self.split_real_tokens / self.split_padded_tokens, 4
         ) if self.split_padded_tokens else 0.0
         out["mixed_rows_plain"] = self.mixed_rows_plain
+        out["mixed_rows_guided"] = self.mixed_rows_guided
+        out["mixed_rows_spec"] = self.mixed_rows_spec
+        if self.guided_requests:
+            out["guided_requests"] = self.guided_requests
+        if self.config.spec_mode:
+            out["spec_num_drafts"] = self.spec_num_drafts
+            out["spec_num_draft_tokens"] = self.spec_num_draft_tokens
+            out["spec_num_accepted_tokens"] = self.spec_num_accepted_tokens
+            out["spec_mean_accepted_len"] = (
+                1.0 + self.spec_num_accepted_tokens / self.spec_num_drafts
+                if self.spec_num_drafts else 0.0
+            )
         denom = self.mixed_steps + self.split_steps
         out["mixed_coverage_frac"] = (
             round(self.mixed_steps / denom, 4) if denom else 1.0
@@ -1323,6 +1485,17 @@ class TorchEngine:
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _dev_mask(self, packed: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        """A bitpacked guided mask [R, V/8] on the device as [R, V] bool. On
+        CUDA it travels through pinned memory without blocking the host (up
+        to 1 MB a step at a 128k vocabulary and 64 lanes)."""
+        if packed is None:
+            return None
+        t = torch.from_numpy(np.ascontiguousarray(packed))
+        if self._on_cuda:
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return unpack_mask(t, self.model_config.vocab_size)
+
     def _samp(self, temps, top_ks, top_ps, seeds, pens) -> SamplingParams:
         """Device sampling state from host arrays, with the host-known
         all-greedy / no-penalty facts that let the sampler skip work."""
@@ -1345,8 +1518,9 @@ class TorchEngine:
 
     @torch.no_grad()
     def _dev_prefill(self, toks, positions, tables, ctx_lens, last_idx,
-                     temps, top_ks, top_ps, seeds, pens, pen_rows):
-        """Batched chunked prefill + on-device first-token sampling."""
+                     temps, top_ks, top_ps, seeds, pens, pen_rows, mask=None):
+        """Batched chunked prefill + on-device first-token sampling (masked
+        by the guided lanes' FSMs when `mask` is given)."""
         samp = self._samp(temps, top_ks, top_ps, seeds, pens)
         ctx_d, last_d = self._dev(ctx_lens), self._dev(last_idx)
         logits, _, _ = llama.prefill_forward_batched(
@@ -1354,16 +1528,20 @@ class TorchEngine:
             self.kv_k, self.kv_v, self._dev(tables), ctx_d, last_d,
         )
         plogits = penalized(logits, samp, self._dev(pen_rows))
-        first = sample_lp(plogits, samp, ctx_d + last_d, raw=logits)
+        first = sample_lp(plogits, samp, ctx_d + last_d, raw=logits,
+                          mask=self._dev_mask(mask))
         return self._result(*first)
 
     @torch.no_grad()
     def _dev_mixed(self, toks, positions, row_ids, tables, row_starts,
                    row_lens, ctx_lens, last_flat, temps, top_ks, top_ps,
-                   seeds, pens, pen_rows):
+                   seeds, pens, pen_rows, mask=None):
         """Unified mixed step: ONE ragged forward over a flat buffer packing
         prefill chunks (row_len > 1) and decode lanes (row_len == 1), with
-        each row's last-token logits sampled on device."""
+        each row's last-token logits sampled on device. Guided rows carry
+        their FSM mask (`mask`; all-ones rows are exact no-ops); speculative
+        verify rows need no operand of their own: they are one-token rows
+        whose ctx covers their sibling rows' KV, written before attention."""
         samp = self._samp(temps, top_ks, top_ps, seeds, pens)
         ctx_d, len_d = self._dev(ctx_lens), self._dev(row_lens)
         logits, _, _ = llama.ragged_forward(
@@ -1376,21 +1554,25 @@ class TorchEngine:
         # (= ctx + last_idx for prefill rows, seq_len - 1 for decode rows)
         # — identical to what the split dispatches use, so seeded streams
         # don't depend on the dispatch shape
-        first = sample_lp(plogits, samp, ctx_d + len_d - 1, raw=logits)
+        first = sample_lp(plogits, samp, ctx_d + len_d - 1, raw=logits,
+                          mask=self._dev_mask(mask))
         return self._result(*first)
 
     def _dev_reset(self, tokens, positions, seq_lens, page_tables, temps,
-                   top_ks, top_ps, seeds, pens, recent):
+                   top_ks, top_ps, seeds, pens, recent, hist=None):
         self._samp_dev = self._samp(temps, top_ks, top_ps, seeds, pens)
         self._carry = (self._dev(tokens), self._dev(positions), self._dev(seq_lens))
         self._pen_dev = self._dev(recent)
         self._tables_dev = self._dev(page_tables)
+        if hist is not None:
+            self._hist_dev = self._dev(hist)
 
     def _dev_patch(self, lane_mask, table_mask, tokens, positions, seq_lens,
-                   tables, temps, top_ks, top_ps, seeds, pens, recent):
+                   tables, temps, top_ks, top_ps, seeds, pens, recent, hist=None):
         """Per-lane carry patch: lane_mask lanes take carry + sampling +
-        table from the host; table_mask extends to lanes whose page table
-        grew mid-decode (their carry on device is NEWER than host state)."""
+        table (and, under spec, history ring) from the host; table_mask
+        extends to lanes whose page table grew mid-decode (their carry on
+        device is NEWER than host state)."""
         lm, tm = self._dev(lane_mask), self._dev(table_mask)
         new = self._samp(temps, top_ks, top_ps, seeds, pens)
         cur = self._samp_dev
@@ -1411,6 +1593,9 @@ class TorchEngine:
             frequency=pick(new.frequency, cur.frequency),
             repetition=pick(new.repetition, cur.repetition),
         )
+        if hist is not None and self._hist_dev is not None:
+            # the other lanes keep the (newer) rows spec blocks appended
+            self._hist_dev = torch.where(lm[:, None], self._dev(hist), self._hist_dev)
 
     @torch.no_grad()
     def _dev_block(self, all_greedy: bool, no_penalties: bool):
@@ -1478,6 +1663,77 @@ class TorchEngine:
         self._carry = (tokens, positions, seq_lens)
         self._pen_dev = pen
         return self._result(*(torch.stack(x) for x in zip(*outs)))
+
+    @torch.no_grad()
+    def _dev_block_guided(self, mask, all_greedy: bool, no_penalties: bool):
+        """ONE masked decode step for the whole batch (guided lanes carry
+        their FSM rows, the others all-ones rows): the mask of step t+1
+        depends on the token of step t, so a guided lane cannot ride the
+        K-step block. It writes the pool in place under either pool mode."""
+        tokens, positions, seq_lens = self._carry
+        samp = self._samp_dev._replace(all_greedy=all_greedy, no_penalties=no_penalties)
+        logits, _, _ = llama.decode_forward(
+            self.params, self.model_config, tokens, positions,
+            self.kv_k, self.kv_v, self._tables_dev, seq_lens,
+        )
+        plogits = penalized(logits, samp, self._pen_dev)
+        nxt, lp, tid, tlp = sample_lp(plogits, samp, positions, raw=logits,
+                                      mask=self._dev_mask(mask))
+        tokens = nxt.to(torch.int32)
+        if not no_penalties:
+            W = self._pen_dev.shape[1]
+            lanes = torch.arange(tokens.shape[0], device=self.device)
+            self._pen_dev = self._pen_dev.index_put(
+                (lanes, ((positions + 1) % W).long()), tokens)
+        self._carry = (tokens, positions + 1, seq_lens + 1)
+        return self._result(*(x[None] for x in (tokens, lp, tid, tlp)))
+
+    @torch.no_grad()
+    def _dev_spec_block(self, keys: List[tuple]):
+        """spec_rounds draft-verify rounds (engine/spec.py), one key each.
+        A round writes the current token into the history ring, drafts d
+        continuations from its n-gram, verifies all 1+d in ONE
+        batched-prefill pass (T = 1+d, KV written for every position) and
+        accepts the longest matching prefix: 1..1+d tokens a lane a round,
+        never fewer than plain decode. Returns (toks [S, B, 1+d],
+        n_emit [S, B])."""
+        cfg, c = self.config, self.model_config
+        tokens, positions, seq_lens = self._carry
+        # penalties are refused under spec at admission
+        samp = self._samp_dev._replace(no_penalties=True)
+        hist = self._hist_dev
+        B, d, Hc = tokens.shape[0], cfg.spec_draft_len, cfg.spec_hist
+        T = d + 1
+        lanes = torch.arange(B, device=self.device)
+        ar = torch.arange(T, device=self.device, dtype=torch.int32)[None, :]
+        last_idx = torch.full((B,), d, dtype=torch.int32, device=self.device)
+        toks_s, n_emit_s = [], []
+        for key in keys:
+            hist = hist_write(hist, positions, tokens)
+            draft = ngram_draft(hist, tokens, positions, cfg.spec_ngram, d)
+            chunk = torch.cat([tokens[:, None], draft.to(tokens.dtype)], dim=1)
+            logits, _, _ = llama.prefill_forward_batched(
+                self.params, c, chunk, positions[:, None] + ar, self.kv_k, self.kv_v,
+                self._tables_dev, positions,  # context: tokens already in KV
+                last_idx, all_logits=True,
+            )
+            out_toks, n_emit, _ = verify_accept(logits, draft, samp, key)
+            n_emit = n_emit.to(torch.int32)
+            tokens = out_toks[lanes, (n_emit - 1).long()].to(torch.int32)
+            # ring-append the emitted tokens (positions pos+1 .. pos+n_emit);
+            # the rest go to a spill column that is dropped
+            slot_i = torch.where(ar < n_emit[:, None], (positions[:, None] + 1 + ar) % Hc,
+                                 torch.full_like(ar, Hc))
+            spill = torch.cat([hist, hist.new_zeros((B, 1))], dim=1)
+            spill.scatter_(1, slot_i.long(), out_toks.to(hist.dtype))
+            hist = spill[:, :Hc]
+            positions = positions + n_emit
+            seq_lens = seq_lens + n_emit
+            toks_s.append(out_toks)
+            n_emit_s.append(n_emit)
+        self._carry = (tokens, positions, seq_lens)
+        self._hist_dev = hist
+        return self._result(torch.stack(toks_s), torch.stack(n_emit_s))
 
     # -- prefill ----------------------------------------------------------- #
 
@@ -1606,11 +1862,14 @@ class TorchEngine:
         self._last_prefill_shape = (
             B_pf * bucket, sum(ch for _, ch, _ in meta)
         )
+        # guided lanes constrain the first generated token as decode steps
+        # are constrained; the other lanes' all-ones rows are exact no-ops
+        mask = self._pack_masks([(lane, s) for s, _, lane in meta], B_pf)
         first_dev = await self._run_on_device(
             partial(
                 self._dev_prefill,
                 toks, positions, tables, ctx_lens, last_idx, temps,
-                top_ks, top_ps, seeds, pens, pen_rows,
+                top_ks, top_ps, seeds, pens, pen_rows, mask,
             ),
             tag="prefill", shape=(bucket, B_pf),
         )
@@ -1695,6 +1954,32 @@ class TorchEngine:
                           pos_d[last:last + 1], raw=row)
         return self._result(*first)
 
+    def _pack_masks(self, rows: List[tuple], n_rows: int) -> Optional[np.ndarray]:
+        """[n_rows, V/8] bitpacked admissibility rows for (row, slot) pairs:
+        a guided slot's FSM row, all ones elsewhere. None when no slot is
+        guided (the dispatch then carries no mask)."""
+        guided = [(r, s) for r, s in rows if s.guided_fsm is not None]
+        if not guided:
+            return None
+        V = self.model_config.vocab_size
+        packed = np.full((n_rows, (V + 7) // 8), 0xFF, np.uint8)
+        for r, s in guided:
+            packed[r] = np.packbits(self._guided_lane_mask(s.guided_fsm, s.guided_state))
+        return packed
+
+    def _fill_hist(self, idx: int, slot: _Slot):
+        """Load the lane's n-gram history ring (host mirror): the last
+        spec_hist tokens of the prompt so far plus the current token; the
+        reset or patch that follows the lane's dirtying uploads it."""
+        if self.hist is None:
+            return
+        Hc = self.config.spec_hist
+        toks = np.asarray(list(slot.kv_prompt) + [int(self.tokens[idx])], np.int32)
+        row = self.hist[idx]
+        row[:] = 0
+        ps = np.arange(max(0, len(toks) - Hc), len(toks))
+        row[ps % Hc] = toks[ps]
+
     def _fill_recent(self, idx: int, slot: _Slot):
         """Load the lane's penalty window from the tokens so far (prompt +
         generated); ring-indexed by absolute position so device-side
@@ -1735,9 +2020,11 @@ class TorchEngine:
             slot.last_token = first
             self.tokens[slot.slot_idx] = first
             self.seq_lens[slot.slot_idx] = len(slot.kv_prompt) + 1
+            self._fill_hist(slot.slot_idx, slot)
             self._fill_recent(slot.slot_idx, slot)
             self._mark_lane_dirty(slot.slot_idx)
             return
+        self._advance_guided(slot, first)
         self._emit_token(slot, first, first_lp, first_top)
         if not slot.done:
             slot.last_token = first
@@ -1745,6 +2032,7 @@ class TorchEngine:
             slot.seq.append(first)
             self.tokens[slot.slot_idx] = first
             self.seq_lens[slot.slot_idx] = len(slot.kv_prompt) + 1
+            self._fill_hist(slot.slot_idx, slot)
             self._fill_recent(slot.slot_idx, slot)
             self._mark_lane_dirty(slot.slot_idx)
             self._maybe_finish(slot, first)
@@ -2125,8 +2413,10 @@ class TorchEngine:
         slot.generated = 1
         slot.last_token = first_token
         slot.seq.append(first_token)
+        self._advance_guided(slot, first_token)
         self.tokens[slot.slot_idx] = first_token
         self.seq_lens[slot.slot_idx] = len(slot.prompt) + 1
+        self._fill_hist(slot.slot_idx, slot)
         self._fill_recent(slot.slot_idx, slot)
         self._mark_lane_dirty(slot.slot_idx)
         self._maybe_finish(slot, first_token)
@@ -2219,6 +2509,7 @@ class TorchEngine:
             slot.generated = 1
             slot.last_token = first_token
             slot.seq.append(first_token)
+            self._advance_guided(slot, first_token)
             slot.resume_token = first_token
             slot.prefill_pos = 0
             self._wake.set()
@@ -2329,10 +2620,14 @@ class TorchEngine:
         ctx = seq_len - 1 — and run ONE forward instead of a prefill
         dispatch followed by a decode dispatch. Every decode lane advances
         one token; completed prompts sample their first token; both ride
-        the same fetched [R] result. Returns False (split path runs)
-        whenever the fused step is inapplicable: mixed disabled, decode
-        blocks in flight (their device carry owns lane state — the mixed
-        step needs host-authoritative lanes), or the planner declines.
+        the same fetched [R] result. Guided rows carry a packed FSM mask,
+        and under spec each spec-eligible (unguided) lane packs 1+d
+        one-token verify rows — its current token and d host n-gram drafts,
+        row j at position L-1+j with ctx L-1+j — accepted at the fetch.
+        Returns False (split path runs) whenever the fused step is
+        inapplicable: mixed disabled, decode blocks in flight (their device
+        carry owns lane state — the mixed step needs host-authoritative
+        lanes), or the planner declines.
 
         Shapes stay bounded: flat tokens pow2-bucketed to
         config.mixed_max_tokens, ONE fixed row bucket, tables
@@ -2345,12 +2640,17 @@ class TorchEngine:
         active = self._active_decode_indices()
         if not active:
             return False
+        d = cfg.spec_draft_len if cfg.spec_mode else 0
+        n_spec_rows = sum(
+            d for i in active if self.slots[i].guided_fsm is None
+        ) if d else 0
         cands = self._prefill_candidates()
         if not cands:
             return False
         cands = self.scheduler.order(cands)
         align = self._mixed_align
-        plan = self.scheduler.plan_mixed(cands, n_decode=len(active), align=align)
+        plan = self.scheduler.plan_mixed(cands, n_decode=len(active), align=align,
+                                         n_spec_rows=n_spec_rows)
         if plan is None:
             return False  # nothing fuses (e.g. decode lanes fill the
             # budget) — split path runs at full rate, no hold
@@ -2363,9 +2663,10 @@ class TorchEngine:
             for s in cands:
                 s.sched_skips += 1
             return False
-        # one decode step of page headroom; growth can preempt — re-filter
+        # one decode step of page headroom (1 + d under spec: draft rows
+        # write KV at speculative positions); growth can preempt — re-filter
         # both the decode set and the chosen prefill slots
-        active = self._grow_pages_for_block(active, steps=1)
+        active = self._grow_pages_for_block(active, steps=1 + d)
         if not active:
             return False
         chosen = [
@@ -2385,7 +2686,9 @@ class TorchEngine:
             return -(-n // align) * align
 
         cap = cfg.mixed_max_tokens - cfg.mixed_max_tokens % align
-        n_rows_decode = len(active)
+        # against the SURVIVING active set (growth can preempt lanes)
+        spec_lanes = {i for i in active if d and self.slots[i].guided_fsm is None}
+        n_rows_decode = len(active) + d * len(spec_lanes)
         total = sum(aligned(ch) for _, ch in chosen) \
             + aligned(1) * n_rows_decode
         N_pad = min(_next_pow2(max(total, align)), cap)
@@ -2395,7 +2698,8 @@ class TorchEngine:
             pages = (s.prefill_pos + ch + cfg.page_size - 1) // cfg.page_size
             max_pages_needed = max(max_pages_needed, pages)
         for i in active:
-            pages = (int(self.seq_lens[i]) - 1) // cfg.page_size + 1
+            extra = d if i in spec_lanes else 0
+            pages = (int(self.seq_lens[i]) - 1 + extra) // cfg.page_size + 1
             max_pages_needed = max(max_pages_needed, pages)
         ctx_pages = min(_next_pow2(max_pages_needed), cfg.max_pages_per_seq)
         P = ctx_pages + 1
@@ -2421,6 +2725,8 @@ class TorchEngine:
         row = 0
         meta = []  # prefill rows: (slot, chunk, row)
         decode_rows = []  # (row, lane_idx, slot)
+        spec_rows = []  # (first_row, lane_idx, slot, draft): 1+d rows each
+        mask_rows = []  # (row, slot) of every row a guided mask may cover
         for s, chunk in chosen:
             start = s.prefill_pos
             row_starts[row] = off
@@ -2438,7 +2744,11 @@ class TorchEngine:
             pens[row] = (s.presence_penalty, s.frequency_penalty,
                          s.repetition_penalty)
             pen_rows[row] = self.recent[s.slot_idx]
-            self.mixed_rows_plain += 1
+            mask_rows.append((row, s))
+            if s.guided_fsm is not None:
+                self.mixed_rows_guided += 1
+            else:
+                self.mixed_rows_plain += 1
             s.sched_skips = 0
             meta.append((s, chunk, row))
             off += aligned(chunk)
@@ -2446,37 +2756,54 @@ class TorchEngine:
         for i in active:
             s = self.slots[i]
             L = int(self.seq_lens[i])
-            # one token at position L-1 with ctx L-1: it attends the lane's
-            # committed KV plus its own (written before attention each layer)
-            row_starts[row] = off
-            row_lens[row] = 1
-            ctx_lens[row] = L - 1
-            toks[off] = int(self.tokens[i])
-            positions[off] = L - 1
-            row_ids[off : off + aligned(1)] = row
-            tables[row, :ctx_pages] = self.page_tables[i][:ctx_pages]
-            last_flat[row] = off
-            temps[row] = self.temps[i]
-            top_ks[row] = self.top_ks[i]
-            top_ps[row] = self.top_ps[i]
-            seeds[row] = self.seeds[i]
-            pens[row] = (self.presence[i], self.frequency[i], self.repetition[i])
-            # the device pen ring (decode carry) is not host-visible;
-            # rebuild this lane's window from the authoritative token
-            # sequence (ring-indexed by absolute position, so the patch
-            # after the fetch stays consistent with it)
-            self._fill_recent(i, s)
-            pen_rows[row] = self.recent[i]
-            decode_rows.append((row, i, s))
-            self.mixed_rows_plain += 1
-            off += aligned(1)
-            row += 1
+            spec_lane = i in spec_lanes
+            draft = self._host_ngram_draft(s, d) if spec_lane else []
+            first_row = row
+            for j, tk in enumerate([int(self.tokens[i])] + draft):
+                # row j: one token at position L-1+j with ctx L-1+j. It
+                # attends the lane's committed KV plus rows 0..j-1 of this
+                # pack (their KV is written before attention each layer), so
+                # its sample is the plain seeded decode draw at that position
+                row_starts[row] = off
+                row_lens[row] = 1
+                ctx_lens[row] = L - 1 + j
+                toks[off] = tk
+                positions[off] = L - 1 + j
+                row_ids[off : off + aligned(1)] = row
+                tables[row, :ctx_pages] = self.page_tables[i][:ctx_pages]
+                last_flat[row] = off
+                temps[row] = self.temps[i]
+                top_ks[row] = self.top_ks[i]
+                top_ps[row] = self.top_ps[i]
+                seeds[row] = self.seeds[i]
+                if not spec_lane:
+                    # (spec rows keep the defaults: penalties are refused
+                    # under spec at admission)
+                    pens[row] = (self.presence[i], self.frequency[i], self.repetition[i])
+                    # the device pen ring (decode carry) is not host-visible;
+                    # rebuild this lane's window from the authoritative token
+                    # sequence (ring-indexed by absolute position, so the
+                    # patch after the fetch stays consistent with it)
+                    self._fill_recent(i, s)
+                    pen_rows[row] = self.recent[i]
+                    mask_rows.append((row, s))
+                off += aligned(1)
+                row += 1
+            if spec_lane:
+                spec_rows.append((first_row, i, s, draft))
+                self.mixed_rows_spec += 1 + d
+            else:
+                decode_rows.append((first_row, i, s))
+                if s.guided_fsm is not None:
+                    self.mixed_rows_guided += 1
+                else:
+                    self.mixed_rows_plain += 1
 
         first_dev = await self._run_on_device(
             partial(
                 self._dev_mixed, toks, positions, row_ids, tables,
                 row_starts, row_lens, ctx_lens, last_flat, temps, top_ks,
-                top_ps, seeds, pens, pen_rows,
+                top_ps, seeds, pens, pen_rows, self._pack_masks(mask_rows, R_pad),
             ),
             tag="mixed", shape=(N_pad, row),
         )
@@ -2489,16 +2816,34 @@ class TorchEngine:
                 completions.append((s, row_i))
         for row_i, i, s in decode_rows:
             self.seq_lens[i] += 1
+        # spec lanes are NOT advanced here: acceptance is data-dependent,
+        # resolved from the fetched rows this same step.
         # rides the prefill-pending fetch (drained THIS step, so no decode
         # block can dispatch against the stale device carry in between)
         self._pending_prefill.append({
             "first": first_dev, "done": completions,
-            "progressed": progressed, "decode": decode_rows,
+            "progressed": progressed, "decode": decode_rows, "spec": spec_rows,
         })
         self.mixed_steps += 1
         self.mixed_padded_tokens += N_pad
         self.mixed_real_tokens += sum(ch for _, ch, _ in meta) + n_rows_decode
         return True
+
+    def _host_ngram_draft(self, slot: _Slot, d: int) -> List[int]:
+        """Host n-gram draft for fused verify rows: `ngram_draft` over the
+        authoritative host token sequence. The most recent match wins; the
+        draft is padded with the last token. Drafts steer only the
+        acceptance rate: every emitted token is a verified sample."""
+        seq = slot.seq.tokens
+        n = self.config.spec_ngram
+        if n <= 0 or len(seq) < n:
+            return [int(seq[-1])] * d
+        gram = list(seq[len(seq) - n:])
+        for start in range(len(seq) - n - 1, -1, -1):
+            if list(seq[start:start + n]) == gram:
+                follow = [int(t) for t in seq[start + n:start + n + d]]
+                return follow + [int(seq[-1])] * (d - len(follow))
+        return [int(seq[-1])] * d
 
     def _lane_upload(self, active: List[int]):
         """Host arrays for a carry reset/patch: lanes that are not
@@ -2516,10 +2861,12 @@ class TorchEngine:
             mask[:, None], self.page_tables, SCRATCH_PAGE
         ).astype(np.int32)
         pens = np.stack([self.presence, self.frequency, self.repetition], axis=1)
+        hist = (np.where(mask[:, None], self.hist, 0).astype(np.int32)
+                if self.hist is not None else None)
         return (
             tokens, positions, seq_lens, tables, self.temps.copy(),
             self.top_ks.copy(), self.top_ps.copy(), self.seeds.copy(), pens,
-            self.recent.copy(),
+            self.recent.copy(), hist,
         )
 
     async def _dispatch_decode(self) -> bool:
@@ -2528,8 +2875,16 @@ class TorchEngine:
         # only ONE speculative block in flight — a new arrival's prefill
         # queues behind every in-flight block on the device stream, so
         # depth-2 doubles its queueing delay (TTFT) to buy decode overlap
-        # it regains once the queue drains
-        depth = 1 if self._prefill_work_pending() else 2
+        # it regains once the queue drains. A spec block advances lanes by
+        # a DATA-DEPENDENT amount, and a guided lane's next mask depends on
+        # the token just emitted: both need each block fetched and
+        # processed before the next dispatches (depth 1).
+        has_guided = any(
+            s is not None and s.guided_fsm is not None
+            and s.prefill_pos >= len(s.kv_prompt) and s.generated > 0
+            for s in self.slots
+        )
+        depth = 1 if (cfg.spec_mode or has_guided or self._prefill_work_pending()) else 2
         if len(self._inflight) >= depth:
             return False
         if not self._carry_valid and self._inflight:
@@ -2582,17 +2937,43 @@ class TorchEngine:
             self.presence[i] == 0.0 and self.frequency[i] == 0.0
             and self.repetition[i] == 1.0 for i in active
         )
-        toks_dev = await self._run_on_device(
-            partial(self._dev_block, all_greedy, no_penalties),
-            tag="block", shape=(K, B),
-        )
-        adv = cfg.block_advance
+        guided = [(i, self.slots[i]) for i in active if self.slots[i].guided_fsm is not None]
+        kind = "block"
+        if guided:
+            # one masked step: guided rows from each lane's FSM state,
+            # all-ones rows for the rest, bitpacked [B, V/8]
+            toks_dev = await self._run_on_device(
+                partial(self._dev_block_guided, self._pack_masks(guided, B),
+                        all_greedy, no_penalties),
+                tag="block_guided", shape=(1, B),
+            )
+            adv = 1
+        elif cfg.spec_mode:
+            self._spec_key, sub = key_split(self._spec_key)
+            toks_dev = await self._run_on_device(
+                partial(self._dev_spec_block, key_split(sub, cfg.spec_rounds)),
+                tag="block", shape=(K, B),  # the scheduler prices it as a block
+            )
+            adv = cfg.block_advance
+            kind = "spec"
+        else:
+            toks_dev = await self._run_on_device(
+                partial(self._dev_block, all_greedy, no_penalties),
+                tag="block", shape=(K, B),
+            )
+            adv = cfg.block_advance
         self._last_decode_shape = (B * adv, len(active) * adv)
-        self._inflight.append({
-            "lanes": [(i, self.slots[i]) for i in active], "toks": toks_dev,
-        })
-        # advance host bookkeeping by the block's advance for the NEXT
-        # block's page growth
+        entry = {
+            "lanes": [(i, self.slots[i]) for i in active], "toks": toks_dev, "kind": kind,
+        }
+        if kind == "spec":
+            # the fetch corrects the worst-case advance below to the
+            # device-true one from these
+            entry["seq_before"] = {i: int(self.seq_lens[i]) for i in active}
+        self._inflight.append(entry)
+        # advance host bookkeeping by the block's (max) advance for the
+        # NEXT block's page growth; exact for plain decode, corrected at
+        # the fetch under spec
         for i in active:
             self.seq_lens[i] += adv
         return True
@@ -2646,6 +3027,13 @@ class TorchEngine:
                 slot.generated += 1
                 slot.last_token = tok
                 self.tokens[i] = tok
+                # host-authoritative each step: the next dispatch packs the
+                # advanced FSM's mask
+                self._advance_guided(slot, tok)
+                if self.hist is not None:
+                    # keep the n-gram ring coherent for lanes that advanced
+                    # outside the spec program; the patch re-uploads it
+                    self.hist[i, (len(slot.seq.tokens) - 1) % self.config.spec_hist] = tok
                 lp = float(first_lps[row])
                 top = self._top_entry(slot, first_tids[row], first_tlps[row])
                 self._emit_tokens(
@@ -2661,11 +3049,116 @@ class TorchEngine:
                     self._fill_recent(i, slot)
                     self._mark_lane_dirty(i)
                     self._maybe_commit_incremental(slot)
+            for first_row, i, slot_ref, draft in p.get("spec", []):
+                self._accept_spec_rows(first_row, i, slot_ref, draft, first_toks)
 
         if want_block is not None:
             self._inflight.popleft()
-            self._process_block(want_block["lanes"], *toks_np)
+            if want_block["kind"] == "spec":
+                self._process_spec_block(want_block["lanes"], *toks_np,
+                                         want_block["seq_before"])
+            else:
+                self._process_block(want_block["lanes"], *toks_np)
         return True
+
+    def _accept_spec_rows(self, first_row: int, i: int, slot_ref: _Slot,
+                          draft: List[int], first_toks: np.ndarray):
+        """Fused verify rows of lane i: rows first_row..first_row+d hold
+        the plain seeded draw at positions L-1..L-1+d, so accepting the
+        longest draft prefix that matches them and emitting n_acc+1 tokens
+        is byte-identical to plain decode."""
+        slot = self.slots[i]
+        if slot is None or slot is not slot_ref:
+            return
+        if slot.done or slot.context.is_stopped():
+            self._emit_finish(slot, "cancelled")
+            self._release_slot(slot)
+            return
+        d_n = len(draft)
+        out = [int(first_toks[first_row + j]) for j in range(1 + d_n)]
+        n_acc = 0
+        while n_acc < d_n and out[n_acc] == draft[n_acc]:
+            n_acc += 1
+        self.spec_num_drafts += 1
+        self.spec_num_draft_tokens += d_n
+        self.spec_num_accepted_tokens += n_acc
+        L = int(self.seq_lens[i])
+        Hc = self.config.spec_hist
+        batch: List[int] = []
+        finish = None
+        for m, tok in enumerate(out[: n_acc + 1]):
+            slot.seq.append(tok)
+            slot.generated += 1
+            slot.last_token = tok
+            self.hist[i, (L + m) % Hc] = tok
+            batch.append(tok)
+            finish = self._finish_reason(slot, tok)
+            if finish:
+                break
+        # seq_lens was not advanced at dispatch: commit the true advance.
+        # Rejected rows' KV lies past it and is overwritten before any read.
+        self.seq_lens[i] = L + len(batch)
+        self.tokens[i] = batch[-1]
+        self._emit_tokens(slot, batch, [], [])
+        if finish:
+            self._emit_finish(slot, finish)
+            self._release_slot(slot)
+        else:
+            self._fill_recent(i, slot)
+            self._mark_lane_dirty(i)
+            self._maybe_commit_incremental(slot)
+
+    def _process_spec_block(self, lanes: List[tuple], toks: np.ndarray,
+                            n_emit: np.ndarray, seq_before: dict):
+        """Emit a fetched spec block: toks [S, B, 1+d], n_emit [S, B]. Each
+        round gives a lane its first n_emit tokens; the host seq_lens and
+        token mirrors take the device-true values (the dispatch advanced
+        them by the worst case)."""
+        S, _, T = toks.shape
+        Hc = self.config.spec_hist
+        for i, slot_ref in lanes:
+            slot = self.slots[i]
+            if slot is None or slot is not slot_ref:
+                continue
+            true_adv = int(n_emit[:, i].sum())
+            self.seq_lens[i] = seq_before[i] + true_adv
+            self.tokens[i] = int(toks[S - 1, i, int(n_emit[S - 1, i]) - 1])
+            self.spec_num_drafts += S
+            self.spec_num_draft_tokens += S * (T - 1)
+            self.spec_num_accepted_tokens += true_adv - S
+            if slot.done or slot.context.is_stopped():
+                self._emit_finish(slot, "cancelled")
+                self._release_slot(slot)
+                continue
+            # a round's current token sits at position pos (the carry was
+            # uploaded with positions = seq_lens - 1): its emitted token t
+            # lands at pos + 1 + t, as in the device ring
+            pos = seq_before[i] - 1
+            # all rounds flow into one delta batch; a stop mid-round
+            # truncates host-side before anything reaches the client
+            batch: List[int] = []
+            finish = None
+            for r in range(S):
+                k = int(n_emit[r, i])
+                for t in range(k):
+                    tok = int(toks[r, i, t])
+                    slot.seq.append(tok)
+                    slot.generated += 1
+                    slot.last_token = tok
+                    self.hist[i, (pos + 1 + t) % Hc] = tok
+                    batch.append(tok)
+                    finish = self._finish_reason(slot, tok)
+                    if finish:
+                        break
+                pos += k
+                if finish:
+                    break
+            self._emit_tokens(slot, batch, [], [])
+            if finish:
+                self._emit_finish(slot, finish)
+                self._release_slot(slot)
+            else:
+                self._maybe_commit_incremental(slot)
 
     def _process_block(self, lanes: List[tuple], toks: np.ndarray,
                        lps: np.ndarray, tids: np.ndarray,
@@ -2697,6 +3190,10 @@ class TorchEngine:
                 slot.generated += 1
                 slot.last_token = tok
                 self.tokens[i] = tok
+                self._advance_guided(slot, tok)
+                if self.hist is not None:
+                    # a spec engine's guided step: keep the ring coherent
+                    self.hist[i, (len(slot.seq.tokens) - 1) % self.config.spec_hist] = tok
                 batch.append(tok)
                 if slot.want_logprobs:
                     batch_lps.append(float(lps[k, i]))

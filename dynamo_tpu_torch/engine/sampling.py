@@ -12,12 +12,14 @@ preemption/resume. The counter function is JAX's threefry2x32 in the
 layout of `jax.random.fold_in` / `jax.random.uniform` (with
 `jax_threefry_partitionable` on, the default of current JAX), written as
 integer tensor ops, so both engines draw the same uniforms bit for bit.
-The guided-decoding `mask=` operand of the reference is not ported yet.
+`split` and `uniform` give the same layout for raw key words (the
+speculative verify's draws), and `mask=` removes the tokens a guided
+request's FSM forbids before the candidate set is taken.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,6 +94,40 @@ def fold_in(key: Tuple, data) -> Tuple[torch.Tensor, torch.Tensor]:
     return threefry2x32(key[0], key[1], 0, data)
 
 
+def split(key: Tuple[int, int], n: int = 2) -> List[Tuple[int, int]]:
+    """`jax.random.split(key, n)` on raw key words (python ints): key i is
+    the threefry hash of the counter pair (0, i) under `key`."""
+    return [tuple(int(w) for w in threefry2x32(key[0], key[1], 0, i)) for i in range(n)]
+
+
+def _bits_to_uniform(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """32 random bits -> f32 uniforms in [minval, maxval), rounded as
+    `jax.random.uniform` rounds them."""
+    # mantissa bits under exponent 0 -> [1, 2), minus 1 -> [0, 1)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    # XLA contracts the scale-and-shift into ONE fused multiply-add (a
+    # single rounding). float64 holds the f32 product exactly, so rounding
+    # its sum to f32 reproduces that result.
+    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
+
+
+def uniform(key: Tuple[int, int], shape, minval: float = 0.0, maxval: float = 1.0,
+            device="cpu") -> torch.Tensor:
+    """`jax.random.uniform(key, shape, minval=, maxval=)` (f32) for raw key
+    words, bit for bit: element e of the row-major flattening hashes the
+    counter pair (0, e)."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    counts = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
+    b0, b1 = threefry2x32(int(key[0]), int(key[1]), 0, counts)
+    return _bits_to_uniform(b0 ^ b1, minval, maxval)
+
+
 def lane_uniforms(seeds: torch.Tensor, positions: torch.Tensor, k: int,
                   minval: float = 1e-7, maxval: float = 1.0 - 1e-7) -> torch.Tensor:
     """[B, k] f32 uniforms; row b equals
@@ -103,17 +139,24 @@ def lane_uniforms(seeds: torch.Tensor, positions: torch.Tensor, k: int,
     key = fold_in(fold_in((zero, zero + 7), s), p)  # PRNGKey(7) = (0, 7)
     counts = torch.arange(k, dtype=torch.int64, device=s.device)[None, :]
     b0, b1 = threefry2x32(key[0][:, None], key[1][:, None], 0, counts)
-    bits = b0 ^ b1  # 32 random bits per element
-    # mantissa bits under exponent 0 -> [1, 2), minus 1 -> [0, 1)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=s.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=s.device)
-    # XLA contracts the scale-and-shift into ONE fused multiply-add (a
-    # single rounding). float64 holds the f32 product exactly, so rounding
-    # its sum to f32 reproduces that result.
-    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, scaled)
+    return _bits_to_uniform(b0 ^ b1, minval, maxval)
+
+
+def unpack_mask(packed: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, ceil(V/8)] uint8 in `np.packbits`' big-endian bit order -> [B, V]
+    bool. Guided masks travel host -> device bitpacked (8x fewer bytes than
+    a bool mask) and unpack here with two elementwise ops."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :vocab].bool()
+
+
+def _masked(logits: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Inadmissible logits become -1e30 BEFORE the candidate set is taken,
+    so the top-K set is drawn from the admissible tokens only."""
+    if mask is None:
+        return logits
+    return torch.where(mask, logits, torch.full_like(logits, -1e30))
 
 
 # ---------------------------------------------------------------------- #
@@ -175,10 +218,11 @@ def sample(
     logits: torch.Tensor,  # [B, V] f32
     params: SamplingParams,
     positions: torch.Tensor,  # [B] i32: per-lane draw counter
+    mask: Optional[torch.Tensor] = None,  # [B, V] bool: admissible tokens (guided)
 ) -> torch.Tensor:
     """Returns sampled token ids [B] (int64). The draw of lane b is
     counter-based on (params.seed[b], positions[b])."""
-    return _draw(*_candidates(logits), params, positions)
+    return _draw(*_candidates(_masked(logits, mask)), params, positions)
 
 
 def sample_lp(
@@ -186,20 +230,20 @@ def sample_lp(
     params: SamplingParams,
     positions: torch.Tensor,
     raw: Optional[torch.Tensor] = None,  # pre-penalty logits for REPORTED logprobs
+    mask: Optional[torch.Tensor] = None,  # [B, V] bool: admissible tokens (guided)
 ) -> tuple:
-    """sample() + RAW-model logprobs (log-softmax of the unscaled logits —
-    the OpenAI `logprobs` surface).
+    """sample() + RAW-model logprobs (log-softmax of the unscaled, unmasked
+    logits — the OpenAI `logprobs` surface; under a guided mask it reports
+    how likely the forced token was).
 
     Returns (tokens [B] i64, logprobs [B] f32, top_ids [B, 5] i64,
     top_lps [B, 5] f32); the host slices the alternatives to the asked k.
     The alternatives come from the RAW logits' candidate set; the only
     full-vocab extra is one logsumexp pass for normalization."""
-    cands = _candidates(logits)
+    cands = _candidates(_masked(logits, mask))
     tokens = _draw(*cands, params, positions)
-    if raw is None or raw is logits:
-        raw, raw_cands = logits, cands
-    else:
-        raw_cands = _candidates(raw)
+    raw = logits if raw is None else raw
+    raw_cands = cands if (mask is None and raw is logits) else _candidates(raw)
     raw = raw.float()
     logz = torch.logsumexp(raw, dim=-1)
     chosen = torch.gather(raw, 1, tokens[:, None])[:, 0]

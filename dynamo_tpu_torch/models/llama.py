@@ -214,10 +214,12 @@ def prefill_forward_batched(
     context_lens: torch.Tensor,  # [B] history length per seq
     last_idx: torch.Tensor,  # [B] index of last REAL token per chunk
     plain_attention: bool = False,  # tests: force the plain attention version
+    all_logits: bool = False,  # True: [B, T, vocab] (the speculative verify)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched chunked prefill: one call processes chunks of SEVERAL
     sequences. Returns (logits_last [B, vocab] f32, kv_k, kv_v) with the
-    chunks' KV written into the pages."""
+    chunks' KV written into the pages — or every position's logits
+    [B, T, vocab] under `all_logits` (engine/spec.py's verify pass)."""
     c = config
     B, T = tokens.shape
     x = embed_rows(params["embed"], tokens, c.dtype)  # [B, T, H]
@@ -242,6 +244,8 @@ def prefill_forward_batched(
         x = _mlp(layer, x, c)
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
+    if all_logits:
+        return qdot(x, head_leaf(params), out_dtype=torch.float32), kv_k, kv_v
     last = x[torch.arange(B, device=x.device), last_idx.long()]  # [B, hidden]
     logits = qdot(last, head_leaf(params), out_dtype=torch.float32)
     return logits, kv_k, kv_v

@@ -77,7 +77,15 @@ METRICS = {
     "mixed_padding_frac": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Padding fraction paid by the mixed path.", "export": True},
     "split_padding_frac": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Padding fraction paid by the split path.", "export": True},
     "mixed_rows_plain": {"kind": "counter", "layer": "engine", "unit": "rows", "help": "Plain prefill/decode rows packed into fused mixed steps.", "export": True},
+    "mixed_rows_guided": {"kind": "counter", "layer": "engine", "unit": "rows", "help": "Guided (FSM-masked) rows packed into fused mixed steps.", "export": True},
+    "mixed_rows_spec": {"kind": "counter", "layer": "engine", "unit": "rows", "help": "Speculative verify rows packed into fused mixed steps.", "export": True},
     "mixed_coverage_frac": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Fused steps / (fused + split) dispatch steps (1.0 before any step).", "export": True},
+    # guided and speculative decoding (llm/guided.py, engine/spec.py)
+    "guided_requests": {"kind": "counter", "layer": "engine", "help": "Requests decoded under a guided-decoding FSM.", "export": True},
+    "spec_num_drafts": {"kind": "counter", "layer": "engine", "help": "Speculative draft batches proposed.", "export": True},
+    "spec_num_draft_tokens": {"kind": "counter", "layer": "engine", "unit": "tokens", "help": "Speculative tokens proposed by the draft model.", "export": True},
+    "spec_num_accepted_tokens": {"kind": "counter", "layer": "engine", "unit": "tokens", "help": "Speculative tokens accepted by verification.", "export": True},
+    "spec_mean_accepted_len": {"kind": "gauge", "layer": "engine", "unit": "tokens", "help": "Mean accepted length per draft (incl. bonus token).", "export": True},
     "sched_ttft_target_ms": {"kind": "gauge", "layer": "sched", "unit": "ms", "help": "Configured TTFT SLA target.", "export": True},
     "sched_itl_target_ms": {"kind": "gauge", "layer": "sched", "unit": "ms", "help": "Configured ITL SLA target.", "export": True},
     "sched_granted_chunks": {"kind": "counter", "layer": "sched", "help": "Prefill chunks granted by the budgeter.", "export": True},

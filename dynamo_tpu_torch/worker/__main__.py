@@ -43,8 +43,15 @@ re-warms, and the lanes go `ready`. A failed morph restores the old lanes;
 `DYN_MORPH_DRAIN_TIMEOUT_S` (default 10) bounds the wait for the severed
 streams. An aggregated worker answers with a typed error.
 
+Speculative decoding: `--spec ngram` drafts `--spec-draft-len` tokens a
+round from the most recent `--spec-ngram`-gram of each stream and verifies
+them in one pass, `--spec-rounds` rounds a decode block (engine/spec.py);
+penalties and logprobs are then refused. Guided requests (`response_format`
+json_object / json_schema, nvext `guided_choice` / `guided_regex` /
+`guided_json`) are served against the tokenizer the model card advertises.
+
 Flags keep the reference's names. Those whose feature the port lacks
-(parallelism, multi-host, speculative decoding, LoRA) raise
+(parallelism, multi-host, LoRA) raise
 `UnsupportedConfigError` when set. `--device` (default `cuda`) picks the card; with no CUDA device
 the worker raises instead of running on the CPU, unless `--device cpu`
 asks for it.
@@ -125,7 +132,8 @@ def parse_args(argv=None):
     ap.add_argument("--lora", action="append", default=[], metavar="NAME=PATH",
                     help="LoRA adapter (not ported)")
     ap.add_argument("--spec", choices=["ngram"], default=None,
-                    help="speculative decoding (not ported)")
+                    help="speculative decoding: self-drafting n-gram prompt lookup "
+                    "verified in one pass (engine/spec.py)")
     ap.add_argument("--spec-draft-len", type=int, default=4)
     ap.add_argument("--spec-ngram", type=int, default=2)
     ap.add_argument("--spec-rounds", type=int, default=4)
@@ -172,7 +180,7 @@ def unsupported_flags(args) -> list:
     bad = [f"--{n.replace('_', '-')}" for n in ("tp_size", "ep_size", "pp_size", "sp_size",
                                                "num_hosts") if getattr(args, n) > 1]
     bad += [f"--{n.replace('_', '-')}" for n in (
-        "spec", "lora", "dp_attention", "host_id", "coordinator") if getattr(args, n)]
+        "lora", "dp_attention", "host_id", "coordinator") if getattr(args, n)]
     return bad
 
 
@@ -205,6 +213,10 @@ def build_engine(args) -> TorchEngine:
         decode_pool_mode=args.decode_pool_mode,
         decode_block_unroll=args.decode_block_unroll,
         kv_quant=args.kv_quant,
+        spec_mode=args.spec,
+        spec_draft_len=args.spec_draft_len,
+        spec_ngram=args.spec_ngram,
+        spec_rounds=args.spec_rounds,
         sched_policy=args.sched_policy,
         ttft_target_ms=args.ttft_target_ms,
         itl_target_ms=args.itl_target_ms,

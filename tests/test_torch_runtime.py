@@ -293,7 +293,7 @@ def test_port_client_and_discovery_against_reference_endpoint(binary):
 
 @pytest.mark.parametrize("flags", [
     ["--tp-size", "2"], ["--ep-size", "2"], ["--pp-size", "2"], ["--sp-size", "2"],
-    ["--num-hosts", "2"], ["--spec", "ngram"], ["--lora", "a=random:1"],
+    ["--num-hosts", "2"], ["--lora", "a=random:1"],
     ["--host-id", "1"],
     ["--coordinator", "127.0.0.1:1"], ["--dp-attention"],
 ], ids=lambda f: "_".join(f).lstrip("-"))
@@ -301,6 +301,18 @@ def test_unported_worker_flags_raise(flags):
     args = parse_args(["--device", "cpu", *flags])
     with pytest.raises(UnsupportedConfigError, match=flags[0]):
         run(serve(args))
+
+
+def test_spec_worker_flags_reach_the_engine():
+    """`--spec ngram` is served: the flags become the engine's spec config."""
+    engine = build_engine(parse_args([
+        "--device", "cpu", "--num-pages", "64", "--max-num-seqs", "4", "--spec", "ngram",
+        "--spec-draft-len", "3", "--spec-ngram", "3", "--spec-rounds", "2"]))
+    cfg = engine.config
+    assert (cfg.spec_mode, cfg.spec_draft_len, cfg.spec_ngram, cfg.spec_rounds) == (
+        "ngram", 3, 3, 2)
+    assert cfg.block_advance == 8 and engine.hist.shape == (4, cfg.spec_hist)
+    run(engine.close())
 
 
 def test_worker_device_cuda_raises_without_a_card():
