@@ -51,11 +51,12 @@ The weights phases: `weights_int8` quantizes the weights to int8 on the
 card (`quantize_tree`), holds the int8 products and the 28-layer f32
 forward to the same over the dequantized weights, and serves the worker
 phase's mix on int8 beside bf16 weights in (scatter, bf16 KV; 28 layers)
-and (local, int8 KV; 4 layers), with one decode step profiled on each; `weights_load` writes the
-weights as a BF16 index-sharded safetensors checkpoint, loads it back bit
+and (local, int8 KV; 4 layers), with one decode step profiled on each (8
+layers); `weights_load` writes the weights' first 8 layers as a BF16
+safetensors checkpoint whose config.json says 8 layers, loads it back bit
 for bit (seconds, GB/s, host memory), and `python -m
 dynamo_tpu_torch.worker --model-path <it> --quantize int8` (pool
-auto-sized) must register, stream each request alone as the in-process
+auto-sized, its depth from the config.json) must register, stream each request alone as the in-process
 int8 engine does and drain on SIGTERM; `weights_gguf` writes a 4-layer
 full-width q8_0 .gguf with a vocabulary, loads it with and without int8,
 holds every matrix to numpy's decode of the file and serves two requests
@@ -99,6 +100,21 @@ alone and beside a guided lane. The kernel phase holds the prefill kernel
 at the verify shape and the ragged kernel on the staircase against their
 plain versions in every format and times them (the `@verify` and
 `@staircase` entries of the kernels line).
+The `lora` phase writes a rank-8 and a rank-16 PEFT export, loads them and
+draws a `random:SEED` adapter, and serves 12 requests arriving together (4
+base, 8 over the three adapters; 28 layers, bf16, scatter, mixed on, 4
+device slots) beside the same mix all-base on a plain engine: base
+streams must equal the plain engine's, every LoRA stream must differ from
+its base stream and equal its solo run or part at a near-tie
+(LORA_GAP_ULPS at the solo logits with the adapter), and the prefill,
+ragged and decode kernels must carry the LoRA traffic (tok/s, TTFT, ITL,
+the LoRA block's device ms beside the plain block's, mixed_rows_lora).
+`lora_f32` (4 layers, f32) holds the three LoRA forwards on the card to
+the same on the CPU and needs LoRA streams equal to their solo runs;
+`lora_pool` (one slot, three adapters) drives a hit, a miss with an
+eviction, a refusal under a pinned slot and an injected `lora.onboard`
+error through an engine and holds its counters to the port's pool on the
+CPU. `worker_subprocess` runs its CLI worker with two `--lora` flags.
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -1524,9 +1540,12 @@ async def worker_in_process(seed: int, phase: str, mode: str, kvq: str, layers: 
 
 async def worker_subprocess(seed: int) -> None:
     """`python -m dynamo_tpu_torch.worker --model llama3-3b` as a user runs
-    it (device cuda, pool auto-sized): it must register, answer one request
-    over the wire, and drain on SIGTERM."""
+    it (device cuda, pool auto-sized), with two `--lora` adapters (a rank-8
+    PEFT export written here and a `random:SEED` one): it must register with
+    a card that lists both, answer a request and a `lora_name` request over
+    the wire, and drain on SIGTERM."""
     import os
+    import shutil
     import signal
     import tempfile
     from pathlib import Path
@@ -1544,6 +1563,8 @@ async def worker_subprocess(seed: int) -> None:
     root = Path(__file__).resolve().parent
     log = tempfile.NamedTemporaryFile(prefix="torch_worker_", suffix=".log", delete=False)
     env = dict(os.environ, PYTHONPATH=str(root))
+    peft = write_peft(tempfile.mkdtemp(prefix="smoke_peft_"), llama.LlamaConfig.llama3_2_3b(),
+                      8, 82)
     proc = None
     try:
         cards = await drt.discovery.watch_prefix("v1/mdc/dynamo/backend/generate/")
@@ -1552,7 +1573,8 @@ async def worker_subprocess(seed: int) -> None:
         t0 = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
-             "--num-pages", "0", "--seed", str(seed), "--discovery", disc],
+             "--num-pages", "0", "--seed", str(seed), "--discovery", disc,
+             "--lora", f"sub8={peft}", "--lora", f"rnd=random:{LORA_RANDOM_SEED}"],
             cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT,
         )
         while True:
@@ -1563,14 +1585,21 @@ async def worker_subprocess(seed: int) -> None:
                 raise RuntimeError(f"the worker never registered (rc {proc.poll()}): "
                                    f"{Path(log.name).read_text()[-3000:]}")
         t_reg = time.perf_counter() - t0
+        card_loras = json.loads(ev.value)["lora_adapters"]
+        assert card_loras == ["sub8", "rnd"], card_loras
         stats = codec.unpack(await met_sub.get(timeout=10))["stats"]
         client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
         await client.wait_for_instances(30)
-        req = {"token_ids": list(range(100, 140)), "stop_conditions": {"max_tokens": 16}}
-        items = [it async for it in await PushRouter(client).generate(req)]
-        toks = [t for it in items for t in (it.get("data") or {}).get("token_ids", [])]
-        finish = [it["data"].get("finish_reason") for it in items if it.get("data")][-1]
-        assert len(toks) == 16 and finish == "length", items
+        streams = {}
+        for name in (None, "rnd"):
+            req = {"token_ids": list(range(100, 140)), "stop_conditions": {"max_tokens": 16},
+                   **({"lora_name": name} if name else {})}
+            items = [it async for it in await PushRouter(client).generate(req)]
+            toks = [t for it in items for t in (it.get("data") or {}).get("token_ids", [])]
+            finish = [it["data"].get("finish_reason") for it in items if it.get("data")][-1]
+            assert len(toks) == 16 and finish == "length", items
+            streams[name] = toks
+        assert streams["rnd"] != streams[None], "the worker's adapter did not change the stream"
         t1 = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
         rc = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
@@ -1585,7 +1614,8 @@ async def worker_subprocess(seed: int) -> None:
         emit("worker_subprocess", model="llama-3.2-3b", layers=LAYERS,
              seconds_to_registration=round(t_reg, 2), num_pages=stats["kv_total_blocks"],
              kv_pool_bytes=stats["kv_pool_bytes"], kv_pool_gib=round(stats["kv_pool_bytes"] / 2**30, 2),
-             request_tokens=len(toks), seconds_to_exit_after_sigterm=round(t_drain, 2),
+             request_tokens=len(toks), lora_adapters=card_loras, lora_request_tokens=len(toks),
+             seconds_to_exit_after_sigterm=round(t_drain, 2),
              exit_code=rc, weight_bytes=stats["weight_bytes"],
              smoke_process_gib=round(torch.cuda.memory_reserved() / 2**30, 2))
     finally:
@@ -1594,6 +1624,7 @@ async def worker_subprocess(seed: int) -> None:
             proc.wait()
         log.close()
         os.unlink(log.name)
+        shutil.rmtree(peft, ignore_errors=True)
         await drt.close()
         await server.stop()
 
@@ -2131,6 +2162,10 @@ TOL_INT8_F32_LOGITS_REL = 1e-3
 GGUF_LAYERS = 4  # full width, a cut depth: the .gguf phase
 GGUF_REQUESTS = 2
 LOAD_SHARD_BYTES = 5 * 10**9  # Llama-3.2-3B's published BF16 files: two shards
+# the checkpoint phases' depth: full width, the model's first 8 layers (the
+# checkpoint's config.json says so, and the CLI worker reads it)
+LOAD_LAYERS = 8
+PROFILE_LAYERS = 8  # weights_int8_decode_step: full width, a cut depth
 
 
 def cut_depth(params: dict, layers: int) -> dict:
@@ -2295,8 +2330,10 @@ async def weights_int8(seed: int, params: dict) -> dict:
             greedy_first_token_agreement=f"{sum(first['bf16'][i] == first['int8'][i] for i in greedy)}"
                                          f" of {len(greedy)}",
         )
-    prof = {label: decode_profile.profile(p, cfg) for label, p in (("bf16", params), ("int8", qparams))}
-    emit("weights_int8_decode_step", model="llama-3.2-3b", layers=LAYERS, lanes=64, ctx=512,
+    pcfg = dataclasses.replace(cfg, num_layers=PROFILE_LAYERS)
+    prof = {label: decode_profile.profile(cut_depth(p, PROFILE_LAYERS), pcfg)
+            for label, p in (("bf16", params), ("int8", qparams))}
+    emit("weights_int8_decode_step", model="llama-3.2-3b", layers=PROFILE_LAYERS, lanes=64, ctx=512,
          **{label: {k: v for k, v in pr.items() if k not in ("card", "layers", "lanes", "ctx")}
             for label, pr in prof.items()})
     del qparams
@@ -2349,12 +2386,18 @@ async def weights_load(seed: int, params: dict) -> dict:
     import shutil
     import tempfile
 
-    cfg = llama.LlamaConfig.llama3_2_3b()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=LOAD_LAYERS)
+    params = cut_depth(params, LOAD_LAYERS)
     free = shutil.disk_usage(tempfile.gettempdir()).free
     d = tempfile.mkdtemp(prefix="smoke_ckpt_")
     t0 = time.perf_counter()
     files = loader.save_llama_as_hf(params, cfg, d, dtype=torch.bfloat16,
                                     max_shard_bytes=LOAD_SHARD_BYTES)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", "num_hidden_layers": cfg.num_layers,
+                   "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                   "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+                   "vocab_size": cfg.vocab_size, "tie_word_embeddings": cfg.tie_embeddings}, f)
     for fn in files:  # on disk, out of the page cache: a cold start's read
         fd = os.open(os.path.join(d, fn), os.O_RDONLY)
         os.fsync(fd)
@@ -2398,7 +2441,7 @@ async def weights_load(seed: int, params: dict) -> dict:
     del engine
     torch.cuda.empty_cache()
     weights = param_bytes(params)
-    emit("weights_load", model="llama-3.2-3b", layers=LAYERS, checkpoint_dtype="BF16",
+    emit("weights_load", model="llama-3.2-3b", layers=LOAD_LAYERS, checkpoint_dtype="BF16",
          files=files, checkpoint_bytes=on_disk, disk_free_gb=round(free / 1e9, 1),
          write_s=round(write_s, 3), load_s=round(load_s, 3),
          load_gb_per_s=round(weights / load_s / 1e9, 3), bit_exact_tensors=len(want),
@@ -2488,7 +2531,7 @@ async def weights_load_subprocess(seed: int, load: dict) -> dict:
         await client.close()
         for i, rec in enumerate(recs):
             assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, i
-        emit("weights_load_subprocess", model="llama-3.2-3b", layers=LAYERS, quantize="int8",
+        emit("weights_load_subprocess", model="llama-3.2-3b", layers=LOAD_LAYERS, quantize="int8",
              seconds_to_registration=round(t_reg, 2), worker_load_log=loaded_line[-160:],
              over_the_wire=stream_metrics(recs, wall),
              weight_bytes=after["weight_bytes"], num_pages=after["kv_total_blocks"],
@@ -3534,13 +3577,13 @@ async def staggered(engine, reqs) -> tuple:
 
 
 @torch.no_grad()
-def top2_gap(params: dict, cfg, tokens: list, kvq: str, also=()) -> dict:
+def top2_gap(params: dict, cfg, tokens: list, kvq: str, also=(), lora=None) -> dict:
     """The plain logits after `tokens` (one batched-prefill forward on a
-    fresh pool of format `kvq`): the top two, their gap and the gap in ulps
-    of the compute type at the top logit; for a quantized pool also the
-    largest shift its quantization makes to the logits of the top two and
-    of the tokens `also` (against the same forward over a full-precision
-    pool)."""
+    fresh pool of format `kvq`, with the adapter operand `lora` when given):
+    the top two, their gap and the gap in ulps of the compute type at the
+    top logit; for a quantized pool also the largest shift its quantization
+    makes to the logits of the top two and of the tokens `also` (against
+    the same forward over a full-precision pool)."""
     from dynamo_tpu_torch.engine.kv_cache import alloc_kv_arrays
 
     T, ps = len(tokens), 64
@@ -3549,7 +3592,8 @@ def top2_gap(params: dict, cfg, tokens: list, kvq: str, also=()) -> dict:
                                  dtype=cfg.dtype, device=DEV, kv_quant=kvq)
     args = (i32([tokens]), i32([list(range(T))]))
     tab = (i32([list(range(1, P + 1))]), i32([0]), i32([T - 1]))
-    logits = llama.prefill_forward_batched(params, cfg, *args, kv_k, kv_v, *tab)[0][0].float()
+    logits = llama.prefill_forward_batched(params, cfg, *args, kv_k, kv_v, *tab,
+                                           lora=lora)[0][0].float()
     top = torch.topk(logits, 2)
     a, b = (float(x) for x in top.values)
     ulp = 2.0 ** (np.floor(np.log2(max(abs(a), 1e-30))) - MANTISSA_BITS[cfg.dtype])
@@ -3557,7 +3601,8 @@ def top2_gap(params: dict, cfg, tokens: list, kvq: str, also=()) -> dict:
     if kvq != "none":
         kv_k, kv_v = alloc_kv_arrays(cfg.num_layers, P + 1, ps, cfg.num_kv_heads,
                                      cfg.head_dim, dtype=cfg.dtype, device=DEV)
-        full = llama.prefill_forward_batched(params, cfg, *args, kv_k, kv_v, *tab)[0][0].float()
+        full = llama.prefill_forward_batched(params, cfg, *args, kv_k, kv_v, *tab,
+                                             lora=lora)[0][0].float()
         idx = torch.cat([top.indices, torch.tensor(list(also), dtype=torch.long, device=DEV)])
         shift = float((logits - full).abs()[idx].max())
     lag = [(a - float(logits[t])) / ulp for t in also]
@@ -3727,6 +3772,405 @@ async def spec_guided_all(seed: int, params) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------- #
+# phase: lora (multi-LoRA serving)
+# ---------------------------------------------------------------------- #
+
+LORA_SLOTS = 4  # device adapter slots of the main arm (three adapters resident)
+# 12 requests arriving together: 4 base, 8 spread over the three adapters
+LORA_LENGTHS = [40, 300, 1500, 120, 700, 64, 1100, 500, 220, 900, 80, 1300]
+LORA_OF = [None, "peft8", "peft16", "rnd", None, "peft8", "peft16", "rnd", None, "peft8",
+           "rnd", None]
+LORA_RANDOM_SEED = 7  # the `random:SEED` adapter
+# a LoRA stream beside others against its solo run: where they part, the
+# solo stream's logits (with the adapter) must be a near-tie there, at most
+# this many bf16 ulps at the top logit — the batched and the solo run
+# compute the same rows in GEMMs of other shapes, and bf16 rounds by shape
+LORA_GAP_ULPS = 4
+LORA_SMALL_LAYERS = 4  # the f32 and pool arms: full width, a cut depth
+# the f32 arm's forwards with adapters, card against CPU, per logits row
+# |a - b|_2 / |b|_2: only f32 summation orders differ
+TOL_LORA_F32_REL = 2e-3
+
+
+def write_peft(d: str, cfg, rank: int, seed: int) -> str:
+    """An HF PEFT export (adapter_config.json + adapter_model.safetensors,
+    f32) of a random rank-`rank` adapter over q/k/v/o_proj, alpha = 2r."""
+    import os
+
+    from dynamo_tpu_torch.models import lora as lora_mod
+    from dynamo_tpu_torch.models.safetensors_io import save_file
+
+    gen = torch.Generator().manual_seed(seed)
+    dims = lora_mod.target_dims(cfg)
+    state = {}
+    for li in range(cfg.num_layers):
+        for peft_t, t in lora_mod._PEFT_NAMES.items():
+            din, dout = dims[t]
+            pre = f"base_model.model.model.layers.{li}.self_attn.{peft_t}"
+            state[f"{pre}.lora_A.weight"] = torch.randn((rank, din), generator=gen) * 0.03
+            state[f"{pre}.lora_B.weight"] = torch.randn((dout, rank), generator=gen) * 0.03
+    os.makedirs(d, exist_ok=True)
+    save_file(state, os.path.join(d, "adapter_model.safetensors"))
+    with open(os.path.join(d, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": 2 * rank, "peft_type": "LORA",
+                   "target_modules": list(lora_mod._PEFT_NAMES)}, f)
+    return d
+
+
+def lora_adapters(cfg, root: str) -> list:
+    """The three adapters of the phase: rank-8 and rank-16 PEFT exports
+    written and loaded back, and a `random:SEED` one."""
+    from dynamo_tpu_torch.models import lora as lora_mod
+
+    return [
+        lora_mod.load_peft_adapter(write_peft(f"{root}/peft8", cfg, 8, 81), cfg, name="peft8"),
+        lora_mod.load_peft_adapter(write_peft(f"{root}/peft16", cfg, 16, 161), cfg,
+                                   name="peft16"),
+        lora_mod.init_adapter(cfg, "rnd", torch.Generator().manual_seed(LORA_RANDOM_SEED),
+                              rank=16),
+    ]
+
+
+def cut_adapter(ad, layers: int, dtype):
+    from dynamo_tpu_torch.models import lora as lora_mod
+
+    return lora_mod.LoraAdapter(ad.name, ad.rank, ad.scale,
+                                {t: v[:layers].to(dtype) for t, v in ad.a.items()},
+                                {t: v[:layers].to(dtype) for t, v in ad.b.items()})
+
+
+async def together_records(engine, reqs) -> tuple:
+    """The requests submitted at once: records and wall seconds."""
+    records = [new_record() for _ in reqs]
+    t0 = time.perf_counter()
+    await asyncio.gather(*(run_request(engine, r, rec) for r, rec in zip(reqs, records)))
+    wall = time.perf_counter() - t0
+    for req, rec in zip(reqs, records):
+        assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, \
+            (req["request_id"], rec["finish"], len(rec["tokens"]))
+    return records, wall
+
+
+async def solo_streams(engine, reqs) -> list:
+    async def open_stream(r):
+        return engine.generate(r, Context())
+
+    async def clear():
+        engine.clear_kv_blocks()
+
+    return await alone(open_stream, clear, reqs)
+
+
+def lora_divergences(phase: str, params, cfg, stack, reqs, solo: list, got: list,
+                     bound_ulps: float) -> list:
+    """Each LoRA request whose stream beside others parts from its solo
+    run: the first divergent position and the solo run's top-two gap there
+    (forward with the request's adapter), which must be a near-tie."""
+    out = []
+    for req, a, b in zip(reqs, solo, got):
+        if a == b:
+            continue
+        p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        slot = stack["names"][req["lora_name"]]
+        gap = top2_gap(params, cfg, list(req["token_ids"]) + a[:p], "none", also=(a[p], b[p]),
+                       lora=dict(stack, idx=i32([slot])))
+        rep = {"request": req["request_id"], "lora": req["lora_name"], "position": p,
+               "solo": a[p], "batched": b[p], **gap}
+        out.append(rep)
+        assert gap["gap_ulps"] <= bound_ulps, f"{phase}: a LoRA stream parts at no near-tie: {rep}"
+    return out
+
+
+async def lora_main(seed: int, params, adapters) -> dict:
+    """The mix on a plain engine (all base) and on an engine with the three
+    adapters (4 base, 8 LoRA requests): base streams equal, every LoRA
+    stream changed by its adapter and equal to its solo run or parted at a
+    near-tie; the three kernels carry the LoRA traffic."""
+    cfg = llama.LlamaConfig.llama3_2_3b()
+    reqs, _ = make_requests(seed, cfg.vocab_size, LORA_LENGTHS, shared_idx=(), seeded_idx=(),
+                            tag="lora")
+    lreqs = [dict(r, lora_name=n) if n else r for r, n in zip(reqs, LORA_OF)]
+    lora_idx = [i for i, n in enumerate(LORA_OF) if n]
+    arms = {}
+    for arm in ("base", "lora"):
+        engine = TorchEngine(EngineConfig(model="llama3-3b", seed=seed, lora_pool_slots=LORA_SLOTS),
+                             model_config=cfg, params=params, device="cuda")
+        if arm == "lora":
+            engine.register_adapters(adapters)
+        t0 = time.perf_counter()
+        await engine.warmup()
+        warm_s = time.perf_counter() - t0
+        reset_counts()
+        base = engine.stats()
+        records, wall = await together_records(engine, lreqs if arm == "lora" else reqs)
+        launches, plain, stats = kernel_launches(), dict(pa.plain_calls), engine.stats()
+        res = {**stream_metrics(records, wall), "warmup_s": round(warm_s, 3),
+               "dev_time": dev_time_delta(stats, base),
+               "mixed_steps": stats["mixed_steps"] - base["mixed_steps"],
+               "launches": {f"{n}/{f}": c for (n, f), c in launches.items() if c}}
+        res["streams"] = [r["tokens"] for r in records]
+        if arm == "lora":
+            check_path_launches("lora", launches, plain, "scatter", "none")
+            res["mixed_rows_lora"] = stats["mixed_rows_lora"] - base["mixed_rows_lora"]
+            res["lora_requests"] = stats["lora_requests"] - base["lora_requests"]
+            assert res["mixed_rows_lora"] > 0, "lora: no LoRA row rode a mixed step"
+            assert res["dev_time"].get("block_lora", {}).get("count", 0) > 0, "lora: no LoRA block"
+            assert res["lora_requests"] == len(lora_idx)
+            res["pool"] = {k: v for k, v in stats.items() if k.startswith("lora_pool_")}
+            # the registration's onboards landed on the device thread ahead
+            # of the warmup's dispatches: host ms to stage them, device ms
+            # of their copies
+            landed = base["dev_time"]["lora_onboard"]
+            res["onboard_ms_per_adapter"] = round(
+                base["lora_pool_onboard_ms"] / base["lora_pool_onboard_count"], 3)
+            res["onboard_device_ms"] = round(landed["seconds"] * 1000.0, 3)
+            res["onboard_landings"] = landed["count"]
+            res["solo"] = await solo_streams(engine, [lreqs[i] for i in lora_idx])
+            stack = engine._lora_pool.stack
+            total_launches = launches
+        await engine.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        arms[arm] = res
+    b, lr = arms["base"]["streams"], arms["lora"]["streams"]
+    for i, n in enumerate(LORA_OF):
+        if n is None:
+            assert lr[i] == b[i], f"lora: base request {i} differs from the plain engine's stream"
+        else:
+            assert lr[i] != b[i], f"lora: the adapter {n} did not change request {i}"
+    solo = arms["lora"].pop("solo")
+    batched = [lr[i] for i in lora_idx]
+    div = lora_divergences("lora", params, cfg, stack, [lreqs[i] for i in lora_idx], solo,
+                           batched, LORA_GAP_ULPS)
+    for arm in arms.values():
+        arm.pop("streams")
+    emit("lora", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
+         decode_pool_mode="scatter", kv_quant="none", lora_pool_slots=LORA_SLOTS,
+         adapters={ad.name: {"rank": ad.rank, "scale": ad.scale} for ad in adapters},
+         requests=len(reqs), lora_of=LORA_OF, prompt_tokens=LORA_LENGTHS, max_tokens=MAX_TOKENS,
+         base_streams_equal=LORA_OF.count(None), lora_streams_changed=len(lora_idx),
+         solo_equal=sum(a == b for a, b in zip(solo, batched)), gap_bound_ulps=LORA_GAP_ULPS,
+         divergences=div,
+         block_ms_per_dispatch={
+             "lora": arms["lora"]["dev_time"].get("block_lora", {}).get("ms_per_dispatch"),
+             "plain": arms["base"]["dev_time"].get("block", {}).get("ms_per_dispatch")},
+         arms=arms)
+    return total_launches
+
+
+@torch.no_grad()
+def lora_f32(seed: int, params, adapters) -> None:
+    """At 4 layers in f32: the three LoRA forwards with the adapter stack on
+    the card (kernels) against the same on the CPU (plain attention), and
+    LoRA streams beside others exactly equal to their solo runs."""
+    from dynamo_tpu_torch.models import lora as lora_mod
+
+    L = LORA_SMALL_LAYERS
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=L, dtype=torch.float32)
+    p_dev = {k: None if v is None else (
+        {n: x[:L].float() for n, x in v.items()} if k == "layers" else v.float())
+        for k, v in params.items()}
+    p_cpu = {k: None if v is None else (
+        {n: x.cpu() for n, x in v.items()} if k == "layers" else v.cpu())
+        for k, v in p_dev.items()}
+    ads = [cut_adapter(a, L, torch.float32) for a in adapters]
+    rng = np.random.default_rng(seed + 31)
+    ps, pages = 64, 6
+    toks = rng.integers(5, cfg.vocab_size - 1, size=(2, 32))
+    pos = np.tile(np.arange(32), (2, 1))
+    pos[1, 21:] = 3 * ps - 1  # lane 1's pads: the tables' scratch column
+    tables = [[1, 2, 0], [3, 4, 0]]
+    # ragged: lane 0's next 8 tokens (ctx 33) and lane 1's next token (ctx
+    # 22), padded to 16 flat tokens on a padding row
+    flat = np.zeros(16, np.int64)
+    flat[:8], flat[8] = toks[0, :8], 11
+    rpos = np.full(16, 3 * ps - 1)
+    rpos[:8], rpos[8] = 33 + np.arange(8), 22
+    row_ids = np.full(16, 2)
+    row_ids[:8], row_ids[8] = 0, 1
+    out = {}
+    for d, prm in ((DEV, p_dev), ("cpu", p_cpu)):
+        stack = lora_mod.stack_adapters(cfg, ads, device=d)
+        k, v = (torch.zeros((L, pages, ps, cfg.num_kv_heads, cfg.head_dim), device=d)
+                for _ in range(2))
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=d)
+
+        def op(idx):
+            return dict(stack, idx=t(idx))
+
+        lp, _, _ = llama.prefill_forward_batched(
+            prm, cfg, t(toks), t(pos), k, v, t(tables), t([0, 0]), t([31, 20]), lora=op([1, 0]))
+        ld, _, _ = llama.decode_forward(prm, cfg, t([7, 9]), t([32, 21]), k, v, t(tables),
+                                        t([33, 22]), lora=op([2, 3]))
+        lr, _, _ = llama.ragged_forward(
+            prm, cfg, t(flat), t(rpos), t(row_ids), k, v, t(tables + [[0, 0, 0]]),
+            t([0, 8, 16]), t([8, 1, 0]), t([33, 22, 0]), t([7, 8, 0]), lora=op([3, 1, 0]))
+        out[d] = {"prefill": lp, "decode": ld, "ragged": lr[:2]}
+    errs = {}
+    for name in out["cpu"]:
+        errs[name] = row_rel_err(out[DEV][name].cpu(), out["cpu"][name])
+        assert errs[name] < TOL_LORA_F32_REL, f"lora_f32: {name} card vs CPU {errs[name]}"
+
+    async def streams():
+        """6 requests (4 LoRA) together, then each alone, on one f32 engine."""
+        engine = TorchEngine(EngineConfig(model="llama3-3b", seed=seed),
+                             model_config=cfg, params=p_dev, device="cuda")
+        engine.register_adapters(ads)
+        reqs, _ = make_requests(seed + 5, cfg.vocab_size, [60, 700, 200, 1100, 90, 400],
+                                shared_idx=(), seeded_idx=(), tag="lora-f32")
+        names = ["peft8", None, "peft16", "rnd", None, "peft8"]
+        reqs = [dict(r, lora_name=n) if n else r for r, n in zip(reqs, names)]
+        recs, _ = await together_records(engine, reqs)
+        solo = await solo_streams(engine, reqs)
+        await engine.close()
+        return [r["tokens"] for r in recs], solo
+
+    got, solo = asyncio.run(streams())
+    equal = sum(a == b for a, b in zip(got, solo))
+    assert equal == len(solo), f"lora_f32: {len(solo) - equal} streams differ from their solo runs"
+    emit("lora_f32", model="llama-3.2-3b", layers=L, dtype="float32",
+         forward_row_rel_err={k: float(f"{v:.3g}") for k, v in errs.items()},
+         tol_row_rel=TOL_LORA_F32_REL, streams_equal_solo=equal, requests=len(solo))
+    del p_dev, p_cpu, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+async def lora_pool(seed: int, params, adapters) -> None:
+    """One slot, three adapters: a hit, a miss with an eviction, a refusal
+    while the slot is pinned, an injected `lora.onboard` error, a clean
+    onboard, then a cold onboard admitted beside a live base stream (its
+    gaps between tokens are reported), driven through the engine; the
+    pool's counters must equal those of the port's pool driven by the same
+    script on the CPU."""
+    from dynamo_tpu_torch.llm.protocols import Annotated
+    from dynamo_tpu_torch.models.lora_pool import LoraPool, LoraPoolError
+    from dynamo_tpu_torch.runtime import faults
+
+    L = LORA_SMALL_LAYERS
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=L)
+    ads = [cut_adapter(a, L, cfg.dtype) for a in adapters]
+    engine = TorchEngine(EngineConfig(model="llama3-3b", seed=seed, lora_pool_slots=1),
+                         model_config=cfg, params=cut_depth(params, L), device="cuda")
+    engine.register_adapters(ads)
+    reqs, _ = make_requests(seed + 9, cfg.vocab_size, [100] * 8, shared_idx=(), seeded_idx=(),
+                            tag="lora-pool")
+    reqs[6]["stop_conditions"] = {"max_tokens": 8 * MAX_TOKENS, "ignore_eos": True}
+
+    async def ask(i, name, started=None):
+        toks, err = [], []
+        async for item in engine.generate(dict(reqs[i], lora_name=name), Context()):
+            if item.get("event") == "error":
+                err.append(item)
+            toks += (item.get("data") or {}).get("token_ids") or []
+            if started is not None:
+                started.set()
+        return toks, err
+
+    log = []
+    toks, err = await ask(0, "peft8")  # resident since registration: a hit
+    log.append(("peft8", len(toks), len(err)))
+    toks, err = await ask(1, "peft16")  # a miss: evicts peft8
+    log.append(("peft16", len(toks), len(err)))
+    started = asyncio.Event()
+    hold = asyncio.create_task(ask(2, "peft16", started))  # pins peft16
+    await started.wait()
+    toks, err = await ask(3, "rnd")  # the slot is pinned: refused
+    log.append(("rnd", len(toks), len(err)))
+    pinned_err = err[0]
+    await hold
+    faults.configure("lora.onboard:error,times=1")
+    try:
+        toks, err = await ask(4, "peft8")  # a miss whose onboard fails
+    finally:
+        faults.reset()
+    log.append(("peft8-fault", len(toks), len(err)))
+    toks, err = await ask(5, "peft8")  # onboards
+    log.append(("peft8", len(toks), len(err)))
+
+    async def arrivals(i, mid):
+        times = []
+        async for item in engine.generate(dict(reqs[i]), Context()):
+            if (item.get("data") or {}).get("token_ids"):
+                times.append(time.perf_counter())
+                if len(times) == 16:
+                    mid.set()
+        return times
+
+    mid = asyncio.Event()
+    live = asyncio.create_task(arrivals(6, mid))  # a base stream: holds no pin
+    await mid.wait()
+    t_cold = time.perf_counter()
+    toks, err = await ask(7, "peft16")  # cold: evicts peft8, onboards beside it
+    log.append(("peft16-live", len(toks), len(err)))
+    times = await live
+    gaps = np.diff(np.array(times)) * 1000.0
+    across = next(g for t, g in zip(times[1:], gaps) if t > t_cold)
+    stats = engine.stats()
+    pins = engine._lora_pool.pinned()
+    await engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same script on the port's pool on the CPU
+    cpu = LoraPool(cfg, ads, slots=1, device="cpu")
+    want_err = None
+    for step in ("peft8", "peft16", "hold", "rnd", "release", "fault", "peft8", "peft16"):
+        if step == "hold":
+            cpu.acquire("peft16")
+        elif step == "release":
+            cpu.release("peft16")
+        elif step == "rnd":
+            try:
+                cpu.acquire("rnd")
+            except LoraPoolError as e:
+                want_err = Annotated.from_error(str(e)).to_dict()
+        elif step == "fault":
+            faults.configure("lora.onboard:error,times=1")
+            try:
+                cpu.acquire("peft8")
+            except LoraPoolError:
+                pass
+            finally:
+                faults.reset()
+        else:
+            cpu.acquire(step)
+            cpu.release(step)
+    got = {k: v for k, v in stats.items() if k.startswith("lora_pool_") and "_ms" not in k}
+    want = {k: v for k, v in cpu.stats().items() if "_ms" not in k}
+    assert got == want, f"lora_pool: the engine's pool counters {got} differ from the CPU's {want}"
+    assert pinned_err == want_err, (pinned_err, want_err)
+    assert [x[1:] for x in log] == [(MAX_TOKENS, 0), (MAX_TOKENS, 0), (0, 1), (0, 1),
+                                    (MAX_TOKENS, 0), (MAX_TOKENS, 0)], log
+    assert pins == 0, f"lora_pool: {pins} pins leaked"
+    emit("lora_pool", model="llama-3.2-3b", layers=L, lora_pool_slots=1,
+         script=[x[0] for x in log], counters=got, counters_equal_cpu=True, pins_after=pins,
+         onboard_ms=stats["lora_pool_onboard_ms"], onboard_count=stats["lora_pool_onboard_count"],
+         onboard_device_ms=round(stats["dev_time"]["lora_onboard"]["seconds"] * 1000.0, 3),
+         live_gap_p50_ms=round(float(np.median(gaps)), 3),
+         live_gap_max_ms=round(float(gaps.max()), 3), live_gap_across_cold_ms=round(across, 3))
+
+
+def lora_all(seed: int, params) -> dict:
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="smoke_lora_")
+    try:
+        adapters = lora_adapters(llama.LlamaConfig.llama3_2_3b(), root)
+        launches = asyncio.run(lora_main(seed, params, adapters))
+        lora_f32(seed, params, adapters)
+        asyncio.run(lora_pool(seed, params, adapters))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3789,6 +4233,9 @@ def main() -> None:
     t0 = time.perf_counter()
     add_launches(launches, asyncio.run(spec_guided_all(args.seed, params)))
     seconds["spec_guided"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_launches(launches, lora_all(args.seed, params))
+    seconds["lora"] = time.perf_counter() - t0
     # the subprocess workers size or place their pools on the card: this
     # process lets go of what it holds first (engines that sat in
     # reference cycles with their tasks included)

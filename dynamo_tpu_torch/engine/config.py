@@ -89,7 +89,9 @@ class EngineConfig:
     # instead of a prefill dispatch followed by a decode dispatch.
     # None = on.
     mixed_dispatch: Optional[bool] = None
-    lora_pool_slots: Optional[int] = None  # multi-LoRA (not ported)
+    # multi-LoRA (models/lora_pool.py): device adapter slots besides the
+    # base slot 0; None = DYN_LORA_POOL_SLOTS (default 8)
+    lora_pool_slots: Optional[int] = None
     # flat-token budget of one mixed dispatch: decode rows + granted
     # prefill chunks, pow2-bucketed up to this cap
     mixed_max_tokens: int = 2048
@@ -128,8 +130,6 @@ class EngineConfig:
                 bad.append(name)
         if self.decode_pool_mode not in (None, "scatter", "local"):
             bad.append("decode_pool_mode")
-        if self.lora_pool_slots:
-            bad.append("lora_pool_slots")
         if self.role not in ("decode", "both", "prefill"):
             bad.append("role")
         return bad

@@ -72,6 +72,14 @@ and host reads are the expensive unit:
     the event loop to a token FSM; its lane's admissible-token bitmask rides
     the prefill, a single-step decode and the mixed step, and the FSM
     advances on every emitted token.
+  * multi-LoRA (models/lora.py, models/lora_pool.py): `register_adapters`
+    puts adapters behind a fixed-slot device stack; a request's `lora_name`
+    pins its adapter's slot for the life of the stream, and the slot index
+    rides the prefill (per lane), the mixed step (per row, spec verify rows
+    too), a K-step decode block that writes the pool in place under either
+    pool mode, and the guided single step. The adapter name salts the
+    request's block hashes, so the prefix cache, the KV events, the KVBM
+    tiers and the checkpointer never share KV across adapters.
   * estimates: `estimated_prefill_wait_ms`, `estimated_req_ms` and
     `estimated_role_tok_s` read the scheduler's cost model; `stats()`
     publishes them as `sched_est_*`, which admission gates, the disagg
@@ -81,7 +89,7 @@ The KV pool is written in place. There is nothing to compile per shape, so
 `warmup()` only builds the kernel library and drives one dispatch of each
 kind. All device work runs on one executor thread so a blocking copy never
 stalls the event loop. Left out of this port so far (each raises a typed
-error when asked for): the multi-host shard handoff, LoRA, multimodal,
+error when asked for): the multi-host shard handoff, multimodal,
 multi-host, tensor/pipeline/sequence parallelism. The KV pool may be stored at 8 or 4
 bits (`kv_quant`): quantized on write, dequantized inside the attention
 kernels. The weights may be int8 weight-only quantized (`quantize="int8"`,
@@ -109,8 +117,9 @@ import torch
 
 from ..llm.mocker.kv_manager import KvEvent
 from ..llm.protocols import Annotated, LLMEngineOutput, PreprocessedRequest
-from ..llm.tokens import TokenBlockSequence
+from ..llm.tokens import TokenBlockSequence, salt_hash
 from ..models import llama
+from ..models.lora_pool import LoraPool, LoraPoolError
 from ..models.quant import param_bytes, quantize_tree
 from ..ops.hopper_ragged_attention import ragged_tile_q
 from ..ops.paged_attention import attention_counts
@@ -125,7 +134,7 @@ from ..ops.kv_quant import (
     resolve_kv_quant,
 )
 from ..runtime import faults
-from ..runtime.config import env_bool, env_float
+from ..runtime.config import env_bool, env_float, env_int
 from ..runtime.engine import Context
 from ..runtime.metrics import (
     SCHED_EST_DECODE_TOK_S,
@@ -145,15 +154,24 @@ from .scheduler import SlaConfig, StepPlanner
 
 logger = logging.getLogger(__name__)
 
+
+def _log_land_failure(fut: concurrent.futures.Future) -> None:
+    if fut.exception() is not None:
+        logger.error("LoRA adapter rows failed to land", exc_info=fut.exception())
+
+
 SCRATCH_PAGE = 0  # physical page 0 is the dump target for masked lanes
 
 
 class UnsupportedRequestError(ValueError):
     """A request field asks for a feature this port has not implemented
-    (multimodal parts, LoRA, embeddings, unknown `disagg_params` keys) or
-    one this engine's configuration cannot serve (guided decoding on a
-    split-only speculative engine, penalties or logprobs under speculative
-    decoding). Raised from `generate`, never silently dropped."""
+    (multimodal parts, embeddings, unknown `disagg_params` keys) or one this
+    engine's configuration cannot serve (guided decoding or a LoRA adapter
+    on a split-only speculative engine, penalties or logprobs under
+    speculative decoding). Raised from `generate`, never silently dropped.
+    (A LoRA request refused for its adapter — unknown, pool full of pinned
+    slots, a failed onboard — or for asking for guided decoding beside it
+    is answered with the reference's error item instead.)"""
 
 
 DISAGG_PARAMS = ("return_kv", "kv_pull", "kv_stream")  # the keys served
@@ -237,6 +255,8 @@ class _Slot:
     replay: bool = False  # migrated: its tail is recomputed decode-shaped
     guided_fsm: Optional[Any] = None  # llm/guided.TokenFsm (structured output)
     guided_state: int = 0  # current FSM state; advanced per emitted token
+    lora_idx: int = 0  # adapter slot in the LoRA stack (0 = base model)
+    lora_name: str = ""  # adapter pinned in the LoraPool ("" = no pin)
 
 
 class StreamedPullHandle:
@@ -437,6 +457,13 @@ class TorchEngine:
         self.mixed_rows_plain = 0
         self.mixed_rows_guided = 0
         self.mixed_rows_spec = 0
+        self.mixed_rows_lora = 0
+        # multi-LoRA: the adapter pool (set by register_adapters), each
+        # lane's adapter slot (host mirror, the operand of a LoRA block) and
+        # the requests served with one
+        self._lora_pool: Optional[LoraPool] = None
+        self.lora_idx = np.zeros((B,), np.int32)
+        self.lora_requests = 0
         # speculative decoding: host mirror of the device history ring, the
         # acceptance counters, and the key chain of the spec blocks' draws
         # (threefry key words of PRNGKey(seed + 1); the reference splits one
@@ -600,11 +627,12 @@ class TorchEngine:
         isl = max(min(self.config.prefill_buckets[0] - 8,
                       self.config.max_model_len - 2 * K - 4), 4)
 
-        async def _drain(first_token: Optional[asyncio.Event]):
+        async def _drain(first_token: Optional[asyncio.Event], lora_name=None):
             req = PreprocessedRequest(
                 token_ids=rng.randint(5, max(vocab - 1, 6), size=isl).tolist(),
                 stop_conditions={"max_tokens": 2 * K + 2, "ignore_eos": True},
                 sampling_options={"temperature": 1.0, "seed": 1},
+                lora_name=lora_name,
             ).to_dict()
             async for _ in self.generate(req, Context()):
                 if first_token is not None:
@@ -613,12 +641,16 @@ class TorchEngine:
         before = self._dispatch_count()
         # a staggered pair: the second arrives while the first decodes, so
         # the fused mixed step runs (or, with mixed dispatch off, the
-        # lane patch beside a running block)
-        started = asyncio.Event()
-        t1 = asyncio.create_task(_drain(started))
-        await started.wait()
-        t2 = asyncio.create_task(_drain(None))
-        await asyncio.gather(t1, t2)
+        # lane patch beside a running block). With adapters registered a
+        # second pair leads with a LoRA request: its prefill, block and
+        # mixed rows carry the adapter operand.
+        pairs = [None] + ([self.lora_names()[0]] if self.lora_names() else [])
+        for lora_name in pairs:
+            started = asyncio.Event()
+            t1 = asyncio.create_task(_drain(started, lora_name))
+            await started.wait()
+            t2 = asyncio.create_task(_drain(None))
+            await asyncio.gather(t1, t2)
         if not self.config.spec_mode or self._mixed_enabled:
             # a guided request: the masked prefill and decode, on a fixed
             # mask (no FSM compile: the first real guided request pays its
@@ -644,7 +676,7 @@ class TorchEngine:
             )
 
     def _check_request(self, req: PreprocessedRequest) -> None:
-        bad = [name for name in ("multimodal", "lora_name") if getattr(req, name)]
+        bad = ["multimodal"] if req.multimodal else []
         if req.embed:
             bad.append("embed")
         bad += [f"disagg_params.{k}" for k in (req.disagg_params or {})
@@ -654,6 +686,12 @@ class TorchEngine:
                 f"request fields not supported by the PyTorch/CUDA port yet: {bad}"
             )
         err = self._check_spec_sampling(req) or self._check_guided(req)
+        if req.lora_name and self.config.spec_mode and not self._mixed_enabled:
+            # fused verify rows carry a row's adapter slot; the split spec
+            # block has no adapter operand
+            err = ("LoRA is incompatible with speculative decoding (spec_mode) "
+                   "without the mixed dispatch (request field lora_name; run "
+                   "the worker without --spec)")
         if err is not None:
             raise UnsupportedRequestError(err)
 
@@ -683,6 +721,72 @@ class TorchEngine:
             return ("guided decoding is incompatible with speculative decoding "
                     "without the mixed dispatch (run the worker without --spec)")
         return None
+
+    # -- multi-LoRA ------------------------------------------------------ #
+
+    def register_adapters(self, adapters) -> None:
+        """Install LoRA adapters (models/lora.LoraAdapter list) behind the
+        fixed-slot pool (models/lora_pool.LoraPool), whose device stack the
+        dispatches read: registration appends to the roster, and rosters
+        larger than the slot count page on demand. In-flight LoRA streams
+        keep their slots (they are pinned)."""
+        if self._lora_pool is None:
+            slots = self.config.lora_pool_slots
+            if slots is None:
+                slots = env_int("DYN_LORA_POOL_SLOTS", 8)
+            self._lora_pool = LoraPool(self.model_config, list(adapters), slots=slots,
+                                       device=self.device)
+        else:
+            self._lora_pool.register(list(adapters))
+        self._land_lora()
+
+    def _land_lora(self) -> None:
+        """Queue the pool's waiting adapter rows (an onboard, a rebuild) on
+        the device thread. Every dispatch queued later runs after them, so
+        the caller never waits for the copy."""
+        if self._lora_pool.landing():
+            self._device_exec.submit(
+                self._timed(self._lora_pool.land, "lora_onboard")
+            ).add_done_callback(_log_land_failure)
+
+    def lora_names(self) -> List[str]:
+        return self._lora_pool.known_names() if self._lora_pool is not None else []
+
+    def _acquire_lora(self, req: PreprocessedRequest) -> None:
+        """Check the request's adapter and PIN its slot in the pool (a
+        resident adapter is a lookup; a cold one takes a slot here, and its
+        rows land on the device thread ahead of the stream's first
+        dispatch). A refusal
+        the reference answers with an error item (`_check_request` raised
+        for the configuration's) raises LoraPoolError with its message.
+        Runs last among the entry's checks: a later refusal would leak the
+        pin."""
+        if req.lora_name not in self.lora_names():
+            raise LoraPoolError(f"unknown LoRA adapter {req.lora_name!r}; available: "
+                                f"{sorted(self.lora_names())}")
+        if req.guided:
+            raise LoraPoolError("guided decoding with a LoRA adapter is not supported yet")
+        req._lora_slot = self._lora_pool.acquire(req.lora_name)
+        self._land_lora()
+
+    def _release_lora_pin(self, slot: _Slot) -> None:
+        """Unpin the stream's adapter, once (the name is cleared)."""
+        if slot.lora_name and self._lora_pool is not None:
+            self._lora_pool.release(slot.lora_name)
+            slot.lora_name = ""
+
+    def _lora_operand(self, idx: np.ndarray) -> Optional[dict]:
+        """A LoRA dispatch's operand: the stack's tensors as the dispatch is
+        built (a rebuild installs new ones and leaves these be) and the slot
+        index of each lane or row. None when `idx` names no adapter."""
+        if self._lora_pool is None or not idx.any():
+            return None
+        stack = self._lora_pool.stack
+        return {"a": stack["a"], "b": stack["b"], "scale": stack["scale"], "idx": idx}
+
+    def _dev_lora(self, op: Optional[dict]) -> Optional[dict]:
+        """The operand with its index on the device (device thread)."""
+        return None if op is None else dict(op, idx=self._dev(op["idx"]))
 
     def _guided_compiler(self):
         if self._guided is None:
@@ -731,7 +835,13 @@ class TorchEngine:
             eos_ids=list(req.eos_token_ids or []),
             ignore_eos=bool(stop.get("ignore_eos")),
             stop_token_ids=list(stop.get("stop_token_ids") or []),
-            seq=TokenBlockSequence(req.token_ids, self.config.page_size, salt=0),
+            # the adapter name salts the hash chain (the reference's lora_id
+            # in the block hash): the prefix cache, the KV events, the KVBM
+            # tiers and the checkpointer key on it, so two adapters sharing
+            # a text prefix never share KV
+            seq=TokenBlockSequence(
+                req.token_ids, self.config.page_size,
+                salt=salt_hash(req.lora_name.encode()) if req.lora_name else 0),
         )
         slot.kv_prompt = slot.prompt
         slot.temperature = float(
@@ -757,6 +867,12 @@ class TorchEngine:
             slot.guided_fsm = getattr(req, "_compiled_fsm", None) or self._compile_guided(req)
             slot.guided_state = slot.guided_fsm.start_state
             self.guided_requests += 1
+        if req.lora_name:
+            # the _acquire_lora pin moves to the slot: released once, when
+            # the stream ends
+            slot.lora_idx, req._lora_slot = req._lora_slot, None
+            slot.lora_name = req.lora_name
+            self.lora_requests += 1
         if len(slot.prompt) + slot.max_tokens > self.config.max_model_len:
             slot.max_tokens = max(self.config.max_model_len - len(slot.prompt), 1)
         slot.priority = int(req.priority or 0)
@@ -774,7 +890,23 @@ class TorchEngine:
         return slot
 
     async def generate(self, request: Any, context: Context) -> AsyncIterator[dict]:
-        async for item in self._drain(await self._entry_slot_async(request, context)):
+        async for item in self._serve(request, context):
+            yield item
+
+    async def _serve(self, request: Any, context: Context,
+                     setup: Optional[Callable[[_Slot], None]] = None) -> AsyncIterator[dict]:
+        """Every streaming entry: build the slot, let `setup` mark its entry
+        path, stream it. A LoRA admission refusal is answered with the
+        reference's error item, so a frontend in front of either worker
+        answers alike."""
+        try:
+            slot = await self._entry_slot_async(request, context)
+        except LoraPoolError as e:
+            yield Annotated.from_error(str(e)).to_dict()
+            return
+        if setup is not None:
+            setup(slot)
+        async for item in self._drain(slot):
             yield item
 
     def _morph_guard(self):
@@ -812,6 +944,8 @@ class TorchEngine:
         check the request (unless `checked`), build its slot."""
         req = request if checked else self._entry_request(request)
         self.start()
+        if req.lora_name:
+            self._acquire_lora(req)
         slot = self._new_slot(req, context)
         disagg = req.disagg_params or {}
         slot.return_kv = bool(disagg.get("return_kv"))
@@ -850,9 +984,10 @@ class TorchEngine:
         """Disagg decode entry: continue decoding from remotely prefilled KV
         that arrived inline (host pages in the wire layout). The first token
         was produced by the prefill worker and is NOT re-emitted."""
-        slot = await self._entry_slot_async(request, context)
-        slot.preloaded = (first_token, kv_k_pages, kv_v_pages, n_tokens)
-        async for item in self._drain(slot):
+        def setup(slot):
+            slot.preloaded = (first_token, kv_k_pages, kv_v_pages, n_tokens)
+
+        async for item in self._serve(request, context, setup):
             yield item
 
     async def generate_decode_resume(
@@ -862,14 +997,15 @@ class TorchEngine:
         prefill the prompt locally and resume from the prefill worker's
         already-emitted first token — the fallback a failed pull takes,
         entered before any foreign byte is read."""
-        slot = await self._entry_slot_async(request, context)
-        slot.generated = 1
-        slot.last_token = first_token
-        slot.seq.append(first_token)
-        self._advance_guided(slot, first_token)
-        slot.resume_token = first_token
-        slot.prefill_pos = 0
-        async for item in self._drain(slot):
+        def setup(slot):
+            slot.generated = 1
+            slot.last_token = first_token
+            slot.seq.append(first_token)
+            self._advance_guided(slot, first_token)
+            slot.resume_token = first_token
+            slot.prefill_pos = 0
+
+        async for item in self._serve(request, context, setup):
             yield item
 
     async def generate_decode_from_pull(
@@ -879,10 +1015,11 @@ class TorchEngine:
         on its data plane; the engine allocates the prompt's pages, then
         injects chunks as they land while the decode batch keeps stepping.
         Falls back to local prefill if the pull fails."""
-        slot = await self._entry_slot_async(request, context)
-        slot.preloaded = (first_token, None, None, int(desc["n_tokens"]))
-        slot.pull_desc = desc
-        async for item in self._drain(slot):
+        def setup(slot):
+            slot.preloaded = (first_token, None, None, int(desc["n_tokens"]))
+            slot.pull_desc = desc
+
+        async for item in self._serve(request, context, setup):
             yield item
 
     def begin_streamed_pull(
@@ -892,11 +1029,14 @@ class TorchEngine:
         prefill worker's EARLY descriptor while its prefill still runs, so
         the transfer overlaps the peer's compute; the first decode step
         dispatches once the last chunk and the first token have both
-        landed. Mid-morph it returns None: the serial path then refuses the
-        stream."""
+        landed. Mid-morph, or when the request's adapter is refused, it
+        returns None: the serial path then refuses the stream."""
         if self._morph_state in ("draining-role", "flipped"):
             return None
-        slot = self._entry_slot(request, context)
+        try:
+            slot = self._entry_slot(request, context)
+        except LoraPoolError:
+            return None
         slot.preloaded = (None, None, None, int(desc["n_tokens"]))
         slot.pull_desc = dict(desc)
         slot.first_token_fut = asyncio.get_running_loop().create_future()
@@ -1163,8 +1303,13 @@ class TorchEngine:
         out["mixed_rows_plain"] = self.mixed_rows_plain
         out["mixed_rows_guided"] = self.mixed_rows_guided
         out["mixed_rows_spec"] = self.mixed_rows_spec
+        out["mixed_rows_lora"] = self.mixed_rows_lora
+        if self._lora_pool is not None:
+            out.update(self._lora_pool.stats())
         if self.guided_requests:
             out["guided_requests"] = self.guided_requests
+        if self.lora_requests:
+            out["lora_requests"] = self.lora_requests
         if self.config.spec_mode:
             out["spec_num_drafts"] = self.spec_num_drafts
             out["spec_num_draft_tokens"] = self.spec_num_draft_tokens
@@ -1379,6 +1524,7 @@ class TorchEngine:
         self.presence[idx] = slot.presence_penalty
         self.frequency[idx] = slot.frequency_penalty
         self.repetition[idx] = slot.repetition_penalty
+        self.lora_idx[idx] = slot.lora_idx
         self._fill_recent(idx, slot)
         slot.admit_seq = self._admit_counter = self._admit_counter + 1
 
@@ -1518,14 +1664,16 @@ class TorchEngine:
 
     @torch.no_grad()
     def _dev_prefill(self, toks, positions, tables, ctx_lens, last_idx,
-                     temps, top_ks, top_ps, seeds, pens, pen_rows, mask=None):
+                     temps, top_ks, top_ps, seeds, pens, pen_rows, mask=None, lora=None):
         """Batched chunked prefill + on-device first-token sampling (masked
-        by the guided lanes' FSMs when `mask` is given)."""
+        by the guided lanes' FSMs when `mask` is given; with the lanes'
+        adapters when `lora` is given)."""
         samp = self._samp(temps, top_ks, top_ps, seeds, pens)
         ctx_d, last_d = self._dev(ctx_lens), self._dev(last_idx)
         logits, _, _ = llama.prefill_forward_batched(
             self.params, self.model_config, self._dev(toks), self._dev(positions),
             self.kv_k, self.kv_v, self._dev(tables), ctx_d, last_d,
+            lora=self._dev_lora(lora),
         )
         plogits = penalized(logits, samp, self._dev(pen_rows))
         first = sample_lp(plogits, samp, ctx_d + last_d, raw=logits,
@@ -1535,19 +1683,22 @@ class TorchEngine:
     @torch.no_grad()
     def _dev_mixed(self, toks, positions, row_ids, tables, row_starts,
                    row_lens, ctx_lens, last_flat, temps, top_ks, top_ps,
-                   seeds, pens, pen_rows, mask=None):
+                   seeds, pens, pen_rows, mask=None, lora=None):
         """Unified mixed step: ONE ragged forward over a flat buffer packing
         prefill chunks (row_len > 1) and decode lanes (row_len == 1), with
         each row's last-token logits sampled on device. Guided rows carry
-        their FSM mask (`mask`; all-ones rows are exact no-ops); speculative
-        verify rows need no operand of their own: they are one-token rows
-        whose ctx covers their sibling rows' KV, written before attention."""
+        their FSM mask (`mask`; all-ones rows are exact no-ops), LoRA rows
+        their adapter slot (`lora`, per row; slot 0 is an exact no-op);
+        speculative verify rows need no operand of their own: they are
+        one-token rows whose ctx covers their sibling rows' KV, written
+        before attention."""
         samp = self._samp(temps, top_ks, top_ps, seeds, pens)
         ctx_d, len_d = self._dev(ctx_lens), self._dev(row_lens)
         logits, _, _ = llama.ragged_forward(
             self.params, self.model_config, self._dev(toks), self._dev(positions),
             self._dev(row_ids), self.kv_k, self.kv_v, self._dev(tables),
             self._dev(row_starts), len_d, ctx_d, self._dev(last_flat),
+            lora=self._dev_lora(lora),
         )
         plogits = penalized(logits, samp, self._dev(pen_rows))
         # the sampled token's position counter: the row's last real token
@@ -1598,11 +1749,13 @@ class TorchEngine:
             self._hist_dev = torch.where(lm[:, None], self._dev(hist), self._hist_dev)
 
     @torch.no_grad()
-    def _dev_block(self, all_greedy: bool, no_penalties: bool):
+    def _dev_block(self, all_greedy: bool, no_penalties: bool, lora=None):
         """K fused decode steps: sampled tokens feed the next step on the
         device — one host read per K*B tokens instead of per token. Under
         "scatter" the KV pool is written in place each step; under "local"
-        it is read-only for the block and committed once at its end."""
+        it is read-only for the block and committed once at its end. A
+        block with the lanes' adapters (`lora`) writes the pool in place
+        under either mode (the local decode takes no adapter)."""
         tokens, positions, seq_lens = self._carry
         samp = self._samp_dev._replace(
             all_greedy=all_greedy, no_penalties=no_penalties
@@ -1610,7 +1763,8 @@ class TorchEngine:
         pen = self._pen_dev
         W = pen.shape[1]
         lanes = torch.arange(tokens.shape[0], device=self.device)
-        local = self.config.decode_pool_mode == "local"
+        lora = self._dev_lora(lora)
+        local = self.config.decode_pool_mode == "local" and lora is None
         if local:
             c, K = self.model_config, self.config.decode_block_steps
             pool_lens = (seq_lens - 1).clamp(min=0)
@@ -1637,7 +1791,7 @@ class TorchEngine:
             else:
                 logits, _, _ = llama.decode_forward(
                     self.params, self.model_config, tokens, positions,
-                    self.kv_k, self.kv_v, self._tables_dev, seq_lens,
+                    self.kv_k, self.kv_v, self._tables_dev, seq_lens, lora=lora,
                 )
             plogits = penalized(logits, samp, pen)
             nxt, lp, tid, tlp = sample_lp(plogits, samp, positions, raw=logits)
@@ -1665,16 +1819,17 @@ class TorchEngine:
         return self._result(*(torch.stack(x) for x in zip(*outs)))
 
     @torch.no_grad()
-    def _dev_block_guided(self, mask, all_greedy: bool, no_penalties: bool):
+    def _dev_block_guided(self, mask, all_greedy: bool, no_penalties: bool, lora=None):
         """ONE masked decode step for the whole batch (guided lanes carry
         their FSM rows, the others all-ones rows): the mask of step t+1
         depends on the token of step t, so a guided lane cannot ride the
-        K-step block. It writes the pool in place under either pool mode."""
+        K-step block. It writes the pool in place under either pool mode,
+        and carries the LoRA lanes' adapters when `lora` is given."""
         tokens, positions, seq_lens = self._carry
         samp = self._samp_dev._replace(all_greedy=all_greedy, no_penalties=no_penalties)
         logits, _, _ = llama.decode_forward(
             self.params, self.model_config, tokens, positions,
-            self.kv_k, self.kv_v, self._tables_dev, seq_lens,
+            self.kv_k, self.kv_v, self._tables_dev, seq_lens, lora=self._dev_lora(lora),
         )
         plogits = penalized(logits, samp, self._pen_dev)
         nxt, lp, tid, tlp = sample_lp(plogits, samp, positions, raw=logits,
@@ -1797,6 +1952,19 @@ class TorchEngine:
         if not cands:
             return False
         cands = self.scheduler.order(cands)
+        # guided and LoRA slots ride different operands and never share a
+        # prefill batch; plain slots batch with either (an all-ones mask row
+        # and adapter slot 0 are exact no-ops). The excluded kind waits; the
+        # planner's aging tiebreak keeps it from starving.
+        def kind(s):
+            return "guided" if s.guided_fsm is not None else "lora" if s.lora_idx else "plain"
+
+        batch_kind = self.scheduler.pick_batch_kind(cands, kind)
+        if batch_kind != "plain":
+            for s in cands:
+                if kind(s) not in ("plain", batch_kind):
+                    s.sched_skips += 1
+            cands = [s for s in cands if kind(s) in ("plain", batch_kind)]
         has_decode = any(
             s is not None and s.generated > 0 and s.resume_token is None
             and s.prefill_pos >= len(s.kv_prompt)
@@ -1841,6 +2009,7 @@ class TorchEngine:
         pens = np.zeros((B_pf, 3), np.float32)
         pens[:, 2] = 1.0  # repetition off
         pen_rows = np.full((B_pf, cfg.penalty_window), -1, np.int32)
+        lora_idx = np.zeros((B_pf,), np.int32)
         meta = []
         for lane, s in enumerate(chosen):
             chunk = chunk_of[s.request_id]
@@ -1857,6 +2026,7 @@ class TorchEngine:
             pens[lane] = (s.presence_penalty, s.frequency_penalty,
                           s.repetition_penalty)
             pen_rows[lane] = self.recent[s.slot_idx]
+            lora_idx[lane] = s.lora_idx
             s.sched_skips = 0  # granted a chunk: starvation clock restarts
             meta.append((s, chunk, lane))
         self._last_prefill_shape = (
@@ -1870,6 +2040,7 @@ class TorchEngine:
                 self._dev_prefill,
                 toks, positions, tables, ctx_lens, last_idx, temps,
                 top_ks, top_ps, seeds, pens, pen_rows, mask,
+                self._lora_operand(lora_idx),
             ),
             tag="prefill", shape=(bucket, B_pf),
         )
@@ -1924,12 +2095,14 @@ class TorchEngine:
             tables[:n] = self.page_tables[s.slot_idx]
             pens = np.array([[s.presence_penalty, s.frequency_penalty,
                               s.repetition_penalty]], np.float32)
+            lora_idx = np.zeros((B,), np.int32)
+            lora_idx[:n] = s.lora_idx
             first = await self._run_on_device(
                 partial(self._dev_replay, toks, positions, seq_lens, tables, n - 1,
                         np.array([s.temperature], np.float32),
                         np.array([s.top_k], np.int32), np.array([s.top_p], np.float32),
                         np.array([s.sample_seed], np.int64), pens,
-                        self.recent[s.slot_idx][None].copy()),
+                        self.recent[s.slot_idx][None].copy(), self._lora_operand(lora_idx)),
                 tag="replay")
             s.prefill_pos += n
             done = [(s, 0)] if s.prefill_pos >= len(s.kv_prompt) else []
@@ -1940,13 +2113,15 @@ class TorchEngine:
 
     @torch.no_grad()
     def _dev_replay(self, toks, positions, seq_lens, tables, last, temps, top_ks, top_ps,
-                    seeds, pens, pen_rows):
+                    seeds, pens, pen_rows, lora=None):
         """Decode-shaped tail recompute (see _dispatch_replays): writes the
-        rows' KV and samples the token after row `last`."""
+        rows' KV (with the stream's adapter under `lora`) and samples the
+        token after row `last`."""
         pos_d = self._dev(positions)
         logits, _, _ = llama.decode_forward(
             self.params, self.model_config, self._dev(toks), pos_d,
             self.kv_k, self.kv_v, self._dev(tables), self._dev(seq_lens),
+            lora=self._dev_lora(lora),
         )
         samp = self._samp(temps, top_ks, top_ps, seeds, pens)
         row = logits[last:last + 1]
@@ -2720,6 +2895,7 @@ class TorchEngine:
         pens = np.zeros((R_pad, 3), np.float32)
         pens[:, 2] = 1.0  # repetition off
         pen_rows = np.full((R_pad, cfg.penalty_window), -1, np.int32)
+        lora_idx = np.zeros((R_pad,), np.int32)  # each row's adapter slot
 
         off = 0
         row = 0
@@ -2744,9 +2920,12 @@ class TorchEngine:
             pens[row] = (s.presence_penalty, s.frequency_penalty,
                          s.repetition_penalty)
             pen_rows[row] = self.recent[s.slot_idx]
+            lora_idx[row] = s.lora_idx
             mask_rows.append((row, s))
             if s.guided_fsm is not None:
                 self.mixed_rows_guided += 1
+            elif s.lora_idx:
+                self.mixed_rows_lora += 1
             else:
                 self.mixed_rows_plain += 1
             s.sched_skips = 0
@@ -2776,6 +2955,7 @@ class TorchEngine:
                 top_ks[row] = self.top_ks[i]
                 top_ps[row] = self.top_ps[i]
                 seeds[row] = self.seeds[i]
+                lora_idx[row] = s.lora_idx
                 if not spec_lane:
                     # (spec rows keep the defaults: penalties are refused
                     # under spec at admission)
@@ -2796,6 +2976,8 @@ class TorchEngine:
                 decode_rows.append((first_row, i, s))
                 if s.guided_fsm is not None:
                     self.mixed_rows_guided += 1
+                elif s.lora_idx:
+                    self.mixed_rows_lora += 1
                 else:
                     self.mixed_rows_plain += 1
 
@@ -2804,6 +2986,7 @@ class TorchEngine:
                 self._dev_mixed, toks, positions, row_ids, tables,
                 row_starts, row_lens, ctx_lens, last_flat, temps, top_ks,
                 top_ps, seeds, pens, pen_rows, self._pack_masks(mask_rows, R_pad),
+                self._lora_operand(lora_idx),
             ),
             tag="mixed", shape=(N_pad, row),
         )
@@ -2892,7 +3075,11 @@ class TorchEngine:
         active = self._active_decode_indices()
         if not active:
             return False
-        active = self._grow_pages_for_block(active)
+        # a block with LoRA lanes advances K steps, which under a spec
+        # engine may exceed the spec block's worst case
+        has_lora = any(self.slots[i].lora_idx for i in active)
+        active = self._grow_pages_for_block(
+            active, steps=max(cfg.block_advance, cfg.decode_block_steps) if has_lora else None)
         if not active:
             return False
         if not self._carry_valid and self._inflight:
@@ -2938,16 +3125,28 @@ class TorchEngine:
             and self.repetition[i] == 1.0 for i in active
         )
         guided = [(i, self.slots[i]) for i in active if self.slots[i].guided_fsm is not None]
+        lane_lora = np.zeros((B,), np.int32)
+        lane_lora[active] = self.lora_idx[active]
+        lora = self._lora_operand(lane_lora)
         kind = "block"
         if guided:
             # one masked step: guided rows from each lane's FSM state,
             # all-ones rows for the rest, bitpacked [B, V/8]
             toks_dev = await self._run_on_device(
                 partial(self._dev_block_guided, self._pack_masks(guided, B),
-                        all_greedy, no_penalties),
+                        all_greedy, no_penalties, lora),
                 tag="block_guided", shape=(1, B),
             )
             adv = 1
+        elif lora is not None:
+            # K adapter steps writing the pool in place (either pool mode).
+            # Under a spec engine it advances K, not the spec block's worst
+            # case, and drains through _process_block.
+            toks_dev = await self._run_on_device(
+                partial(self._dev_block, all_greedy, no_penalties, lora),
+                tag="block_lora", shape=(K, B),
+            )
+            adv = K
         elif cfg.spec_mode:
             self._spec_key, sub = key_split(self._spec_key)
             toks_dev = await self._run_on_device(
@@ -3226,6 +3425,7 @@ class TorchEngine:
                 slot.queue.put_nowait(Annotated.from_error(message).to_dict())
                 slot.queue.put_nowait(None)
                 slot.done = True
+            self._release_lora_pin(slot)  # waiting slots hold pins too
             if slot.slot_idx >= 0:
                 self._release_slot(slot)
         self._waiting = []
@@ -3252,6 +3452,7 @@ class TorchEngine:
                 slot.queue.put_nowait(StreamSevered(message))
                 slot.done = True
                 queues.append(slot.queue)
+            self._release_lora_pin(slot)  # waiting slots hold pins too
             if slot.slot_idx >= 0:
                 self._release_slot(slot)
         self._waiting = []
@@ -3337,8 +3538,15 @@ class TorchEngine:
             slot.queue.put_nowait(Annotated(data=out).to_dict())
             slot.queue.put_nowait(None)
             slot.done = True
+        # the stream is over: unpin its adapter (a preempted slot never
+        # passes here, so its pin survives the requeue)
+        self._release_lora_pin(slot)
 
     def _release_slot(self, slot: _Slot):
+        if slot.done:
+            # a terminal release (finish, fail, sever, a finished pull), not
+            # a preemption, which requeues the slot with its adapter pinned
+            self._release_lora_pin(slot)
         if slot.kv_stream_tid is not None and self.data_plane is not None:
             # a streamed stage still live while its pages are released
             # (cancel / engine failure): fail the transfer so the pulling

@@ -7,7 +7,8 @@ dictionary, which keeps the same tree and the same `[in, out]` weight
 orientation. With it both packages compute on the same weights in tests.
 Quantized leaves `{"q", "s"}` (the reference's `quantize_tree` output)
 carry across as they are: `q` stays int8 and `s` f32, whatever `dtype`
-the floating leaves are cast to.
+the floating leaves are cast to. `adapter_from_jax` does the same for a
+reference LoRA adapter.
 """
 
 from __future__ import annotations
@@ -44,3 +45,16 @@ def params_from_jax(tree: Dict[str, Any], dtype: Optional[torch.dtype] = None,
         "lm_head": None if tree.get("lm_head") is None
         else _any_leaf(tree["lm_head"], dtype, device),
     }
+
+
+def adapter_from_jax(adapter, dtype: Optional[torch.dtype] = None, device="cpu"):
+    """A reference `LoraAdapter` (its A/B arrays as numpy or JAX arrays) ->
+    the port's `models.lora.LoraAdapter`, each tensor on `device` in `dtype`
+    (default: the array's own type; a bfloat16 array arrives as f32)."""
+    from .lora import LoraAdapter
+
+    return LoraAdapter(
+        name=adapter.name, rank=int(adapter.rank), scale=float(adapter.scale),
+        a={t: _leaf(v, dtype, device) for t, v in adapter.a.items()},
+        b={t: _leaf(v, dtype, device) for t, v in adapter.b.items()},
+    )

@@ -23,6 +23,12 @@ shared prefix-cache page silently).
 Products: every projection runs `qdot` in the model dtype (bf16 in, f32
 accumulation, bf16 out); `silu(gate) * up` is evaluated in f32 from those
 outputs; the LM head keeps an f32 output (models/quant.py).
+
+Multi-LoRA: `prefill_forward_batched`, `ragged_forward` and `decode_forward`
+take `lora=` — the engine's adapter stack (models/lora.py) with `idx`, the
+slot of each lane (each row for the ragged forward). The delta joins the
+wq/wk/wv/wo products (`lora.proj`); slot 0 adds an exact zero. Without
+`lora` a forward runs no more operations than before.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ..ops.paged_attention import (
     ragged_attention,
     ragged_attention_plain,
 )
+from .lora import layer_lora, lora_rows, proj
 from .quant import embed_rows, head_leaf, is_quant, qdot
 
 
@@ -180,13 +187,14 @@ def _mlp(layer, x, c: LlamaConfig):
     return x + qdot(act, layer["w_down"])
 
 
-def _qkv(layer, x, c: LlamaConfig, cos, sin):
-    """Projections + rope for any leading token shape [..., hidden]."""
+def _qkv(layer, x, c: LlamaConfig, cos, sin, ll=None):
+    """Projections (+ the LoRA deltas of layer slice `ll`) + rope for any
+    leading token shape [..., hidden]."""
     lead = x.shape[:-1]
     h = rms_norm(x, layer["attn_norm"], c.rms_norm_eps)
-    q = qdot(h, layer["wq"]).reshape(*lead, c.num_heads, c.head_dim)
-    k = qdot(h, layer["wk"]).reshape(*lead, c.num_kv_heads, c.head_dim)
-    v = qdot(h, layer["wv"]).reshape(*lead, c.num_kv_heads, c.head_dim)
+    q = proj(h, qdot(h, layer["wq"]), ll, "wq").reshape(*lead, c.num_heads, c.head_dim)
+    k = proj(h, qdot(h, layer["wk"]), ll, "wk").reshape(*lead, c.num_kv_heads, c.head_dim)
+    v = proj(h, qdot(h, layer["wv"]), ll, "wv").reshape(*lead, c.num_kv_heads, c.head_dim)
     # one rotation over the query and key heads together
     qk = apply_rope(torch.cat([q, k], dim=-2), cos, sin)
     return qk[..., : c.num_heads, :].contiguous(), qk[..., c.num_heads :, :], v
@@ -215,6 +223,7 @@ def prefill_forward_batched(
     last_idx: torch.Tensor,  # [B] index of last REAL token per chunk
     plain_attention: bool = False,  # tests: force the plain attention version
     all_logits: bool = False,  # True: [B, T, vocab] (the speculative verify)
+    lora=None,  # models/lora.py stack + per-lane "idx" [B]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched chunked prefill: one call processes chunks of SEVERAL
     sequences. Returns (logits_last [B, vocab] f32, kv_k, kv_v) with the
@@ -230,17 +239,19 @@ def prefill_forward_batched(
     phys, offs = _page_slots(
         positions, page_tables[:, None, :].expand(B, T, -1), page_size)
     attend = prefill_attention_batched_plain if plain_attention else prefill_attention_batched
+    rows = None if lora is None else lora_rows(lora, lora["idx"][:, None].expand(B, T))
 
     for li in range(c.num_layers):
         layer = _layer(params, li)
-        q, k, v = _qkv(layer, x, c, cos, sin)
+        ll = layer_lora(rows, li)
+        q, k, v = _qkv(layer, x, c, cos, sin, ll)
         kv_write(kv_k, li, phys, offs, k)
         kv_write(kv_v, li, phys, offs, v)
         attn = attend(
             q, kv_layer(kv_k, li), kv_layer(kv_v, li), positions, page_tables,
             total_lens, starts,
-        )
-        x = x + qdot(attn.reshape(B, T, c.num_heads * c.head_dim), layer["wo"])
+        ).reshape(B, T, c.num_heads * c.head_dim)
+        x = x + proj(attn, qdot(attn, layer["wo"]), ll, "wo")
         x = _mlp(layer, x, c)
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
@@ -265,6 +276,7 @@ def ragged_forward(
     ctx_lens: torch.Tensor,  # [R] history length per row
     last_flat: torch.Tensor,  # [R] flat index of each row's LAST real token
     plain_attention: bool = False,
+    lora=None,  # models/lora.py stack + PER-ROW "idx" [R]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The unified mixed-step forward: ONE pass over a flat ragged token
     buffer that packs prefill chunks (row_len > 1) and decode slots
@@ -278,17 +290,20 @@ def ragged_forward(
     # per-token physical page through the OWNING row's table
     phys, offs = _page_slots(positions, page_tables[row_ids.long()], page_size)
     attend = ragged_attention_plain if plain_attention else ragged_attention
+    # the per-row adapter slot becomes per flat token through row_ids
+    rows = None if lora is None else lora_rows(lora, lora["idx"][row_ids.long()])
 
     for li in range(c.num_layers):
         layer = _layer(params, li)
-        q, k, v = _qkv(layer, x, c, cos, sin)
+        ll = layer_lora(rows, li)
+        q, k, v = _qkv(layer, x, c, cos, sin, ll)
         kv_write(kv_k, li, phys, offs, k)
         kv_write(kv_v, li, phys, offs, v)
         attn = attend(
             q, kv_layer(kv_k, li), kv_layer(kv_v, li), page_tables,
             row_starts, row_lens, ctx_lens,
-        )
-        x = x + qdot(attn.reshape(-1, c.num_heads * c.head_dim), layer["wo"])
+        ).reshape(-1, c.num_heads * c.head_dim)
+        x = x + proj(attn, qdot(attn, layer["wo"]), ll, "wo")
         x = _mlp(layer, x, c)
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
@@ -307,6 +322,7 @@ def decode_forward(
     page_tables: torch.Tensor,  # [B, max_pages]
     seq_lens: torch.Tensor,  # [B] lengths INCLUDING the new token
     plain_attention: bool = False,
+    lora=None,  # models/lora.py stack + per-lane "idx" [B]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for the whole slot batch; returns
     (logits [B, vocab] f32, kv_k, kv_v)."""
@@ -318,14 +334,17 @@ def decode_forward(
     # max_model_len) route to the scratch page, never to a real page
     phys, offs = _page_slots(positions, page_tables, page_size)
     attend = paged_attention_decode_plain if plain_attention else paged_attention_decode
+    rows = None if lora is None else lora_rows(lora, lora["idx"])
 
     for li in range(c.num_layers):
         layer = _layer(params, li)
-        q, k, v = _qkv(layer, x, c, cos, sin)
+        ll = layer_lora(rows, li)
+        q, k, v = _qkv(layer, x, c, cos, sin, ll)
         kv_write(kv_k, li, phys, offs, k)
         kv_write(kv_v, li, phys, offs, v)
         attn = attend(q, kv_layer(kv_k, li), kv_layer(kv_v, li), page_tables, seq_lens)
-        x = x + qdot(attn.reshape(-1, c.num_heads * c.head_dim), layer["wo"])
+        attn = attn.reshape(-1, c.num_heads * c.head_dim)
+        x = x + proj(attn, qdot(attn, layer["wo"]), ll, "wo")
         x = _mlp(layer, x, c)
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)

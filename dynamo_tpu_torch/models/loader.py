@@ -25,6 +25,7 @@ model.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from pathlib import Path
@@ -39,6 +40,7 @@ from .safetensors_io import INDEX_NAME, SINGLE_NAME, SafetensorsFile, save_file,
 
 __all__ = [
     "config_from_gguf",
+    "depth_from_hf",
     "load_llama_params",
     "load_llama_params_gguf",
     "load_moe_params",
@@ -309,6 +311,29 @@ _GGUF_LAYER_MAP = {
     "ffn_up.weight": ("w_up", True),
     "ffn_down.weight": ("w_down", True),
 }
+
+
+_HF_WIDTHS = {"vocab_size": "vocab_size", "hidden_size": "hidden_size",
+              "intermediate_size": "intermediate_size", "num_attention_heads": "num_heads",
+              "num_key_value_heads": "num_kv_heads"}
+
+
+def depth_from_hf(model_dir: str, config: LlamaConfig) -> LlamaConfig:
+    """`config` with the depth an HF checkpoint's config.json gives
+    (`num_hidden_layers`; the checkpoint may hold the model's first
+    layers). The widths it states must be `config`'s. Without a
+    config.json, `config` as it is."""
+    path = Path(resolve_model_path(model_dir)) / "config.json"
+    if not path.is_file():
+        return config
+    hf = json.loads(path.read_text())
+    for key, field in _HF_WIDTHS.items():
+        if key in hf and int(hf[key]) != getattr(config, field):
+            raise ValueError(f"{path}: {key}={hf[key]}, the model has "
+                             f"{field}={getattr(config, field)}")
+    if "num_hidden_layers" not in hf:
+        return config
+    return dataclasses.replace(config, num_layers=int(hf["num_hidden_layers"]))
 
 
 def config_from_gguf(path_or_content) -> LlamaConfig:

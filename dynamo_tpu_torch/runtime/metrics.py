@@ -79,9 +79,23 @@ METRICS = {
     "mixed_rows_plain": {"kind": "counter", "layer": "engine", "unit": "rows", "help": "Plain prefill/decode rows packed into fused mixed steps.", "export": True},
     "mixed_rows_guided": {"kind": "counter", "layer": "engine", "unit": "rows", "help": "Guided (FSM-masked) rows packed into fused mixed steps.", "export": True},
     "mixed_rows_spec": {"kind": "counter", "layer": "engine", "unit": "rows", "help": "Speculative verify rows packed into fused mixed steps.", "export": True},
+    "mixed_rows_lora": {"kind": "counter", "layer": "engine", "unit": "rows", "help": "LoRA-adapter rows packed into fused mixed steps.", "export": True},
     "mixed_coverage_frac": {"kind": "gauge", "layer": "engine", "unit": "fraction", "help": "Fused steps / (fused + split) dispatch steps (1.0 before any step).", "export": True},
+    # LoRA adapter tier (models/lora_pool.py): fixed-slot device stack
+    # paging adapters device<->host
+    "lora_pool_slots": {"kind": "gauge", "layer": "engine", "unit": "slots", "help": "Configured device adapter slots (DYN_LORA_POOL_SLOTS).", "export": True},
+    "lora_pool_resident": {"kind": "gauge", "layer": "engine", "unit": "adapters", "help": "Adapters currently resident in device slots.", "export": True},
+    "lora_pool_known": {"kind": "gauge", "layer": "engine", "unit": "adapters", "help": "Adapters registered in the host roster.", "export": True},
+    "lora_pool_hits": {"kind": "counter", "layer": "engine", "help": "Adapter acquires served from a resident slot (hot switch).", "export": True},
+    "lora_pool_misses": {"kind": "counter", "layer": "engine", "help": "Adapter acquires that paid a cold onboard.", "export": True},
+    "lora_pool_evictions": {"kind": "counter", "layer": "engine", "help": "Unpinned adapters evicted from device slots (LRU).", "export": True},
+    "lora_pool_refusals": {"kind": "counter", "layer": "engine", "help": "Typed adapter-tier refusals (pinned-full pool or injected onboard fault).", "export": True},
+    "lora_pool_onboard_ms": {"kind": "counter", "layer": "engine", "unit": "ms", "help": "Cumulative adapter onboard latency (mean = sum/count).", "export": True},
+    "lora_pool_onboard_count": {"kind": "counter", "layer": "engine", "help": "Adapter onboard operations.", "export": True},
+    "lora_pool_onboard_ewma_ms": {"kind": "gauge", "layer": "engine", "unit": "ms", "help": "EWMA adapter onboard latency (cold-switch price).", "dynamic": True, "export": True},
     # guided and speculative decoding (llm/guided.py, engine/spec.py)
     "guided_requests": {"kind": "counter", "layer": "engine", "help": "Requests decoded under a guided-decoding FSM.", "export": True},
+    "lora_requests": {"kind": "counter", "layer": "engine", "help": "Requests served through a LoRA adapter.", "export": True},
     "spec_num_drafts": {"kind": "counter", "layer": "engine", "help": "Speculative draft batches proposed.", "export": True},
     "spec_num_draft_tokens": {"kind": "counter", "layer": "engine", "unit": "tokens", "help": "Speculative tokens proposed by the draft model.", "export": True},
     "spec_num_accepted_tokens": {"kind": "counter", "layer": "engine", "unit": "tokens", "help": "Speculative tokens accepted by verification.", "export": True},

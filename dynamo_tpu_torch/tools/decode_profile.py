@@ -4,6 +4,7 @@
                                                     [--kv-quant none|int8|int4]
                                                     [--pool-mode scatter|local]
                                                     [--quantize none|int8]
+                                                    [--lora N]
 
 Runs the engine's decode step (models.llama.decode_forward + sampling, as
 `TorchEngine._dev_block` runs it under decode_pool_mode="scatter"; under
@@ -17,7 +18,12 @@ quantize in place), under `torch.profiler`, and prints one JSON
 line: host wall time per step, device-busy time per step (sum of kernel
 times), the device's idle share, kernel launches per step and the kernels
 that take the most device time (under "local" also the commit's own
-device time). Needs a CUDA device.
+device time). With --lora N it prints the plain step and, beside it, the
+step of the engine's LoRA block (`decode_forward` with the adapter stack,
+pool written in place, as `TorchEngine._dev_block` runs a block with LoRA
+lanes): N random adapters of rank 16 (the largest the smoke serves) in
+the stack, lane i on adapter i % N + 1, with the bytes of the stack the
+deltas read a step. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import time
 import torch
 
 from ..engine.sampling import SamplingParams, sample_lp
-from ..models import llama
+from ..models import llama, lora as lora_mod
 from ..models.quant import is_quant, param_bytes, quantize_tree
 from ..ops.kv_quant import KV_QUANT_MODES, alloc_kv_store, kv_write_all_layers
 
@@ -46,6 +52,7 @@ def main() -> None:
     ap.add_argument("--kv-quant", choices=KV_QUANT_MODES, default="none")
     ap.add_argument("--pool-mode", choices=("scatter", "local"), default="scatter")
     ap.add_argument("--quantize", choices=("none", "int8"), default="none")
+    ap.add_argument("--lora", type=int, default=0, help="adapters spread over the lanes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA device")
@@ -56,15 +63,38 @@ def main() -> None:
     params = llama.init_params(cfg, gen, device=dev)
     if args.quantize == "int8":
         params = quantize_tree(params, consume=True)
-    print(json.dumps(profile(params, cfg, lanes=args.lanes, ctx=args.ctx, steps=args.steps,
-                             kv_quant=args.kv_quant, pool_mode=args.pool_mode)))
+    kw = dict(lanes=args.lanes, ctx=args.ctx, steps=args.steps, kv_quant=args.kv_quant,
+              pool_mode=args.pool_mode)
+    if not args.lora:
+        print(json.dumps(profile(params, cfg, **kw)))
+        return
+    op = lora_operand(cfg, args.lora, args.lanes, args.seed, dev)
+    print(json.dumps({"plain": profile(params, cfg, **kw),
+                      "lora": profile(params, cfg, lora=op, **kw)}))
+
+
+LORA_RANK = 16  # the rank of the profile's adapters
+
+
+def lora_operand(cfg, n_adapters: int, lanes: int, seed: int, dev) -> dict:
+    """A LoRA block's operand: `n_adapters` random adapters of LORA_RANK
+    (from `seed`) stacked on `dev`, lane i on slot i % n_adapters + 1."""
+    gen = torch.Generator().manual_seed(seed)
+    ads = [lora_mod.init_adapter(cfg, f"ad{i}", gen, rank=LORA_RANK) for i in range(n_adapters)]
+    stack = lora_mod.stack_adapters(cfg, ads, device=dev)
+    idx = torch.arange(lanes, device=dev, dtype=torch.int32) % n_adapters + 1
+    return dict(stack, idx=idx)
 
 
 @torch.no_grad()
 def profile(params, cfg, lanes: int = 64, ctx: int = 512, steps: int = 8,
-            kv_quant: str = "none", pool_mode: str = "scatter") -> dict:
+            kv_quant: str = "none", pool_mode: str = "scatter", lora=None) -> dict:
     """The profile of `steps` decode steps of `params` (on the card) as a
-    dict: the JSON line `main` prints."""
+    dict: the JSON line `main` prints. `lora` (an adapter stack with each
+    lane's slot in "idx") profiles the LoRA block's step, which writes the
+    pool in place whatever `pool_mode` says."""
+    if lora is not None:
+        pool_mode = "scatter"
     args = argparse.Namespace(lanes=lanes, ctx=ctx, steps=steps, kv_quant=kv_quant,
                               pool_mode=pool_mode, layers=cfg.num_layers)
     dev = torch.device("cuda")
@@ -100,7 +130,8 @@ def profile(params, cfg, lanes: int = 64, ctx: int = 512, steps: int = 8,
                     kv_k, kv_v, tables, pool_lens)
             else:
                 logits, _, _ = llama.decode_forward(
-                    params, cfg, tokens, positions, kv_k, kv_v, tables, positions + 1)
+                    params, cfg, tokens, positions, kv_k, kv_v, tables, positions + 1,
+                    lora=lora)
             nxt, _, _, _ = sample_lp(logits, samp, positions, raw=logits)
             tokens, positions = nxt.to(torch.int32), positions + 1
         if args.pool_mode == "local":
@@ -150,6 +181,9 @@ def profile(params, cfg, lanes: int = 64, ctx: int = 512, steps: int = 8,
         "card": smi, "layers": args.layers, "lanes": B, "ctx": args.ctx,
         "kv_quant": args.kv_quant, "pool_mode": args.pool_mode,
         "quantize": quantized, "weight_bytes": param_bytes(params),
+        "lora_stack_bytes": None if lora is None else sum(
+            t.numel() * t.element_size() for part in ("a", "b") for t in lora[part].values()),
+        "lora_slots": None if lora is None else int(lora["scale"].numel()),
         "commit_ms_per_block": commit_ms,
         "wall_ms_per_step": round(wall_ms, 3),
         "device_busy_ms_per_step": round(busy_ms, 3),

@@ -50,8 +50,14 @@ penalties and logprobs are then refused. Guided requests (`response_format`
 json_object / json_schema, nvext `guided_choice` / `guided_regex` /
 `guided_json`) are served against the tokenizer the model card advertises.
 
+LoRA: `--lora NAME=PATH` (repeatable) serves an HF PEFT export directory
+as adapter NAME, `--lora NAME=random:SEED` a random adapter drawn from the
+seed; a request selects one with `lora_name` (`nvext.lora_name` at the
+frontend), and the model card lists them. `DYN_LORA_POOL_SLOTS` (default 8)
+device slots hold the resident adapters; a larger roster pages on demand.
+
 Flags keep the reference's names. Those whose feature the port lacks
-(parallelism, multi-host, LoRA) raise
+(parallelism, multi-host) raise
 `UnsupportedConfigError` when set. `--device` (default `cuda`) picks the card; with no CUDA device
 the worker raises instead of running on the CPU, unless `--device cpu`
 asks for it.
@@ -62,7 +68,9 @@ resolves through the local HF hub cache only, never a download), a .gguf
 file, or a directory holding one. A GGUF's own metadata gives the model's
 shape and its embedded vocabulary is the served tokenizer
 (`gguf:<path>` on the model card); otherwise `--model` names the shape.
-Without `--model-path` the weights are random, drawn from `--seed`.
+An HF directory's config.json may give a smaller depth than `--model`'s
+(its first `num_hidden_layers` layers; the widths must agree). Without
+`--model-path` the weights are random, drawn from `--seed`.
 `--quantize int8` stores projections, embedding and head as int8 with
 per-channel scales. The KV pool is auto-sized after the weights are
 resident, so int8 weights leave room for more pages.
@@ -70,6 +78,7 @@ resident, so int8 weights leave room for more pages.
     python -m dynamo_tpu_torch.worker --model llama3-3b --discovery tcp://HOST:PORT
     python -m dynamo_tpu_torch.worker --model llama3-3b --model-path DIR --quantize int8
     python -m dynamo_tpu_torch.worker --model-path FILE.gguf
+    python -m dynamo_tpu_torch.worker --model llama3-3b --lora sql=/adapters/sql --lora demo=random:3
     DYN_SYSTEM_PORT=9100 python -m dynamo_tpu_torch.worker --model llama3-3b \
         --kvbm-host-blocks 256 --kvbm-disk-blocks 512 --kvbm-disk-path /var/kvbm
 """
@@ -92,7 +101,7 @@ from ..llm.kv_transfer import KvDataPlaneServer
 from ..engine.engine import _resolve_model
 from ..llm.model_card import ModelDeploymentCard, card_tokenizer, register_llm
 from ..llm.tokenizers import load_tokenizer
-from ..models.loader import _find_gguf, config_from_gguf, load_llama_params
+from ..models.loader import _find_gguf, config_from_gguf, depth_from_hf, load_llama_params
 from ..models.quant import param_bytes
 from ..runtime import DistributedRuntime, RuntimeConfig, init_logging
 from ..runtime.component import STATE_MORPHING, STATE_READY, Endpoint, ServedEndpoint
@@ -130,7 +139,9 @@ def parse_args(argv=None):
     ap.add_argument("--decode-block-unroll", type=int, default=0,
                     help="accepted for the reference's sake; no effect here")
     ap.add_argument("--lora", action="append", default=[], metavar="NAME=PATH",
-                    help="LoRA adapter (not ported)")
+                    help="serve a LoRA adapter (HF PEFT export dir); repeatable. "
+                    "NAME=random:<seed> makes a random adapter (tests/demos). "
+                    "Select per request via nvext.lora_name.")
     ap.add_argument("--spec", choices=["ngram"], default=None,
                     help="speculative decoding: self-drafting n-gram prompt lookup "
                     "verified in one pass (engine/spec.py)")
@@ -180,8 +191,28 @@ def unsupported_flags(args) -> list:
     bad = [f"--{n.replace('_', '-')}" for n in ("tp_size", "ep_size", "pp_size", "sp_size",
                                                "num_hosts") if getattr(args, n) > 1]
     bad += [f"--{n.replace('_', '-')}" for n in (
-        "lora", "dp_attention", "host_id", "coordinator") if getattr(args, n)]
+        "dp_attention", "host_id", "coordinator") if getattr(args, n)]
     return bad
+
+
+def register_lora_flags(engine: TorchEngine, specs) -> None:
+    """Register the `--lora NAME=PATH|random:SEED` adapters on `engine`."""
+    if not specs:
+        return
+    from ..models import lora as lora_mod
+
+    adapters = []
+    for spec in specs:
+        name, _, src = spec.partition("=")
+        if not src:
+            raise SystemExit(f"--lora expects NAME=PATH, got {spec!r}")
+        if src.startswith("random:"):
+            gen = torch.Generator().manual_seed(int(src.split(":", 1)[1]))
+            adapters.append(lora_mod.init_adapter(engine.model_config, name, gen))
+        else:
+            adapters.append(lora_mod.load_peft_adapter(src, engine.model_config, name=name))
+    engine.register_adapters(adapters)
+    logger.info("LoRA adapters registered: %s", engine.lora_names())
 
 
 def build_engine(args) -> TorchEngine:
@@ -197,7 +228,9 @@ def build_engine(args) -> TorchEngine:
     gguf_path = gguf_checkpoint(args)
     if args.model_path:
         # a GGUF is authoritative for the shape; otherwise --model names it
-        model_config = config_from_gguf(gguf_path) if gguf_path else _resolve_model(args.model)
+        # and an HF config.json may cut its depth
+        model_config = (config_from_gguf(gguf_path) if gguf_path
+                        else depth_from_hf(args.model_path, _resolve_model(args.model)))
         t0 = time.monotonic()
         params = load_llama_params(args.model_path, model_config, quantize=args.quantize,
                                    device=device)
@@ -327,6 +360,8 @@ async def serve(args, engine: Optional[TorchEngine] = None,
     owns_engine = engine is None
     if owns_engine:
         engine = build_engine(args)
+    # before the warmup, which then drives a LoRA request too
+    register_lora_flags(engine, args.lora)
     # events of the warmup are held until the publisher exists
     pending_events: list = []
     engine.allocator.event_sink = pending_events.append
@@ -454,7 +489,7 @@ async def serve(args, engine: Optional[TorchEngine] = None,
                 kv_cache_block_size=args.page_size,
                 context_length=args.context_length or args.max_model_len,
                 migration_limit=args.migration_limit,
-                lora_adapters=[],
+                lora_adapters=engine.lora_names(),
             )
 
         async def apply_lanes(role: str):

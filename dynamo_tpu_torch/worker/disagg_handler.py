@@ -12,8 +12,10 @@ on the prefill path (no prefill worker, a dead one, a refused or failed
 pull, a format mismatch) falls back to a local prefill on this worker, so
 disaggregation is strictly an optimization.
 
-Blocks the engine's KVBM tiers hold — locally or announced by a peer —
-count as cached: they onboard at admission, so recomputing them remotely
+A LoRA request (`lora_name`) is probed on its adapter-salted hash chain,
+and its remote prefill carries `lora_name` to the prefill worker, which must
+serve the adapter too. Blocks the engine's KVBM tiers hold — locally or
+announced by a peer — count as cached: they onboard at admission, so recomputing them remotely
 would waste the prefill pool. Under the `sla` policy the engine's
 estimated local prefill wait (`estimated_prefill_wait_ms`) joins the static
 token threshold: a short prompt still goes remote when the local queue
@@ -27,7 +29,7 @@ from typing import Any, AsyncIterator
 
 from ..llm.disagg import DisaggregatedRouter, unpack_kv_payload
 from ..llm.protocols import Annotated, LLMEngineOutput
-from ..llm.tokens import compute_seq_hashes
+from ..llm.tokens import compute_seq_hashes, salt_hash
 from ..runtime.config import env_bool
 from ..runtime.engine import Context
 from ..runtime.push_router import PushRouter, RouterMode
@@ -46,8 +48,9 @@ async def maybe_remote_prefill(
     prompt = request.get("token_ids") or []
     page_size = engine.config.page_size
     # the cached-prefix probe reads the same hash chain the engine's prefix
-    # cache keys on (LoRA-salted chains are refused by the engine)
-    hashes = compute_seq_hashes(prompt, page_size, 0)
+    # cache keys on: a LoRA request's is salted with its adapter's name
+    salt = salt_hash(request["lora_name"].encode()) if request.get("lora_name") else 0
+    hashes = compute_seq_hashes(prompt, page_size, salt)
     n_cached = len(engine.allocator.cached_prefix(hashes))
     if engine.kvbm is not None and n_cached < len(hashes):
         n_cached += len(engine.kvbm.probe(hashes[n_cached:]))

@@ -178,7 +178,6 @@ def test_stats_keep_reference_key_names(reference):
 @pytest.mark.parametrize("field,value", [
     ("spec_mode", "eagle"),  # "ngram" is served; other modes are not ported
     ("tp_size", 2), ("pp_size", 2), ("sp_size", 2), ("dp_size", 2),
-    ("lora_pool_slots", 4),
     ("role", "aggregated"),
 ])
 def test_unsupported_config_fields_raise(field, value):
@@ -196,8 +195,10 @@ def test_unsupported_config_fields_raise(field, value):
     ("embed", True),
 ])
 def test_unsupported_request_fields_raise(field, value):
-    # guided requests are served, except on a split-only speculative engine
-    extra = dict(spec_mode="ngram", mixed_dispatch=False) if field == "guided" else {}
+    # guided and LoRA requests are served, except on a split-only speculative
+    # engine
+    extra = (dict(spec_mode="ngram", mixed_dispatch=False)
+             if field in ("guided", "lora_name") else {})
     engine = TorchEngine(EngineConfig(**ENGINE_KW, **extra),
                          model_config=tllama.LlamaConfig.tiny(dtype=torch.float32),
                          device="cpu")

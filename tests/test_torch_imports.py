@@ -108,7 +108,7 @@ def test_importing_every_module_builds_nothing_and_pulls_no_jax():
 
 
 @pytest.mark.parametrize("module", ["kvbm.checkpoint", "llm.migration", "llm.guided",
-                                    "engine.spec"])
+                                    "engine.spec", "models.lora", "models.lora_pool"])
 def test_copied_reference_modules_stand_alone(module):
     """The port's own copies of reference modules that hold no JAX: alone in
     a fresh interpreter they pull in neither jax nor the JAX package."""
@@ -137,7 +137,8 @@ def test_walk_finds_every_subpackage():
                      "llm.disagg", "worker.disagg_handler", "models.loader",
                      "models.safetensors_io", "llm.gguf", "kvbm.storage", "kvbm.manager",
                      "kvbm.distributed", "runtime.system_status", "runtime.health_check",
-                     "kvbm.checkpoint", "llm.migration", "llm.guided", "engine.spec"):
+                     "kvbm.checkpoint", "llm.migration", "llm.guided", "engine.spec",
+                     "models.lora", "models.lora_pool"):
         assert f"dynamo_tpu_torch.{expected}" in names
     importlib.import_module("dynamo_tpu_torch.ops._build")
 

@@ -21,6 +21,7 @@ payload)`, in one call; the port's codec leaves the empty segment out.
 """
 
 import asyncio
+import json
 
 import jax
 import jax.numpy as jnp
@@ -293,7 +294,7 @@ def test_port_client_and_discovery_against_reference_endpoint(binary):
 
 @pytest.mark.parametrize("flags", [
     ["--tp-size", "2"], ["--ep-size", "2"], ["--pp-size", "2"], ["--sp-size", "2"],
-    ["--num-hosts", "2"], ["--lora", "a=random:1"],
+    ["--num-hosts", "2"],
     ["--host-id", "1"],
     ["--coordinator", "127.0.0.1:1"], ["--dp-attention"],
 ], ids=lambda f: "_".join(f).lstrip("-"))
@@ -313,6 +314,72 @@ def test_spec_worker_flags_reach_the_engine():
         "ngram", 3, 3, 2)
     assert cfg.block_advance == 8 and engine.hist.shape == (4, cfg.spec_hist)
     run(engine.close())
+
+
+def test_lora_worker_flags_reach_the_engine_and_the_card(weights, tmp_path):
+    """`--lora NAME=random:SEED` and `--lora NAME=DIR` (a PEFT export) reach
+    `register_adapters`, and the model card lists both."""
+    from dynamo_tpu_torch.models import lora as tlora
+    from dynamo_tpu_torch.models.safetensors_io import save_file
+
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    rng = np.random.RandomState(4)
+    d = tmp_path / "peft"
+    d.mkdir()
+    save_file({f"base_model.model.model.layers.{li}.self_attn.q_proj.{ab}.weight":
+               rng.randn(*shape).astype(np.float32)
+               for li in range(cfg.num_layers)
+               for ab, shape in (("lora_A", (4, 64)), ("lora_B", (64, 4)))},
+              d / "adapter_model.safetensors")
+    (d / "adapter_config.json").write_text('{"r": 4, "lora_alpha": 8}')
+
+    async def main():
+        ref, disc = await reference_plane()
+        engine = port_engine(weights)
+        worker, task = await start_worker(disc, engine, "--lora", "ad1=random:3",
+                                          "--lora", f"sql={d}")
+        try:
+            cards = await ref.discovery.get_prefix("v1/mdc/dynamo/backend/generate/tiny-llama/")
+        finally:
+            await stop_worker(worker, task)
+            await engine.close()
+            await ref.close()
+        return cards, engine
+
+    cards, engine = run(main())
+    assert engine.lora_names() == ["ad1", "sql"]
+    card = json.loads(cards[0]["value"])
+    assert card["lora_adapters"] == ["ad1", "sql"]
+    pool = engine._lora_pool
+    want = tlora.init_adapter(cfg, "ad1", torch.Generator().manual_seed(3))
+    assert torch.equal(pool._host["ad1"].a["wo"], want.a["wo"])
+    assert pool._host["sql"].scale == 2.0 and set(pool._host["sql"].a) == {"wq"}
+
+
+def test_model_path_config_json_sets_the_depth(weights, tmp_path):
+    """An HF checkpoint of the model's first layer whose config.json says
+    one layer serves at that depth; a width it contradicts is refused."""
+    from dynamo_tpu_torch.models.loader import save_llama_as_hf
+
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32, num_layers=1)
+    params = params_from_jax(weights, device="cpu")
+    params["layers"] = {k: v[:1] for k, v in params["layers"].items()}
+    save_llama_as_hf(params, cfg, str(tmp_path))
+    (tmp_path / "config.json").write_text('{"num_hidden_layers": 1, "hidden_size": 64}')
+    engine = build_engine(parse_args(["--device", "cpu", "--num-pages", "16",
+                                      "--model-path", str(tmp_path)]))
+    assert engine.model_config.num_layers == 1
+    assert engine.params["layers"]["wq"].shape[0] == 1
+    run(engine.close())
+    (tmp_path / "config.json").write_text('{"num_hidden_layers": 1, "hidden_size": 32}')
+    with pytest.raises(ValueError, match="hidden_size=32"):
+        build_engine(parse_args(["--device", "cpu", "--num-pages", "16",
+                                 "--model-path", str(tmp_path)]))
+
+
+def test_malformed_lora_flag_exits_with_the_references_message():
+    with pytest.raises(SystemExit, match="--lora expects NAME=PATH, got 'ad1'"):
+        run(serve(parse_args(["--device", "cpu", "--num-pages", "16", "--lora", "ad1"])))
 
 
 def test_worker_device_cuda_raises_without_a_card():
