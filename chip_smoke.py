@@ -24,7 +24,7 @@ decode-pool mode and KV format, and checks that every served path went
 through the kernels. The worker phase then serves the same model over the
 wire: in one event loop the port's discovery server, a port worker
 (`dynamo_tpu_torch.worker.serve`) around the engine and a PushRouter
-client, at (scatter, bf16) (28 layers) and (local, int8) (4 layers), 8
+client, at (scatter, bf16) and (local, int8) (4 layers each), 8
 requests each in process and over the wire (tok/s, TTFT, ITL side by
 side; each request alone must stream the same tokens both ways; the
 kernels must carry the wire's traffic; KV events and worker metrics must
@@ -33,7 +33,7 @@ finally `python -m dynamo_tpu_torch.worker --model llama3-3b` as a
 subprocess with its pool auto-sized, which must register, answer a request
 and drain on SIGTERM. The disagg phases split serving between a prefill
 and a decode engine (1,024 pages each) on the worker phase's requests, all
-prefilled remotely: `disagg` (28 layers, bf16, scatter) and
+prefilled remotely: `disagg` (4 layers, bf16, scatter) and
 `disagg_local_int8` (4 layers) put the two engines in this process, the
 KV pages handed over as CUDA tensors through the data plane's in-process
 registry and the decode side driven through its disagg handler (streamed
@@ -43,25 +43,28 @@ first serves the same mix from one aggregated `python -m
 dynamo_tpu_torch.worker` of the same pool (its baseline: the wire without
 the handoff), then runs `--role prefill` and `--role decode` as two
 processes with the handoff over TCP, driven through a PushRouter, and
-pulls one staged prompt across processes. Each checks that every
+pulls one staged prompt across processes (its CLI workers serve the
+4-layer `weights_load` checkpoint, so the worker phase's in-process
+streams are its reference).
+Each checks that every
 request alone streams the same tokens as the aggregated engine, and that
 the prefill side launched only prefill attention and the decode side only
 its decode kernel (per process, from the stats each worker publishes).
 The weights phases: `weights_int8` quantizes the weights to int8 on the
 card (`quantize_tree`), holds the int8 products and the 28-layer f32
 forward to the same over the dequantized weights, and serves the worker
-phase's mix on int8 beside bf16 weights in (scatter, bf16 KV; 28 layers)
-and (local, int8 KV; 4 layers), with one decode step profiled on each (8
-layers); `weights_load` writes the weights' first 8 layers as a BF16
-safetensors checkpoint whose config.json says 8 layers, loads it back bit
+phase's mix on int8 beside bf16 weights in (scatter, bf16 KV; 4 layers)
+and (local, int8 KV; 4 layers), with one decode step profiled on each (4
+layers); `weights_load` writes the weights' first 4 layers as a BF16
+safetensors checkpoint whose config.json says 4 layers, loads it back bit
 for bit (seconds, GB/s, host memory), and `python -m
 dynamo_tpu_torch.worker --model-path <it> --quantize int8` (pool
 auto-sized, its depth from the config.json) must register, stream each request alone as the in-process
-int8 engine does and drain on SIGTERM; `weights_gguf` writes a 4-layer
+int8 engine does and drain on SIGTERM; `weights_gguf` writes a 2-layer
 full-width q8_0 .gguf with a vocabulary, loads it with and without int8,
 holds every matrix to numpy's decode of the file and serves two requests
 from each.
-The KVBM phases: `kvbm` (scatter, bf16 KV, 28 layers) and
+The KVBM phases: `kvbm` (scatter, bf16 KV, 4 layers) and
 `kvbm_local_int8` (4 layers) serve three waves on a 200-page pool — A (8
 sessions of 2,048 tokens, each alone), B (8 other prompts, staggered, which
 push A out of the pool), A2 (each A session extended by a 256-token turn,
@@ -88,21 +91,21 @@ The `spec_guided` phases serve 8 greedy prompts built from repeated
 phrases on a plain engine, a split-spec engine (`spec_mode="ngram"`, mixed
 dispatch off: spec blocks verify on the prefill kernel at B=64, T=5) and a
 fused-spec engine (verify rows on the ragged kernel, a staircase of 5 rows a
-lane) — `spec_guided` at 28 layers, bf16 KV; `spec_guided_int8` and
+lane) — `spec_guided` at 8 layers, bf16 KV; `spec_guided_int8` and
 `spec_guided_int4` at 4 layers — and hold each spec stream equal to the
 plain one, or parted only at a near-tie (the plain logits' top-two gap at
 the first divergent position within SPEC_GAP_ULPS bf16 ulps; in a quantized
 pool both tokens within that plus the pool's quantization shift of the top
 logit); guided choice
 and json_schema requests on the plain and the fused-spec engines must fit
-their constraint, and at 28 layers the ITL of 4 unguided lanes is read
+their constraint, and at 8 layers the ITL of 4 unguided lanes is read
 alone and beside a guided lane. The kernel phase holds the prefill kernel
 at the verify shape and the ragged kernel on the staircase against their
 plain versions in every format and times them (the `@verify` and
 `@staircase` entries of the kernels line).
 The `lora` phase writes a rank-8 and a rank-16 PEFT export, loads them and
 draws a `random:SEED` adapter, and serves 12 requests arriving together (4
-base, 8 over the three adapters; 28 layers, bf16, scatter, mixed on, 4
+base, 8 over the three adapters; 8 layers, bf16, scatter, mixed on, 4
 device slots) beside the same mix all-base on a plain engine: base
 streams must equal the plain engine's, every LoRA stream must differ from
 its base stream and equal its solo run or part at a near-tie
@@ -115,6 +118,26 @@ the same on the CPU and needs LoRA streams equal to their solo runs;
 eviction, a refusal under a pinned slot and an injected `lora.onboard`
 error through an engine and holds its counters to the port's pool on the
 CPU. `worker_subprocess` runs its CLI worker with two `--lora` flags.
+The MoE phases (models/moe.py: the llama attention over the same kernels,
+the top-k capacity-bounded expert MLP): `moe_mlp` holds one Mixtral-width
+MoE MLP layer in f32 on the card to the CPU at 64 and 2,048 tokens that
+overflow the capacity (factor 1.25; equal kept (token, expert, slot) sets,
+outputs within 2e-3); `moe_serve` serves the serve mix on Mixtral-8x7B at
+full width and all 32 layers with int8 weights drawn and quantized on the
+card one matrix at a time, a bf16 KV pool auto-sized in the room left
+(scatter, mixed on), holds one decode step on the served pool through the
+kernels to the same through plain attention (the plain run replaying the
+kernel run's routing) and profiles its decode step (`moe_decode_step`:
+busy ms, launches, wall, the weights' byte bound, the share spent widening
+int8 to bf16); `moe_local_int8` (4 layers, bf16 weights, local pool, int8
+KV) and `gptoss` (gpt-oss-120b widths at 2 layers: top-4 of 128 experts,
+D=64 with 8 query heads a KV head) serve and check the same way; and
+`moe_worker` writes a 2-layer Mixtral-named BF16 checkpoint whose
+config.json gives the depth, and `python -m dynamo_tpu_torch.worker --model
+mixtral-8x7b --model-path <it> --quantize int8` must register, stream 4
+requests alone as an in-process int8 engine of the same weights does, and
+drain on SIGTERM. `moe_launches` gives the MoE phases' share of the
+kernels line's launches.
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -127,6 +150,7 @@ import asyncio
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -141,10 +165,12 @@ if not torch.cuda.is_available():
 import numpy as np  # noqa: E402
 
 from dynamo_tpu_torch.engine import EngineConfig, TorchEngine  # noqa: E402
+from dynamo_tpu_torch.engine.engine import _resolve_model  # noqa: E402
 from dynamo_tpu_torch.llm.protocols import PreprocessedRequest  # noqa: E402
 from dynamo_tpu_torch.llm.tokenizers import ByteTokenizer  # noqa: E402
 from dynamo_tpu_torch.models import llama  # noqa: E402
 from dynamo_tpu_torch.models import loader  # noqa: E402
+from dynamo_tpu_torch.models import moe  # noqa: E402
 from dynamo_tpu_torch.models.quant import (  # noqa: E402
     QMAX,
     dequantize_leaf,
@@ -1248,22 +1274,37 @@ def make_requests(seed: int, vocab: int, lengths, shared_idx, seeded_idx, tag: s
     return reqs, text
 
 
-async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params) -> dict:
-    model_cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=layers)
-    if layers != LAYERS:  # a cut depth: the full model's first layers
+SERVE_LENGTHS = [40, 300, 1500, 120, 700, 64, 1100, 40, 500, 900, 220, 1300]
+
+
+async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params,
+                model: str = "llama3-3b", quantize=None, lengths=SERVE_LENGTHS,
+                seeded_pair: bool = True, before_close=None, **engine_kw) -> dict:
+    """The mix of `lengths` (SERVE_LENGTHS: 12 requests, shared prefix at 1
+    and 8, seeded at 3 and 10; any 8 of them keep 1 and 3) on an engine of
+    `model` at `layers` over `params` (None: the engine's own init from the
+    seed, int8 as it is drawn under `quantize`), with the kernel counts set
+    to 0 just before and read just after. `before_close(engine)` may return
+    more fields for the phase's line; `engine_kw` are more EngineConfig
+    fields."""
+    model_cfg = dataclasses.replace(_resolve_model(model), num_layers=layers)
+    if params is not None and layers != LAYERS:  # a cut depth: the full model's first layers
         params = dict(params, layers={k: v[:layers] for k, v in params["layers"].items()})
+    t0 = time.perf_counter()
     engine = TorchEngine(
-        EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode=mode, kv_quant=kvq),
+        EngineConfig(model=model, seed=seed, decode_pool_mode=mode, kv_quant=kvq,
+                     quantize=quantize, **engine_kw),
         model_config=model_cfg, params=params, device="cuda",
     )
+    init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     n_warm = await engine.warmup()
     warm_s = time.perf_counter() - t0
     # two differently seeded sampled streams in the traffic (3, 10)
+    shared_idx = (1, 8) if len(lengths) > 8 else (1, 6)
     reqs, text = make_requests(
-        seed, model_cfg.vocab_size,
-        [40, 300, 1500, 120, 700, 64, 1100, 40, 500, 900, 220, 1300],
-        shared_idx=(1, 8), seeded_idx=(3, 10), tag="smoke")
+        seed, model_cfg.vocab_size, lengths,
+        shared_idx=shared_idx, seeded_idx=(3, 10), tag=f"{phase}")
 
     # counts to zero just before the main path is driven
     reset_counts()
@@ -1280,7 +1321,7 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
         # the second shared-prefix request arrives once the first has its
         # first token (its prompt pages are committed by then), whatever
         # the host's speed
-        after = records[1]["first"] if i == 8 else None
+        after = records[shared_idx[0]]["first"] if i == shared_idx[1] else None
         tasks.append(asyncio.create_task(run_request(engine, req, rec, after)))
         await asyncio.sleep(STAGGER_S)
     await asyncio.gather(*tasks)
@@ -1288,6 +1329,7 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
     launches = kernel_launches()
     plain = dict(pa.plain_calls)
     stats = engine.stats()
+    peak_gib = round(torch.cuda.max_memory_allocated() / 2**30, 2)
 
     # seeded reproducibility: the same seeded request twice, each alone on
     # the engine (identical dispatch shapes, so the arithmetic is identical)
@@ -1296,19 +1338,21 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
         sampling_options={"temperature": 0.7, "seed": 4242},
     )
     pair = []
-    for run in range(2):
+    for run in range(2 if seeded_pair else 0):
         rec = new_record()
         req = dict(seeded.to_dict(), request_id=f"seeded-{run}")
         await run_request(engine, req, rec)
         pair.append(rec["tokens"])
+    extra = {} if before_close is None else before_close(engine)
     await engine.close()
 
     for i, rec in enumerate(records):
         assert rec["finish"] == "length", f"{phase}: request {i} finished with {rec['finish']}"
         assert len(rec["tokens"]) == MAX_TOKENS, (phase, i, len(rec["tokens"]))
         assert all(0 <= t < model_cfg.vocab_size for t in rec["tokens"]), (phase, i)
-    assert pair[0] == pair[1] and len(pair[0]) == MAX_TOKENS, \
-        f"{phase}: the two runs of the seeded request differ"
+    if seeded_pair:
+        assert pair[0] == pair[1] and len(pair[0]) == MAX_TOKENS, \
+            f"{phase}: the two runs of the seeded request differ"
     check_path_launches(phase, launches, plain, mode, kvq)
     mixed = stats["mixed_steps"] - base["mixed_steps"]
     hits = (stats["kv_prefix_hit_blocks_total"] - base["kv_prefix_hit_blocks_total"]
@@ -1321,10 +1365,12 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
     itl = [x for r in records for x in r["itl_s"]]
     ttft = [r["ttft_s"] for r in records]
     emit(
-        phase, model="llama-3.2-3b", layers=layers, dtype="bfloat16",
+        phase, model="llama-3.2-3b" if model == "llama3-3b" else model, layers=layers,
+        dtype="bfloat16", quantize=quantize or "none", weight_bytes=stats["weight_bytes"],
         decode_pool_mode=mode, kv_quant=kvq, kv_pool_bytes=stats["kv_pool_bytes"],
+        num_pages=stats["kv_total_blocks"],
         requests=len(reqs), prompt_tokens=[len(r["token_ids"]) for r in reqs],
-        max_tokens=MAX_TOKENS, warmup_dispatches=n_warm,
+        max_tokens=MAX_TOKENS, init_s=round(init_s, 3), warmup_dispatches=n_warm,
         warmup_s=round(warm_s, 3), wall_s=round(wall, 3),
         output_tok_s=round(n_out / wall, 1),
         ttft_ms={"p50": round(1e3 * pct(ttft, 50), 2), "p99": round(1e3 * pct(ttft, 99), 2)},
@@ -1332,8 +1378,8 @@ async def serve(seed: int, phase: str, mode: str, kvq: str, layers: int, params)
         mixed_steps=mixed, split_steps=stats["split_steps"] - base["split_steps"],
         prefix_hit_blocks=hits, num_preemptions=stats["num_preemptions"],
         launches={f"{n}/{f}": c for (n, f), c in launches.items() if c},
-        plain_calls=plain, dev_time=dev_time, seeded_pair_equal=True,
-        peak_memory_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
+        plain_calls=plain, dev_time=dev_time, seeded_pair_equal=True if seeded_pair else None,
+        peak_memory_gib=peak_gib, **extra,
     )
     del engine
     torch.cuda.empty_cache()
@@ -1372,10 +1418,14 @@ async def serve_all(seed: int, params) -> dict:
 # phase: worker (the same engine served over the request plane)
 # ---------------------------------------------------------------------- #
 
-# (phase, decode_pool_mode, kv_quant), both at the model's full depth
-# (phase, decode_pool_mode, kv_quant, layers): the int8 path at a cut depth
-# pays for the durable phases' time
-WORKER_PHASES = [("worker", "scatter", "none", LAYERS), ("worker_local_int8", "local", "int8", 4)]
+# (phase, decode_pool_mode, kv_quant, layers): both at a cut depth, which
+# pays for the durable and the MoE phases' time
+# the (scatter, bf16) worker, disagg and disagg_subprocess phases: full
+# width, a cut depth; disagg_subprocess's CLI workers serve the weights_load
+# checkpoint of as many layers, so the worker phase's streams are its reference
+WORKER_LAYERS = 4
+WORKER_PHASES = [("worker", "scatter", "none", WORKER_LAYERS),
+                 ("worker_local_int8", "local", "int8", 4)]
 WORKER_LENGTHS = [40, 300, 1500, 120, 700, 64, 1100, 500]
 
 
@@ -1876,9 +1926,11 @@ async def latest_stats(sub) -> dict:
     return codec.unpack(await sub.get(timeout=10))["stats"]
 
 
-async def disagg_subprocess(seed: int, reference: dict) -> None:
-    """One aggregated `python -m dynamo_tpu_torch.worker` (`--num-pages` as
-    each of the pair), then `--role prefill` and `--role decode` on one card,
+async def disagg_subprocess(seed: int, reference: dict, ckpt: str) -> None:
+    """One aggregated `python -m dynamo_tpu_torch.worker --model-path <the
+    weights_load checkpoint>` (`--num-pages` as each of the pair; WORKER_LAYERS
+    layers, as the worker phase's reference streams), then `--role prefill`
+    and `--role decode` on one card,
     the handoff over TCP on localhost; each deployment driven with the same
     mix through the port's PushRouter. The aggregated worker's run is the
     baseline of the pair: both pay the wire, only the pair the handoff.
@@ -1913,8 +1965,8 @@ async def disagg_subprocess(seed: int, reference: dict) -> None:
                                                      delete=False)
             procs[name] = subprocess.Popen(
                 [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
-                 "--num-pages", str(DISAGG_PAGES), "--seed", str(seed), "--discovery", disc,
-                 *extra],
+                 "--model-path", ckpt, "--num-pages", str(DISAGG_PAGES), "--seed", str(seed),
+                 "--discovery", disc, *extra],
                 cwd=root, env=env, stdout=logs[name], stderr=subprocess.STDOUT,
             )
 
@@ -2108,7 +2160,7 @@ async def disagg_subprocess(seed: int, reference: dict) -> None:
     assert back["remote"] is True and back["tokens"] == reference["alone"][1], \
         "disagg_subprocess: the pair's stream after the morph back differs"
     emit(
-        "disagg_subprocess", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
+        "disagg_subprocess", model="llama-3.2-3b", layers=WORKER_LAYERS, dtype="bfloat16",
         decode_pool_mode="scatter", kv_quant="none", num_pages_each=DISAGG_PAGES,
         requests=len(reqs), seconds_to_ready=round(t_ready, 2),
         aggregated_in_process=reference["metrics"],
@@ -2131,9 +2183,9 @@ async def disagg_subprocess(seed: int, reference: dict) -> None:
 
 
 async def disagg_all(seed: int, params, reference: dict) -> dict:
-    """(scatter, bf16) at full depth against the worker phase's in-process
+    """(scatter, bf16) at WORKER_LAYERS against the worker phase's in-process
     streams, then (local, int8) at 4 layers against its own aggregated run."""
-    launches = await disagg_in_process(seed, "disagg", "scatter", "none", LAYERS, params,
+    launches = await disagg_in_process(seed, "disagg", "scatter", "none", WORKER_LAYERS, params,
                                        reference)
     ref8 = await aggregated_reference(seed, "local", "int8", 4, params, reference["reqs"])
     for key, n in (await disagg_in_process(seed, "disagg_local_int8", "local", "int8", 4,
@@ -2148,8 +2200,8 @@ async def disagg_all(seed: int, params, reference: dict) -> dict:
 # ---------------------------------------------------------------------- #
 
 # (decode_pool_mode, kv_quant, layers) of the weights_int8 serve runs
-# (the scatter run at 8 layers, to pay for the spec_guided phases)
-WEIGHTS_PATHS = [("scatter", "none", 8), ("local", "int8", 4)]
+# (both at 4 layers, to pay for the spec_guided and the MoE phases)
+WEIGHTS_PATHS = [("scatter", "none", 4), ("local", "int8", 4)]
 # int8 projections against the same products over the dequantized weights,
 # per row |a - b|_2 / |b|_2. One bf16 product: the int8 path scales the f32
 # accumulator and rounds once, the dequantized path rounds q * s to bf16
@@ -2159,13 +2211,13 @@ TOL_INT8_QDOT_REL = 1e-2
 # against the same forward over dequantize_leaf(..., float32) weights):
 # only the f32 rounding order of (x @ q) * s against x @ (q * s) differs.
 TOL_INT8_F32_LOGITS_REL = 1e-3
-GGUF_LAYERS = 4  # full width, a cut depth: the .gguf phase
+GGUF_LAYERS = 2  # full width, a cut depth: the .gguf phase
 GGUF_REQUESTS = 2
 LOAD_SHARD_BYTES = 5 * 10**9  # Llama-3.2-3B's published BF16 files: two shards
-# the checkpoint phases' depth: full width, the model's first 8 layers (the
+# the checkpoint phases' depth: full width, the model's first 4 layers (the
 # checkpoint's config.json says so, and the CLI worker reads it)
-LOAD_LAYERS = 8
-PROFILE_LAYERS = 8  # weights_int8_decode_step: full width, a cut depth
+LOAD_LAYERS = WORKER_LAYERS
+PROFILE_LAYERS = 4  # weights_int8_decode_step: full width, a cut depth
 
 
 def cut_depth(params: dict, layers: int) -> dict:
@@ -2448,17 +2500,19 @@ async def weights_load(seed: int, params: dict) -> dict:
          host_rss_before_gib=round(rss_before, 3),
          host_rss_peak_during_load_gib=round(rss.peak, 3),
          host_ru_maxrss_gib=ru_maxrss, int8_weight_bytes=weight_bytes, bf16_weight_bytes=weights)
-    return {"dir": d, "reqs": reqs, "streams": streams}
+    return {"dir": d, "reqs": reqs, "streams": streams, "model": "llama3-3b", "shared": (1, 6),
+            "phase": "weights_load_subprocess", "label": "llama-3.2-3b", "layers": LOAD_LAYERS}
 
 
 async def weights_load_subprocess(seed: int, load: dict) -> dict:
-    """`python -m dynamo_tpu_torch.worker --model-path <the checkpoint>
-    --quantize int8` (pool auto-sized after the int8 weights are resident):
-    it must register, stream each request of the mix alone as the
-    in-process int8 engine did, and drain on SIGTERM. Returns the kernel
-    launches of its traffic (from the stats it publishes)."""
+    """`python -m dynamo_tpu_torch.worker --model <load["model"]> --model-path
+    <the checkpoint> --quantize int8` (pool auto-sized after the int8
+    weights are resident): it must register, stream each request of the mix
+    alone as the in-process int8 engine did, and drain on SIGTERM. Returns
+    the kernel launches of its traffic (from the stats it publishes). The
+    `moe_worker` phase runs it on a Mixtral checkpoint. The caller removes
+    the checkpoint (disagg_subprocess serves the Llama one too)."""
     import os
-    import shutil
     import signal
     import tempfile
     from pathlib import Path
@@ -2482,7 +2536,7 @@ async def weights_load_subprocess(seed: int, load: dict) -> dict:
             METRICS_TOPIC_FMT.format(namespace="dynamo", component="backend"))
         t0 = time.perf_counter()
         proc = subprocess.Popen(
-            [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
+            [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", load["model"],
              "--model-path", load["dir"], "--quantize", "int8", "--num-pages", "0",
              "--seed", str(seed), "--discovery", disc],
             cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT,
@@ -2506,7 +2560,7 @@ async def weights_load_subprocess(seed: int, load: dict) -> dict:
 
         await clear()
         before = await latest_stats(met_sub)
-        recs, wall = await drive(router.generate, load["reqs"], (1, 6))
+        recs, wall = await drive(router.generate, load["reqs"], load["shared"])
         streams = await alone(router.generate, clear, load["reqs"])
         after = await latest_stats(met_sub)
         for i, (a, b) in enumerate(zip(load["streams"], streams)):
@@ -2515,7 +2569,7 @@ async def weights_load_subprocess(seed: int, load: dict) -> dict:
         launches = {tuple(k.split(":", 1)[1].split("/")): n for k, n in calls.items()
                     if k.startswith("kernels:")}
         plain = {k: n for k, n in calls.items() if k.startswith("plain:")}
-        check_path_launches("weights_load_subprocess", launches, plain, "scatter", "none")
+        check_path_launches(load["phase"], launches, plain, "scatter", "none")
         loaded_line = next((ln for ln in Path(log.name).read_text().splitlines()
                             if "loaded " in ln), "")
         t1 = time.perf_counter()
@@ -2531,7 +2585,7 @@ async def weights_load_subprocess(seed: int, load: dict) -> dict:
         await client.close()
         for i, rec in enumerate(recs):
             assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, i
-        emit("weights_load_subprocess", model="llama-3.2-3b", layers=LOAD_LAYERS, quantize="int8",
+        emit(load["phase"], model=load["label"], layers=load["layers"], quantize="int8",
              seconds_to_registration=round(t_reg, 2), worker_load_log=loaded_line[-160:],
              over_the_wire=stream_metrics(recs, wall),
              weight_bytes=after["weight_bytes"], num_pages=after["kv_total_blocks"],
@@ -2546,7 +2600,6 @@ async def weights_load_subprocess(seed: int, load: dict) -> dict:
             proc.wait()
         log.close()
         os.unlink(log.name)
-        shutil.rmtree(load["dir"], ignore_errors=True)
         await drt.close()
         await server.stop()
 
@@ -2659,9 +2712,9 @@ KVBM_PROMPT, KVBM_B_PROMPT, KVBM_TURN, KVBM_OUT = 2048, 1536, 256, 32
 KVBM_SLA_TTFT_MS = 50.0  # the sla run's TTFT target: host spans fit, disk spans do not
 # (phase, decode_pool_mode, kv_quant, with the sla run and the warm restart,
 # layers): the int8 path at a cut depth pays for the durable phases' time
-# `kvbm` at 8 layers (a block is then 2.10 MB, not 7.34), to pay
-# for the spec_guided phases' time
-KVBM_PHASES = [("kvbm", "scatter", "none", True, 8),
+# `kvbm` at 4 layers (a block is then 1.05 MB, not 7.34), to pay
+# for the spec_guided and the MoE phases' time
+KVBM_PHASES = [("kvbm", "scatter", "none", True, 4),
                ("kvbm_local_int8", "local", "int8", False, 4)]
 PEER_PAGES, PEER_TAIL = 1024, 40  # peer prompts: 32 pages + a 40-token tail
 # each peer's host tier holds its own wave (264 blocks) and the other's
@@ -3313,9 +3366,9 @@ class RetryClock:
         return {"resume_gap_ms": gap, "retry_issued_ms": issued}
 
 
-# `durable` at 8 layers (a block is then 2.10 MB), to pay for the
-# spec_guided phases' time
-DURABLE_LAYERS = 8
+# `durable` at 4 layers (a block is then 1.05 MB), to pay for the
+# spec_guided and the MoE phases' time
+DURABLE_LAYERS = 4
 
 
 async def durable(seed: int, params) -> dict:
@@ -3500,7 +3553,8 @@ SPEC_CFG = dict(spec_mode="ngram", spec_draft_len=SPEC_T - 1, spec_ngram=2, spec
 # (phase, kv_quant, layers, dtype): the model's depth in bf16, the quantized
 # pools cut; an f32 run at a cut depth, where shapes round alike and the
 # streams must be the plain ones
-SPEC_PHASES = [("spec_guided", "none", LAYERS, torch.bfloat16),
+SPEC_LAYERS = 8  # the bf16 spec_guided phase: full width, a cut depth
+SPEC_PHASES = [("spec_guided", "none", SPEC_LAYERS, torch.bfloat16),
                ("spec_guided_int8", "int8", 4, torch.bfloat16),
                ("spec_guided_int4", "int4", 4, torch.bfloat16),
                ("spec_guided_f32", "none", 4, torch.float32)]
@@ -3725,7 +3779,7 @@ async def spec_guided(seed: int, params, phase: str, kvq: str, layers: int,
             assert res[arm]["spec_num_drafts"] > 0, (phase, arm)
         if arm == "spec_fused":
             assert res[arm]["mixed_rows_spec"] > 0, f"{phase}: no fused verify rows"
-        if arm == "spec_fused" or (arm == "plain" and layers == LAYERS):
+        if arm == "spec_fused" or (arm == "plain" and layers == SPEC_LAYERS):
             # guided requests (refused typed by a split-only spec engine;
             # on the plain engine at full depth, for the ITL reading)
             reset_counts()
@@ -3739,7 +3793,7 @@ async def spec_guided(seed: int, params, phase: str, kvq: str, layers: int,
             assert g_launch.get(("paged_decode", kvq), 0) > 0, f"{phase}/{arm}: no guided decode"
             assert not any(pa.plain_calls.values()), f"{phase}/{arm}: plain attention ran"
             add_launches(launches[arm], g_launch)
-            if arm == "plain" and layers == LAYERS:
+            if arm == "plain" and layers == SPEC_LAYERS:
                 res[arm]["unguided_itl_ms"] = await guided_itl(engine, cfg.vocab_size, g_reqs[1])
         await engine.close()
         del engine
@@ -3756,7 +3810,7 @@ async def spec_guided(seed: int, params, phase: str, kvq: str, layers: int,
          split_equal_fused=sum(a == b for a, b in zip(streams["spec_split"],
                                                       streams["spec_fused"])),
          divergences=div, arms=res,
-         guided_fsm_cold_s=guided_fsm_cold_s(cfg.vocab_size) if layers == LAYERS else None)
+         guided_fsm_cold_s=guided_fsm_cold_s(cfg.vocab_size) if layers == SPEC_LAYERS else None)
     # the verify shapes' launches: the prefill kernel's in the split arm
     # (spec blocks and prompts), the ragged kernel's in the fused arm
     return {("prefill_attention@verify", kvq): launches["spec_split"].get(("prefill_attention", kvq), 0),
@@ -3787,6 +3841,7 @@ LORA_RANDOM_SEED = 7  # the `random:SEED` adapter
 # this many bf16 ulps at the top logit — the batched and the solo run
 # compute the same rows in GEMMs of other shapes, and bf16 rounds by shape
 LORA_GAP_ULPS = 4
+LORA_LAYERS = 8  # the lora phase: full width, a cut depth
 LORA_SMALL_LAYERS = 4  # the f32 and pool arms: full width, a cut depth
 # the f32 arm's forwards with adapters, card against CPU, per logits row
 # |a - b|_2 / |b|_2: only f32 summation orders differ
@@ -3887,7 +3942,9 @@ async def lora_main(seed: int, params, adapters) -> dict:
     adapters (4 base, 8 LoRA requests): base streams equal, every LoRA
     stream changed by its adapter and equal to its solo run or parted at a
     near-tie; the three kernels carry the LoRA traffic."""
-    cfg = llama.LlamaConfig.llama3_2_3b()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=LORA_LAYERS)
+    params = cut_depth(params, LORA_LAYERS)
+    adapters = [cut_adapter(a, LORA_LAYERS, cfg.dtype) for a in adapters]
     reqs, _ = make_requests(seed, cfg.vocab_size, LORA_LENGTHS, shared_idx=(), seeded_idx=(),
                             tag="lora")
     lreqs = [dict(r, lora_name=n) if n else r for r, n in zip(reqs, LORA_OF)]
@@ -3946,7 +4003,7 @@ async def lora_main(seed: int, params, adapters) -> dict:
                            batched, LORA_GAP_ULPS)
     for arm in arms.values():
         arm.pop("streams")
-    emit("lora", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
+    emit("lora", model="llama-3.2-3b", layers=LORA_LAYERS, dtype="bfloat16",
          decode_pool_mode="scatter", kv_quant="none", lora_pool_slots=LORA_SLOTS,
          adapters={ad.name: {"rank": ad.rank, "scale": ad.scale} for ad in adapters},
          requests=len(reqs), lora_of=LORA_OF, prompt_tokens=LORA_LENGTHS, max_tokens=MAX_TOKENS,
@@ -4171,6 +4228,267 @@ def lora_all(seed: int, params) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# phases: moe_mlp, moe_serve, moe_local_int8, gptoss, moe_worker (the
+# sparse-MoE family: models/moe.py, the llama attention over the same four
+# kernels with the top-k capacity-bounded expert MLP)
+# ---------------------------------------------------------------------- #
+
+MOE_MLP_TOKENS = (64, 2048)  # a decode batch, and a prefill chunk
+MOE_LOCAL_LAYERS = 4
+GPTOSS_LAYERS = 2
+MOE_WORKER_LAYERS = 2
+MOE_WORKER_LENGTHS = [40, 300, 700, 120]
+MOE_PROFILE_STEPS = 2  # the profiled decode steps (each ~0.17 s at int8 Mixtral width)
+GPTOSS_LENGTHS = SERVE_LENGTHS[:8]
+# The MoE serve phases run no seeded pair: an idle decode lane's stale token
+# takes expert capacity like any token (as in the reference), so a stream's
+# tokens may depend on what the engine ran before it.
+TOL_MOE_MLP = 2e-3  # f32, card against CPU: the summation order differs
+# One decode step at a model's depth, kernels against plain attention, with
+# the kernel run's routing replayed in the plain run (so the attention is
+# all that differs), per row |a - b|_2 / |b|_2 of the logits: each layer's
+# bf16 attention output rounds at other places (TOL_FORWARD_REL at 2
+# layers), and the differences add up through the residual stream as a
+# random walk: TOL_FORWARD_REL * sqrt(layers / 2).
+def tol_moe_forward(layers: int) -> float:
+    return TOL_FORWARD_REL * (layers / 2) ** 0.5
+
+
+
+def moe_mlp_layer(cfg, gen) -> dict:
+    """One layer's MoE MLP leaves in f32 on the card, drawn from `gen` at
+    the init's scale (the router and the expert stacks)."""
+    E, H, I = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=DEV) * 0.02
+
+    return {"mlp_norm": torch.ones(H, device=DEV), "router": draw(H, E),
+            "w_gate": draw(E, H, I), "w_up": draw(E, H, I), "w_down": draw(E, I, H)}
+
+
+def kept_set(layer, x, cfg) -> set:
+    """The (token, expert, slot) triples moe_mlp keeps for tokens x."""
+    h = moe.rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+    topi, _, kept, slot = moe.route(h, layer["router"], cfg)
+    C = moe.expert_capacity(x.shape[0], cfg)
+    t, k = torch.nonzero(kept, as_tuple=True)
+    return set(zip(t.tolist(), topi[t, k].tolist(), (slot[t, k] % C).tolist()))
+
+
+@torch.no_grad()
+def phase_moe_mlp(seed: int) -> None:
+    """One Mixtral-width MoE MLP layer in f32 on the card against the same
+    inputs on the CPU, at a decode batch and a prefill chunk whose tokens
+    share a direction, so the two favoured experts overflow their capacity
+    (factor 1.25) and tokens drop: equal kept sets, outputs within
+    TOL_MOE_MLP."""
+    cfg = moe.MoeConfig.mixtral_8x7b(dtype=torch.float32, num_layers=1)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 14)
+    layer = moe_mlp_layer(cfg, gen)
+    host = {k: v.cpu() for k, v in layer.items()}
+    cases = {}
+    for T in MOE_MLP_TOKENS:
+        base = torch.randn((1, cfg.hidden_size), generator=gen, device=DEV)
+        x = base + 0.3 * torch.randn((T, cfg.hidden_size), generator=gen, device=DEV)
+        got = moe.moe_mlp(layer, x, cfg)
+        t0 = time.perf_counter()
+        want = moe.moe_mlp(host, x.cpu(), cfg)
+        cpu_s = time.perf_counter() - t0
+        kept = kept_set(layer, x, cfg)
+        assert kept == kept_set(host, x.cpu(), cfg), f"moe_mlp T={T}: the kept sets differ"
+        err = max_err(got.cpu(), want)
+        assert err <= TOL_MOE_MLP, f"moe_mlp T={T}: {err} > {TOL_MOE_MLP}"
+        cases[f"T{T}"] = {
+            "capacity": moe.expert_capacity(T, cfg), "kept": len(kept),
+            "dropped": T * cfg.num_experts_per_tok - len(kept), "max_abs_err": err,
+            "ms": round(time_ms(lambda: moe.moe_mlp(layer, x, cfg), warm=1, reps=5), 3),
+            "cpu_s": round(cpu_s, 2)}
+    assert all(c["dropped"] > 0 for c in cases.values()), f"moe_mlp: nothing dropped: {cases}"
+    emit("moe_mlp", model="mixtral-8x7b", layers=1, dtype="float32",
+         capacity_factor=cfg.capacity_factor, tol=TOL_MOE_MLP, kept_sets_equal=True, cases=cases)
+
+
+@torch.no_grad()
+def moe_kernels_vs_plain(engine, lanes: int = 8) -> dict:
+    """One decode step of `engine`'s model on its served pool (pages 1..,
+    whatever serving left there), through the kernels and through the
+    plain attention, the second replaying the first's routing (moe.route),
+    so only the attention differs: the logits' largest row error. Under
+    decode_pool_mode="local" the step is decode_forward_local (pool read
+    only, block-local rows at slot 0). Also reported: the same pair with
+    each run routing by itself (a near-tie in any layer's router may then
+    pick another expert), as argmax agreement."""
+    cfg, model = engine.model_config, engine._model
+    ps = engine.config.page_size
+    per = 6  # pages a lane
+    lens = torch.tensor([ps * per - 1 - b * (ps * per // (2 * lanes)) for b in range(lanes)],
+                        dtype=torch.int32, device=DEV)
+    tables = (1 + torch.arange(lanes * per, device=DEV, dtype=torch.int32)).reshape(lanes, per)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    toks = torch.randint(5, cfg.vocab_size, (lanes,), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    local = engine.config.decode_pool_mode == "local"
+
+    def step(plain: bool):
+        if local:
+            loc = torch.zeros((2, cfg.num_layers, lanes, 1, cfg.num_kv_heads, cfg.head_dim),
+                              dtype=cfg.dtype, device=DEV)
+            return model.decode_forward_local(
+                engine.params, cfg, toks, lens - 1, loc[0], loc[1],
+                torch.zeros(1, dtype=torch.int32, device=DEV), engine.kv_k, engine.kv_v,
+                tables, lens - 1, plain_attention=plain)[0]
+        return model.decode_forward(engine.params, cfg, toks, lens - 1, engine.kv_k,
+                                    engine.kv_v, tables, lens, plain_attention=plain)[0]
+
+    routes, orig = [], moe.route
+
+    def record(*args):
+        routes.append(orig(*args))
+        return routes[-1]
+
+    try:
+        moe.route = record
+        kern = step(False)
+        moe.route = lambda *args: routes.pop(0)
+        replayed = step(True)
+        assert not routes, "the plain step routed another number of times"
+        moe.route = orig
+        own = step(True)
+    finally:
+        moe.route = orig
+    max_err(kern, replayed)  # finite
+    err, tol = row_rel_err(kern, replayed), tol_moe_forward(cfg.num_layers)
+    assert err <= tol, f"MoE decode step: kernels vs plain {err} > {tol}"
+    return {"lanes": lanes, "ctx": lens.tolist(), "tol_rel": round(tol, 4),
+            "max_row_rel_err_same_routing": round(err, 6),
+            "argmax_equal_own_routing": int((kern.argmax(-1) == own.argmax(-1)).sum()),
+            "max_row_rel_err_own_routing": round(row_rel_err(kern, own), 6)}
+
+
+async def moe_serve(seed: int) -> dict:
+    """Mixtral-8x7B at full width and depth, int8 weights drawn and
+    quantized on the card one matrix at a time, a bf16 KV pool auto-sized
+    in the room left, scatter pool, mixed on: the serve mix; then the
+    kernels against plain attention on one decode step of the served
+    pool, and the decode step profiled on the same weights (busy ms,
+    launches and wall against the bound of reading the weights once, the
+    share spent widening int8 to bf16)."""
+    cfg = moe.MoeConfig.mixtral_8x7b()
+    held = {}
+
+    def check(engine):
+        held["params"] = engine.params
+        return {"kernels_vs_plain": moe_kernels_vs_plain(engine)}
+
+    launches = await serve(seed, "moe_serve", "scatter", "none", cfg.num_layers, None,
+                           model="mixtral-8x7b", quantize="int8", seeded_pair=False,
+                           before_close=check, num_pages=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prof = decode_profile.profile(held.pop("params"), cfg, steps=MOE_PROFILE_STEPS)
+    emit("moe_decode_step", model="mixtral-8x7b", profile_s=round(time.perf_counter() - t0, 2),
+         **prof)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+async def moe_local_int8(seed: int) -> dict:
+    """Mixtral-8x7B at MOE_LOCAL_LAYERS layers, bf16 weights, the local
+    pool over int8 KV: the serve mix, and the local step's kernels against
+    plain attention on the served pool."""
+    return await serve(seed, "moe_local_int8", "local", "int8", MOE_LOCAL_LAYERS, None,
+                       model="mixtral-8x7b", seeded_pair=False,
+                       before_close=lambda e: {"kernels_vs_plain": moe_kernels_vs_plain(e)})
+
+
+async def gptoss(seed: int) -> dict:
+    """gpt-oss-120b's widths at GPTOSS_LAYERS layers, bf16: top-4 of 128
+    experts, and D=64 with 8 query heads a KV head through the kernels: 8
+    requests, and a decode step's kernels against plain attention."""
+    return await serve(seed, "gptoss", "scatter", "none", GPTOSS_LAYERS, None,
+                       model="gptoss-120b", lengths=GPTOSS_LENGTHS, seeded_pair=False,
+                       before_close=lambda e: {"kernels_vs_plain": moe_kernels_vs_plain(e)})
+
+
+async def moe_worker_checkpoint(seed: int) -> dict:
+    """Mixtral-8x7B's first MOE_WORKER_LAYERS layers (bf16, random from the
+    seed) written as a BF16 Mixtral-named safetensors checkpoint whose
+    config.json says that depth, and each request of a 4-request mix alone
+    on an in-process int8 engine of the same weights: the streams the CLI
+    worker (weights_load_subprocess, phase moe_worker) must reproduce."""
+    import os
+    import tempfile
+
+    cfg = moe.MoeConfig.mixtral_8x7b(num_layers=MOE_WORKER_LAYERS)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 21)
+    params = moe.init_params(cfg, gen, device=DEV)
+    # the checkpoint stores every tensor in BF16, the router too (as
+    # Mixtral's published files do): the in-process weights carry its rounding
+    params["layers"]["router"] = params["layers"]["router"].to(torch.bfloat16).float()
+    d = tempfile.mkdtemp(prefix="smoke_moe_ckpt_")
+    t0 = time.perf_counter()
+    files = loader.save_moe_as_hf(params, cfg, d, dtype=torch.bfloat16,
+                                  max_shard_bytes=LOAD_SHARD_BYTES)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "mixtral", "num_hidden_layers": cfg.num_layers,
+                   "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                   "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+                   "vocab_size": cfg.vocab_size, "num_local_experts": cfg.num_experts,
+                   "num_experts_per_tok": cfg.num_experts_per_tok,
+                   "tie_word_embeddings": cfg.tie_embeddings}, f)
+    write_s = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(d, fn)) for fn in files)
+    qparams = quantize_tree(params, consume=True)
+    del params
+    reqs, _ = make_requests(seed, cfg.vocab_size, MOE_WORKER_LENGTHS, shared_idx=(1, 3),
+                            seeded_idx=(2,), tag="moe_worker")
+    engine = TorchEngine(EngineConfig(model="mixtral-8x7b", seed=seed, quantize="int8"),
+                         model_config=cfg, params=qparams, device="cuda")
+    del qparams
+    await engine.warmup()
+
+    async def local_stream(r):
+        return engine.generate(r, Context())
+
+    async def local_clear():
+        engine.clear_kv_blocks()
+
+    streams = await alone(local_stream, local_clear, reqs)
+    await engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("moe_worker_checkpoint", model="mixtral-8x7b", layers=cfg.num_layers,
+         checkpoint_dtype="BF16", files=files, checkpoint_bytes=on_disk,
+         write_s=round(write_s, 3))
+    return {"dir": d, "reqs": reqs, "streams": streams, "model": "mixtral-8x7b",
+            "shared": (1, 3), "phase": "moe_worker", "label": "mixtral-8x7b",
+            "layers": cfg.num_layers}
+
+
+async def moe_all(seed: int) -> dict:
+    """The MoE phases in the card's room (the smoke's Llama weights freed),
+    each engine closed and freed before the next; the CLI worker's
+    checkpoint and reference streams for moe_worker are made here too.
+    Returns (launches of the served MoE traffic, the moe_worker load)."""
+    total: dict = {}
+    phase_moe_mlp(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fn in (moe_serve, moe_local_int8, gptoss):
+        add_launches(total, await fn(seed))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total, await moe_worker_checkpoint(seed)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4243,17 +4561,30 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    add_launches(launches, asyncio.run(weights_load_subprocess(args.seed, load)))
-    seconds["weights_load"] += time.perf_counter() - t0
-    t0 = time.perf_counter()
-    asyncio.run(worker_subprocess(args.seed))
-    seconds["worker_subprocess"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    asyncio.run(disagg_subprocess(args.seed, reference))
-    seconds["disagg_subprocess"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    asyncio.run(kvbm_peer(args.seed))
-    seconds["kvbm_peer"] = time.perf_counter() - t0
+    moe_launches, moe_load = asyncio.run(moe_all(args.seed))
+    seconds["moe"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        add_launches(launches, asyncio.run(weights_load_subprocess(args.seed, load)))
+        seconds["weights_load"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        asyncio.run(worker_subprocess(args.seed))
+        seconds["worker_subprocess"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        asyncio.run(disagg_subprocess(args.seed, reference, load["dir"]))
+        seconds["disagg_subprocess"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        asyncio.run(kvbm_peer(args.seed))
+        seconds["kvbm_peer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add_launches(moe_launches, asyncio.run(weights_load_subprocess(args.seed, moe_load)))
+        seconds["moe_worker"] = time.perf_counter() - t0
+    finally:
+        for ckpt in (load["dir"], moe_load["dir"]):
+            shutil.rmtree(ckpt, ignore_errors=True)
+    # the MoE phases' share of the kernels line's launches
+    emit("moe_launches", launches={f"{n}/{f}": c for (n, f), c in sorted(moe_launches.items()) if c})
+    add_launches(launches, moe_launches)
 
     line = {"kernels": [
         {

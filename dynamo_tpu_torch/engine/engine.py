@@ -80,6 +80,11 @@ and host reads are the expensive unit:
     pool mode, and the guided single step. The adapter name salts the
     request's block hashes, so the prefix cache, the KV events, the KVBM
     tiers and the checkpointer never share KV across adapters.
+  * model families: a `MoeConfig` model (tiny-moe, mixtral-8x7b,
+    gptoss-120b) runs models/moe.py's forwards, the llama attention path
+    with the top-k expert MLP, on every dispatch above (`self._model`, the
+    reference's family switch); LoRA on an MoE model is refused, as the
+    reference refuses it.
   * estimates: `estimated_prefill_wait_ms`, `estimated_req_ms` and
     `estimated_role_tok_s` read the scheduler's cost model; `stats()`
     publishes them as `sched_est_*`, which admission gates, the disagg
@@ -93,8 +98,8 @@ error when asked for): the multi-host shard handoff, multimodal,
 multi-host, tensor/pipeline/sequence parallelism. The KV pool may be stored at 8 or 4
 bits (`kv_quant`): quantized on write, dequantized inside the attention
 kernels. The weights may be int8 weight-only quantized (`quantize="int8"`,
-models/quant.py): random weights are quantized on the device after their
-init, one layer slice at a time; loaded ones arrive quantized.
+models/quant.py): random weights are quantized on the device as each
+matrix is drawn; loaded ones arrive quantized.
 """
 
 from __future__ import annotations
@@ -118,9 +123,9 @@ import torch
 from ..llm.mocker.kv_manager import KvEvent
 from ..llm.protocols import Annotated, LLMEngineOutput, PreprocessedRequest
 from ..llm.tokens import TokenBlockSequence, salt_hash
-from ..models import llama
+from ..models import llama, moe
 from ..models.lora_pool import LoraPool, LoraPoolError
-from ..models.quant import param_bytes, quantize_tree
+from ..models.quant import is_quant, param_bytes
 from ..ops.hopper_ragged_attention import ragged_tile_q
 from ..ops.paged_attention import attention_counts
 from ..ops.kv_quant import (
@@ -348,14 +353,18 @@ class TorchEngine:
         self._on_cuda = self.device.type == "cuda"
         self.model_config = model_config or _resolve_model(config.model)
         c = self.model_config
+        # family dispatch, as the reference's: MoeConfig subclasses
+        # LlamaConfig, and models/moe.py has the same forward signatures
+        self._model = moe if isinstance(c, moe.MoeConfig) else llama
         if config.quantize not in (None, "", "int8"):
             raise ValueError(f"unknown quantize mode {config.quantize!r}")
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = llama.init_params(c, gen, device=self.device)
-            if config.quantize == "int8":
-                params = quantize_tree(params, consume=True)
+            # int8: each matrix is quantized as it is drawn (the values of
+            # init-then-quantize_tree), so the bf16 tree is never resident
+            params = self._model.init_params(c, gen, device=self.device,
+                                             quantize=config.quantize or None)
         self.params = params
         self.weight_bytes = param_bytes(params)
         # the served vocabulary (workers set it to the model card's tokenizer)
@@ -730,6 +739,8 @@ class TorchEngine:
         dispatches read: registration appends to the roster, and rosters
         larger than the slot count page on demand. In-flight LoRA streams
         keep their slots (they are pinned)."""
+        if isinstance(self.model_config, moe.MoeConfig):
+            raise ValueError("LoRA serving is not supported on MoE models yet")
         if self._lora_pool is None:
             slots = self.config.lora_pool_slots
             if slots is None:
@@ -1670,7 +1681,7 @@ class TorchEngine:
         adapters when `lora` is given)."""
         samp = self._samp(temps, top_ks, top_ps, seeds, pens)
         ctx_d, last_d = self._dev(ctx_lens), self._dev(last_idx)
-        logits, _, _ = llama.prefill_forward_batched(
+        logits, _, _ = self._model.prefill_forward_batched(
             self.params, self.model_config, self._dev(toks), self._dev(positions),
             self.kv_k, self.kv_v, self._dev(tables), ctx_d, last_d,
             lora=self._dev_lora(lora),
@@ -1694,7 +1705,7 @@ class TorchEngine:
         before attention."""
         samp = self._samp(temps, top_ks, top_ps, seeds, pens)
         ctx_d, len_d = self._dev(ctx_lens), self._dev(row_lens)
-        logits, _, _ = llama.ragged_forward(
+        logits, _, _ = self._model.ragged_forward(
             self.params, self.model_config, self._dev(toks), self._dev(positions),
             self._dev(row_ids), self.kv_k, self.kv_v, self._dev(tables),
             self._dev(row_starts), len_d, ctx_d, self._dev(last_flat),
@@ -1783,13 +1794,13 @@ class TorchEngine:
         outs = []
         for j in range(self.config.decode_block_steps):
             if local:
-                logits, _, _ = llama.decode_forward_local(
+                logits, _, _ = self._model.decode_forward_local(
                     self.params, self.model_config, tokens, positions,
                     loc[0], loc[1], self._step_idx[j], self.kv_k, self.kv_v,
                     self._tables_dev, pool_lens,
                 )
             else:
-                logits, _, _ = llama.decode_forward(
+                logits, _, _ = self._model.decode_forward(
                     self.params, self.model_config, tokens, positions,
                     self.kv_k, self.kv_v, self._tables_dev, seq_lens, lora=lora,
                 )
@@ -1827,7 +1838,7 @@ class TorchEngine:
         and carries the LoRA lanes' adapters when `lora` is given."""
         tokens, positions, seq_lens = self._carry
         samp = self._samp_dev._replace(all_greedy=all_greedy, no_penalties=no_penalties)
-        logits, _, _ = llama.decode_forward(
+        logits, _, _ = self._model.decode_forward(
             self.params, self.model_config, tokens, positions,
             self.kv_k, self.kv_v, self._tables_dev, seq_lens, lora=self._dev_lora(lora),
         )
@@ -1867,7 +1878,7 @@ class TorchEngine:
             hist = hist_write(hist, positions, tokens)
             draft = ngram_draft(hist, tokens, positions, cfg.spec_ngram, d)
             chunk = torch.cat([tokens[:, None], draft.to(tokens.dtype)], dim=1)
-            logits, _, _ = llama.prefill_forward_batched(
+            logits, _, _ = self._model.prefill_forward_batched(
                 self.params, c, chunk, positions[:, None] + ar, self.kv_k, self.kv_v,
                 self._tables_dev, positions,  # context: tokens already in KV
                 last_idx, all_logits=True,
@@ -2118,7 +2129,7 @@ class TorchEngine:
         rows' KV (with the stream's adapter under `lora`) and samples the
         token after row `last`."""
         pos_d = self._dev(positions)
-        logits, _, _ = llama.decode_forward(
+        logits, _, _ = self._model.decode_forward(
             self.params, self.model_config, self._dev(toks), pos_d,
             self.kv_k, self.kv_v, self._dev(tables), self._dev(seq_lens),
             lora=self._dev_lora(lora),
@@ -3629,6 +3640,9 @@ MODEL_REGISTRY = {
     "llama3-3b": llama.LlamaConfig.llama3_2_3b,
     "llama3-8b": llama.LlamaConfig.llama3_8b,
     "llama3-70b": llama.LlamaConfig.llama3_70b,
+    "tiny-moe": moe.MoeConfig.tiny_moe,
+    "mixtral-8x7b": moe.MoeConfig.mixtral_8x7b,
+    "gptoss-120b": moe.MoeConfig.gptoss_120b,
 }
 
 
@@ -3649,6 +3663,11 @@ def _auto_num_pages(params, model_cfg: llama.LlamaConfig, config: EngineConfig,
     its fused block makes; this port's scatter block writes the pool in
     place (`index_put_`, and the quantized write's per-page requantize
     touches only the pages written), so both modes size the same.
+
+    A tree with int8 MoE expert stacks keeps `_expert_widen_bytes` more
+    free for `qeinsum`'s transient: two of one layer's stacks widened to
+    the model dtype (2 x 0.94 GB at Mixtral-8x7B width), room for a widen
+    beside the cached block of the one before it and the f32 products.
     """
     util = float(os.environ.get("DYN_HBM_UTILIZATION", "0.85"))
     reserve = int(float(os.environ.get("DYN_HBM_RESERVE_MB", "512")) * 2**20)
@@ -3671,11 +3690,13 @@ def _auto_num_pages(params, model_cfg: llama.LlamaConfig, config: EngineConfig,
             config.page_size, model_cfg.num_kv_heads, model_cfg.head_dim,
             model_cfg.dtype, resolve_kv_quant(config.kv_quant),
         )
-        free = (int(limit * util) - int(in_use) - reserve) // workers
+        headroom = _expert_widen_bytes(params, model_cfg)
+        free = (int(limit * util) - int(in_use) - reserve - headroom) // workers
         n = free // page_bytes
         logger.info(
             "auto-sized KV pool: %d pages (%.2f GiB resident of %.2f GiB free, "
-            "workers/dev=%d)", n, n * page_bytes / 2**30, free / 2**30, workers,
+            "workers/dev=%d, %.2f GiB kept for expert widening)", n,
+            n * page_bytes / 2**30, free / 2**30, workers, headroom / 2**30,
         )
     floor = config.max_num_seqs + 2  # at least one page per decode slot
     if n < floor:
@@ -3685,6 +3706,15 @@ def _auto_num_pages(params, model_cfg: llama.LlamaConfig, config: EngineConfig,
             "halves/quarters bytes per page), or lower max_num_seqs"
         )
     return int(n)
+
+
+def _expert_widen_bytes(params, model_cfg: llama.LlamaConfig) -> int:
+    """Bytes of two of one layer's int8 expert stacks [E, in, out] widened
+    to the model dtype (the largest of w_gate / w_up / w_down); 0 for a
+    tree without quantized expert stacks."""
+    sizes = [leaf["q"][0].numel() for name in ("w_gate", "w_up", "w_down")
+             if is_quant(leaf := params["layers"].get(name)) and leaf["q"].dim() == 4]
+    return 2 * max(sizes) * model_cfg.dtype.itemsize if sizes else 0
 
 
 def _resolve_model(name: str) -> llama.LlamaConfig:

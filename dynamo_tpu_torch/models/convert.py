@@ -7,8 +7,11 @@ dictionary, which keeps the same tree and the same `[in, out]` weight
 orientation. With it both packages compute on the same weights in tests.
 Quantized leaves `{"q", "s"}` (the reference's `quantize_tree` output)
 carry across as they are: `q` stays int8 and `s` f32, whatever `dtype`
-the floating leaves are cast to. `adapter_from_jax` does the same for a
-reference LoRA adapter.
+the floating leaves are cast to. An MoE tree carries across the same way:
+its expert stacks `[L, E, in, out]` (quantized: scales `[L, E, 1, out]`)
+like any layer leaf, and its router stays f32 whatever `dtype` is, as the
+reference keeps it. `adapter_from_jax` does the same for a reference LoRA
+adapter.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ def params_from_jax(tree: Dict[str, Any], dtype: Optional[torch.dtype] = None,
     (floating leaves cast to `dtype` when given)."""
     return {
         "embed": _any_leaf(tree["embed"], dtype, device),
-        "layers": {k: _any_leaf(v, dtype, device) for k, v in tree["layers"].items()},
+        # the MoE router stays f32 (routing decisions are numerically sensitive)
+        "layers": {k: _any_leaf(v, torch.float32 if k == "router" else dtype, device)
+                   for k, v in tree["layers"].items()},
         "final_norm": _leaf(tree["final_norm"], dtype, device),
         "lm_head": None if tree.get("lm_head") is None
         else _any_leaf(tree["lm_head"], dtype, device),

@@ -24,6 +24,9 @@ Products: every projection runs `qdot` in the model dtype (bf16 in, f32
 accumulation, bf16 out); `silu(gate) * up` is evaluated in f32 from those
 outputs; the LM head keeps an f32 output (models/quant.py).
 
+Each forward takes `mlp_fn` ((layer, x, config) -> x, default `_mlp`), the
+reference's hook through which models/moe.py swaps in its sparse MoE MLP.
+
 Multi-LoRA: `prefill_forward_batched`, `ragged_forward` and `decode_forward`
 take `lora=` — the engine's adapter stack (models/lora.py) with `idx`, the
 slot of each lane (each row for the ragged forward). The delta joins the
@@ -33,8 +36,9 @@ wq/wk/wv/wo products (`lora.proj`); slot 0 adds an exact zero. Without
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,7 +55,7 @@ from ..ops.paged_attention import (
     ragged_attention_plain,
 )
 from .lora import layer_lora, lora_rows, proj
-from .quant import embed_rows, head_leaf, is_quant, qdot
+from .quant import embed_rows, empty_quant, head_leaf, is_quant, qdot, quantize_into
 
 
 @dataclass(frozen=True)
@@ -109,20 +113,21 @@ class LlamaConfig:
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                device="cuda", scale: float = 0.02) -> Dict[str, Any]:
+                device="cuda", scale: float = 0.02,
+                quantize: Optional[str] = None) -> Dict[str, Any]:
     """Random-init parameter dictionary drawn from `generator` (which must
-    live on `device`). Leaves are drawn in f32 and cast, one layer leaf at
-    a time, so the transient f32 copy stays small."""
+    live on `device`). Leaves are drawn in f32 and cast, one matrix at a
+    time, so the transient f32 copy stays small. With quantize="int8" each
+    matrix is quantized as soon as it is drawn, so the full-precision tree
+    is never resident: the values equal this init followed by
+    `quantize_tree`, draw for draw."""
     c = config
     q_dim = c.num_heads * c.head_dim
     kv_dim = c.num_kv_heads * c.head_dim
-
-    def dense(shape):
-        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        return (w * scale).to(c.dtype)
+    dense = dense_draw(c, generator, device, scale)
 
     def stacked(shape):
-        return torch.stack([dense(shape) for _ in range(c.num_layers)])
+        return stack_draws((c.num_layers,), lambda: dense(shape), quantize, device)
 
     def ones():
         return torch.ones((c.num_layers, c.hidden_size), dtype=c.dtype, device=device)
@@ -139,11 +144,45 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
         "w_down": stacked((c.intermediate_size, c.hidden_size)),
     }
     return {
-        "embed": dense((c.vocab_size, c.hidden_size)),
+        "embed": stack_draws((), lambda: dense((c.vocab_size, c.hidden_size)), quantize,
+                             device, contract_axis=-1),
         "layers": layers,
         "final_norm": torch.ones((c.hidden_size,), dtype=c.dtype, device=device),
-        "lm_head": None if c.tie_embeddings else dense((c.hidden_size, c.vocab_size)),
+        "lm_head": None if c.tie_embeddings
+        else stack_draws((), lambda: dense((c.hidden_size, c.vocab_size)), quantize, device),
     }
+
+
+def dense_draw(c: LlamaConfig, generator: torch.Generator, device, scale: float):
+    """shape -> one matrix drawn in f32 from `generator`, scaled and cast to
+    the model dtype."""
+    def dense(shape):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w * scale).to(c.dtype)
+
+    return dense
+
+
+def stack_draws(lead: tuple, draw, quantize: Optional[str], device,
+                contract_axis: int = -2):
+    """A leaf [*lead, ...] filled with one `draw()` a matrix, in row-major
+    order of `lead`; under quantize="int8" each matrix is quantized into
+    the int8 leaf as it is drawn (per channel over `contract_axis`)."""
+    if quantize not in (None, "", "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    out = None
+    for idx in itertools.product(*map(range, lead)):
+        w = draw()
+        if out is None:
+            shape = (*lead, *w.shape)
+            out = (empty_quant(shape, device, contract_axis) if quantize
+                   else torch.empty(shape, dtype=w.dtype, device=device))
+        if quantize:
+            quantize_into(out["q"][idx], out["s"][idx], w, contract_axis)
+        else:
+            out[idx].copy_(w)
+        del w
+    return out
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -224,12 +263,14 @@ def prefill_forward_batched(
     plain_attention: bool = False,  # tests: force the plain attention version
     all_logits: bool = False,  # True: [B, T, vocab] (the speculative verify)
     lora=None,  # models/lora.py stack + per-lane "idx" [B]
+    mlp_fn=None,  # (layer, x, config) -> x; models/moe.py passes its MoE MLP
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched chunked prefill: one call processes chunks of SEVERAL
     sequences. Returns (logits_last [B, vocab] f32, kv_k, kv_v) with the
     chunks' KV written into the pages — or every position's logits
     [B, T, vocab] under `all_logits` (engine/spec.py's verify pass)."""
     c = config
+    mlp = mlp_fn or _mlp
     B, T = tokens.shape
     x = embed_rows(params["embed"], tokens, c.dtype)  # [B, T, H]
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
@@ -252,7 +293,7 @@ def prefill_forward_batched(
             total_lens, starts,
         ).reshape(B, T, c.num_heads * c.head_dim)
         x = x + proj(attn, qdot(attn, layer["wo"]), ll, "wo")
-        x = _mlp(layer, x, c)
+        x = mlp(layer, x, c)
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     if all_logits:
@@ -277,6 +318,7 @@ def ragged_forward(
     last_flat: torch.Tensor,  # [R] flat index of each row's LAST real token
     plain_attention: bool = False,
     lora=None,  # models/lora.py stack + PER-ROW "idx" [R]
+    mlp_fn=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The unified mixed-step forward: ONE pass over a flat ragged token
     buffer that packs prefill chunks (row_len > 1) and decode slots
@@ -284,6 +326,7 @@ def ragged_forward(
     kv_k, kv_v) with every row's chunk KV written into its pages; each
     row's last-token logits feed on-device sampling."""
     c = config
+    mlp = mlp_fn or _mlp
     x = embed_rows(params["embed"], tokens, c.dtype)  # [N, H]
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
     page_size = kv_page_size(kv_k)
@@ -304,7 +347,7 @@ def ragged_forward(
             row_starts, row_lens, ctx_lens,
         ).reshape(-1, c.num_heads * c.head_dim)
         x = x + proj(attn, qdot(attn, layer["wo"]), ll, "wo")
-        x = _mlp(layer, x, c)
+        x = mlp(layer, x, c)
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     last = x[last_flat.long()]  # [R, hidden]
@@ -323,10 +366,12 @@ def decode_forward(
     seq_lens: torch.Tensor,  # [B] lengths INCLUDING the new token
     plain_attention: bool = False,
     lora=None,  # models/lora.py stack + per-lane "idx" [B]
+    mlp_fn=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for the whole slot batch; returns
     (logits [B, vocab] f32, kv_k, kv_v)."""
     c = config
+    mlp = mlp_fn or _mlp
     x = embed_rows(params["embed"], tokens, c.dtype)  # [B, H]
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
     page_size = kv_page_size(kv_k)
@@ -345,7 +390,7 @@ def decode_forward(
         attn = attend(q, kv_layer(kv_k, li), kv_layer(kv_v, li), page_tables, seq_lens)
         attn = attn.reshape(-1, c.num_heads * c.head_dim)
         x = x + proj(attn, qdot(attn, layer["wo"]), ll, "wo")
-        x = _mlp(layer, x, c)
+        x = mlp(layer, x, c)
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     logits = qdot(x, head_leaf(params), out_dtype=torch.float32)
@@ -365,6 +410,7 @@ def decode_forward_local(
     page_tables: torch.Tensor,  # [B, max_pages]
     pool_lens: torch.Tensor,  # [B] positions valid in the pool (block-start len)
     plain_attention: bool = False,
+    mlp_fn=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step that does NOT write the KV pool: each layer's new
     K/V go into its block-local buffer at `step_idx` (in place), and
@@ -372,6 +418,7 @@ def decode_forward_local(
     `step_idx` stays on the device, so no step needs a host value. Returns
     (logits [B, vocab] f32, loc_k, loc_v)."""
     c = config
+    mlp = mlp_fn or _mlp
     x = embed_rows(params["embed"], tokens, c.dtype)  # [B, H]
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
     slot = step_idx.reshape(1).long()
@@ -388,7 +435,7 @@ def decode_forward_local(
             loc_k[li], loc_v[li], step_idx,
         )
         x = x + qdot(attn.reshape(-1, c.num_heads * c.head_dim), layer["wo"])
-        x = _mlp(layer, x, c)
+        x = mlp(layer, x, c)
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
     logits = qdot(x, head_leaf(params), out_dtype=torch.float32)

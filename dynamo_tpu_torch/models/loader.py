@@ -1,12 +1,15 @@
-"""Checkpoint loading into the port's llama parameter tree.
+"""Checkpoint loading into the port's llama and MoE parameter trees.
 
-Port of `dynamo_tpu/models/loader.py` for the dense llama family: HF
-safetensors checkpoints (one file, or shards behind
-`model.safetensors.index.json`) and .gguf files (f32 / f16 / q8_0), each
-optionally quantized to int8 weight-only leaves on load
-(`quantize="int8"`, models/quant.py). HF stores a linear weight
+Port of `dynamo_tpu/models/loader.py`: HF safetensors checkpoints (one
+file, or shards behind `model.safetensors.index.json`) and .gguf files
+(f32 / f16 / q8_0), each optionally quantized to int8 weight-only leaves
+on load (`quantize="int8"`, models/quant.py). HF stores a linear weight
 [out_features, in_features]; the tree holds [in, out] (x @ W), so
-projections transpose on load.
+projections transpose on load. MoE checkpoints (`load_moe_params`) use
+Mixtral's naming (`block_sparse_moe.gate`, `experts.N.w1/w3/w2`) or, in a
+.gguf, llama.cpp's (`ffn_gate_inp`, `ffn_{gate,up,down}_exps`); their
+expert stacks load as [L, E, in, out] (int8: one (layer, expert) matrix
+at a time, scales [L, E, 1, out]) and the router stays f32.
 
 Memory: every layer-stacked leaf is allocated once on the target device
 at its full [L, ...] size and filled one layer at a time — a layer is read
@@ -19,13 +22,13 @@ in host memory.
 Model resolution is offline: a local path is used as it is, and an HF
 repo id `org/name` resolves only through the HF hub cache's on-disk layout
 (`models--org--name/refs/<revision>` -> `snapshots/<hash>`). Nothing is
-ever downloaded. MoE checkpoints are refused until the port has the MoE
-model.
+ever downloaded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 from pathlib import Path
@@ -35,7 +38,8 @@ import torch
 
 from ..engine.config import UnsupportedConfigError
 from .llama import LlamaConfig
-from .quant import _LAYER_LEAVES, is_quant, quantize_into
+from .moe import MoeConfig
+from .quant import _LAYER_LEAVES, empty_quant, is_quant, quantize_into
 from .safetensors_io import INDEX_NAME, SINGLE_NAME, SafetensorsFile, save_file, save_sharded
 
 __all__ = [
@@ -47,6 +51,7 @@ __all__ = [
     "resolve_model_path",
     "save_llama_as_gguf",
     "save_llama_as_hf",
+    "save_moe_as_hf",
 ]
 
 
@@ -149,7 +154,7 @@ def _open_checkpoint(model_dir: str) -> _Checkpoint:
 
 
 class _Filler:
-    """Device leaves filled layer by layer from host tensors, each read by
+    """Device leaves filled matrix by matrix from host tensors, each read by
     `get(name)` and dropped once copied."""
 
     def __init__(self, config: LlamaConfig, quantize: Optional[str], device,
@@ -159,30 +164,35 @@ class _Filler:
         self.c, self.quantize, self.device = config, quantize, torch.device(device)
         self.get = get
 
-    def stacked(self, key: str, fmt: str, transpose: bool):
-        """[L, ...] leaf of `key` from the tensors `fmt.format(li=li)`,
-        stored [out, in] when `transpose`."""
+    def stacked(self, key: str, fmt: str, transpose: bool, experts: int = 0):
+        """[L, ...] leaf of `key` from the tensors `fmt.format(li=li)`, or an
+        expert stack [L, E, ...] from `fmt.format(li=li, e=e)` when
+        `experts`; each stored with its last two axes [out, in] when
+        `transpose`. A tensor may itself hold a layer's experts (GGUF)."""
         out = None
-        for li in range(self.c.num_layers):
-            name = fmt.format(li=li)
+        lead = (self.c.num_layers, experts) if experts else (self.c.num_layers,)
+        for idx in itertools.product(*map(range, lead)):
+            name = fmt.format(li=idx[0], e=idx[-1])
             t = self.get(name).to(self.device)
             if transpose:
-                t = t.t()
+                t = t.transpose(-1, -2)
             if out is None:
-                out = self._alloc(key, (self.c.num_layers, *t.shape))
+                out = self._alloc(key, (*lead, *t.shape))
             if is_quant(out):
-                quantize_into(out["q"][li], out["s"][li], t)
+                # one matrix at a time (a GGUF layer tensor holds E of them)
+                for j in itertools.product(*map(range, t.shape[:-2])):
+                    quantize_into(out["q"][idx + j], out["s"][idx + j], t[j])
             else:
-                out[li].copy_(t)
+                out[idx].copy_(t)
             del t
         return out
 
     def _alloc(self, key: str, shape: tuple):
         if self.quantize == "int8" and key in _LAYER_LEAVES:
-            return {"q": torch.empty(shape, dtype=torch.int8, device=self.device),
-                    "s": torch.empty((*shape[:-2], 1, shape[-1]), dtype=torch.float32,
-                                     device=self.device)}
-        return torch.empty(shape, dtype=self.c.dtype, device=self.device)
+            return empty_quant(shape, self.device)
+        # the MoE router stays f32 (routing decisions are numerically sensitive)
+        dtype = torch.float32 if key == "router" else self.c.dtype
+        return torch.empty(shape, dtype=dtype, device=self.device)
 
     def single(self, name: str, quant: bool, contract_axis: int = -2, transpose: bool = False):
         """A whole leaf: the embedding (per-row scales, contract_axis=-1),
@@ -191,10 +201,7 @@ class _Filler:
         if transpose:
             t = t.t()
         if quant and self.quantize == "int8":
-            s_shape = list(t.shape)
-            s_shape[contract_axis] = 1
-            out = {"q": torch.empty(t.shape, dtype=torch.int8, device=self.device),
-                   "s": torch.empty(s_shape, dtype=torch.float32, device=self.device)}
+            out = empty_quant(t.shape, self.device, contract_axis)
             quantize_into(out["q"], out["s"], t, contract_axis)
         else:
             out = torch.empty(t.shape, dtype=self.c.dtype, device=self.device)
@@ -215,6 +222,17 @@ _HF_LAYER = {
     "w_down": ("model.layers.{li}.mlp.down_proj.weight", True),
 }
 
+# Mixtral naming: the dense MLP's three leaves give way to the router and
+# the expert stacks (w1 = gate, w3 = up, w2 = down), indexed by {e}
+_HF_MOE_LAYER = {
+    **{k: v for k, v in _HF_LAYER.items() if k not in ("w_gate", "w_up", "w_down")},
+    "router": ("model.layers.{li}.block_sparse_moe.gate.weight", True),
+    "w_gate": ("model.layers.{li}.block_sparse_moe.experts.{e}.w1.weight", True),
+    "w_up": ("model.layers.{li}.block_sparse_moe.experts.{e}.w3.weight", True),
+    "w_down": ("model.layers.{li}.block_sparse_moe.experts.{e}.w2.weight", True),
+}
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
 
 def load_llama_params(model_dir: str, config: LlamaConfig, quantize: Optional[str] = None,
                       device="cuda") -> Dict[str, Any]:
@@ -230,12 +248,38 @@ def load_llama_params(model_dir: str, config: LlamaConfig, quantize: Optional[st
         return load_llama_params_gguf(gg, config, quantize=quantize, device=device)
     r = _open_checkpoint(model_dir)
     if any("block_sparse_moe" in k or ".mlp.experts." in k for k in r.keys()):
-        raise UnsupportedConfigError(
-            f"{model_dir}: an MoE checkpoint; the PyTorch/CUDA port loads dense llama only")
+        raise ValueError(f"{model_dir}: an MoE checkpoint; load it with load_moe_params "
+                         "and an MoE model (--model mixtral-8x7b)")
+    return _load_hf(r, config, _HF_LAYER, quantize, device)
+
+
+def load_moe_params(model_dir: str, config, quantize: Optional[str] = None,
+                    device="cuda") -> Dict[str, Any]:
+    """Load an HF Mixtral-family checkpoint (block_sparse_moe.gate +
+    experts.N.w1/w2/w3) into the models/moe.py tree on `device`.
+    `quantize="int8"` covers the attention projections, embedding and head
+    AND the expert stacks (per (layer, expert) out-channel scales, one
+    matrix at a time); the f32 router stays f32. A .gguf path takes the
+    GGUF branch (ffn_*_exps / ffn_gate_inp naming)."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if not isinstance(config, MoeConfig):
+        raise ValueError(f"load_moe_params needs an MoeConfig, got {type(config).__name__}")
+    gg = _find_gguf(model_dir)
+    if gg is not None:
+        return load_llama_params_gguf(gg, config, quantize=quantize, device=device)
+    return _load_hf(_open_checkpoint(model_dir), config, _HF_MOE_LAYER, quantize, device)
+
+
+def _load_hf(r: _Checkpoint, config: LlamaConfig, layer_names: dict,
+             quantize: Optional[str], device) -> Dict[str, Any]:
+    """The tree of checkpoint `r` in the naming `layer_names` (tree key ->
+    (HF name, transpose); a name with {e} is an expert stack)."""
+    experts = config.num_experts if isinstance(config, MoeConfig) else 0
     fill = _Filler(config, quantize, device, r.get)
     params: Dict[str, Any] = {
-        "layers": {key: fill.stacked(key, fmt, transpose)
-                   for key, (fmt, transpose) in _HF_LAYER.items()},
+        "layers": {key: fill.stacked(key, fmt, transpose, experts if "{e}" in fmt else 0)
+                   for key, (fmt, transpose) in layer_names.items()},
         # per-ROW scale: rows gather as output vectors, and the transpose
         # doubles as the tied lm_head (quant.head_leaf)
         "embed": fill.single("model.embed_tokens.weight", quant=True, contract_axis=-1),
@@ -248,12 +292,6 @@ def load_llama_params(model_dir: str, config: LlamaConfig, quantize: Optional[st
     return params
 
 
-def load_moe_params(model_dir: str, config, quantize: Optional[str] = None, device="cuda"):
-    """MoE checkpoints wait for the port's MoE model."""
-    raise UnsupportedConfigError(
-        "MoE checkpoints are not loaded by the PyTorch/CUDA port yet (dense llama only)")
-
-
 def save_llama_as_hf(params: Dict[str, Any], config: LlamaConfig, out_dir: str,
                      dtype: torch.dtype = torch.float32,
                      max_shard_bytes: Optional[int] = None) -> list:
@@ -263,14 +301,27 @@ def save_llama_as_hf(params: Dict[str, Any], config: LlamaConfig, out_dir: str,
     BF16 shards behind `model.safetensors.index.json`). Leaves may live on
     any device: each tensor reaches the host only while it is written.
     Returns the file names."""
+    return _save_hf(params, config, out_dir, _HF_LAYER, dtype, max_shard_bytes)
+
+
+def save_moe_as_hf(params: Dict[str, Any], config, out_dir: str,
+                   dtype: torch.dtype = torch.float32,
+                   max_shard_bytes: Optional[int] = None) -> list:
+    """Export a models/moe.py tree (unquantized) in Mixtral's HF naming, as
+    `save_llama_as_hf` does; the router is written in `dtype` too."""
+    return _save_hf(params, config, out_dir, _HF_MOE_LAYER, dtype, max_shard_bytes)
+
+
+def _save_hf(params, config, out_dir, layer_names, dtype, max_shard_bytes) -> list:
     c = config
     os.makedirs(out_dir, exist_ok=True)
     L = params["layers"]
     tensors: Dict[str, torch.Tensor] = {"model.embed_tokens.weight": params["embed"]}
     for li in range(c.num_layers):
-        for key, (fmt, transpose) in _HF_LAYER.items():
-            t = L[key][li]
-            tensors[fmt.format(li=li)] = t.t() if transpose else t
+        for key, (fmt, transpose) in layer_names.items():
+            for e in range(c.num_experts if "{e}" in fmt else 1):
+                t = L[key][li, e] if "{e}" in fmt else L[key][li]
+                tensors[fmt.format(li=li, e=e)] = t.t() if transpose else t
     tensors["model.norm.weight"] = params["final_norm"]
     if params.get("lm_head") is not None:
         tensors["lm_head.weight"] = params["lm_head"].t()
@@ -312,10 +363,23 @@ _GGUF_LAYER_MAP = {
     "ffn_down.weight": ("w_down", True),
 }
 
+# MoE ggufs (llama.cpp naming): stacked expert tensors [E, out, in] and the
+# router; "transpose" swaps the last two axes
+_GGUF_MOE_LAYER_MAP = {
+    **{k: v for k, v in _GGUF_LAYER_MAP.items()
+       if k not in ("ffn_gate.weight", "ffn_up.weight", "ffn_down.weight")},
+    "ffn_gate_inp.weight": ("router", True),
+    "ffn_gate_exps.weight": ("w_gate", True),
+    "ffn_up_exps.weight": ("w_up", True),
+    "ffn_down_exps.weight": ("w_down", True),
+}
+
 
 _HF_WIDTHS = {"vocab_size": "vocab_size", "hidden_size": "hidden_size",
               "intermediate_size": "intermediate_size", "num_attention_heads": "num_heads",
-              "num_key_value_heads": "num_kv_heads"}
+              "num_key_value_heads": "num_kv_heads",
+              # Mixtral's config.json
+              "num_local_experts": "num_experts", "num_experts_per_tok": "num_experts_per_tok"}
 
 
 def depth_from_hf(model_dir: str, config: LlamaConfig) -> LlamaConfig:
@@ -328,7 +392,7 @@ def depth_from_hf(model_dir: str, config: LlamaConfig) -> LlamaConfig:
         return config
     hf = json.loads(path.read_text())
     for key, field in _HF_WIDTHS.items():
-        if key in hf and int(hf[key]) != getattr(config, field):
+        if key in hf and int(hf[key]) != getattr(config, field, hf[key]):
             raise ValueError(f"{path}: {key}={hf[key]}, the model has "
                              f"{field}={getattr(config, field)}")
     if "num_hidden_layers" not in hf:
@@ -337,9 +401,10 @@ def depth_from_hf(model_dir: str, config: LlamaConfig) -> LlamaConfig:
 
 
 def config_from_gguf(path_or_content) -> LlamaConfig:
-    """LlamaConfig from a .gguf file's metadata and tensor shapes (the
-    checkpoint is authoritative; no registry entry needed). Accepts a path
-    or an already-parsed GgufContent."""
+    """LlamaConfig (an MoeConfig for a file with `ffn_gate_inp` routers) from
+    a .gguf file's metadata and tensor shapes (the checkpoint is
+    authoritative; no registry entry needed). Accepts a path or an
+    already-parsed GgufContent."""
     from ..llm.gguf import GgufContent, read_gguf
 
     g = (path_or_content if isinstance(path_or_content, GgufContent)
@@ -347,10 +412,8 @@ def config_from_gguf(path_or_content) -> LlamaConfig:
     emb = g.tensors.get("token_embd.weight")
     if emb is None:
         raise ValueError(f"{g.path}: no token_embd.weight tensor")
-    if "blk.0.ffn_gate_inp.weight" in g.tensors:
-        raise UnsupportedConfigError(
-            f"{g.path}: an MoE gguf; the PyTorch/CUDA port loads dense llama only")
     vocab, hidden = emb.shape
+    is_moe = "blk.0.ffn_gate_inp.weight" in g.tensors
     # critical geometry must come from the file: silently defaulting
     # layers/heads would serve a truncated model as garbage tokens
     if not g.num_layers or not g.num_heads:
@@ -361,11 +424,23 @@ def config_from_gguf(path_or_content) -> LlamaConfig:
     heads = int(g.num_heads)
     meta = g.metadata
     arch = g.architecture or "llama"
-    gate = g.tensors.get("blk.0.ffn_gate.weight")
-    return LlamaConfig(
+    gate = g.tensors.get("blk.0.ffn_gate_exps.weight" if is_moe else "blk.0.ffn_gate.weight")
+    cls, extra = LlamaConfig, {}
+    if is_moe:
+        n_exp = meta.get(f"{arch}.expert_count")
+        n_used = meta.get(f"{arch}.expert_used_count")
+        if not n_exp or not n_used:
+            # silently defaulting top-k would route the wrong number of
+            # experts and degrade output with no error anywhere
+            raise ValueError(f"{g.path}: MoE gguf missing {arch}.expert_count / "
+                             f".expert_used_count metadata")
+        cls, extra = MoeConfig, dict(num_experts=int(n_exp), num_experts_per_tok=int(n_used))
+    return cls(
+        **extra,
         vocab_size=int(vocab),
         hidden_size=int(hidden),
-        intermediate_size=int(gate.shape[0]) if gate is not None else 4 * hidden,
+        # [E, out, in] expert stacks, [out, in] dense matrices (numpy order)
+        intermediate_size=int(gate.shape[-2]) if gate is not None else 4 * hidden,
         num_layers=int(g.num_layers),
         num_heads=heads,
         num_kv_heads=int(g.num_kv_heads or heads),
@@ -380,11 +455,11 @@ def config_from_gguf(path_or_content) -> LlamaConfig:
 def save_llama_as_gguf(params: Dict[str, Any], config: LlamaConfig, path: str,
                        tensor_type: Optional[int] = None, tokens: Optional[list] = None,
                        name: str = "llama") -> None:
-    """Export a models/llama.py tree as a llama.cpp-named .gguf file (the
-    metadata `config_from_gguf` reads back), every matrix in `tensor_type`
-    (default q8_0; norms stay f32), with `tokens` as the embedded
-    vocabulary (bos 1, eos 2). Each tensor reaches the host as f32 while
-    it is encoded."""
+    """Export a models/llama.py (or unquantized models/moe.py) tree as a
+    llama.cpp-named .gguf file (the metadata `config_from_gguf` reads
+    back), every matrix in `tensor_type` (default q8_0; norms and an MoE
+    router stay f32), with `tokens` as the embedded vocabulary (bos 1,
+    eos 2). Each tensor reaches the host as f32 while it is encoded."""
     from ..llm.gguf import GGML_F32, GGML_Q8_0, write_gguf
 
     c = config
@@ -397,21 +472,25 @@ def save_llama_as_gguf(params: Dict[str, Any], config: LlamaConfig, path: str,
         "llama.attention.key_length": c.head_dim, "llama.rope.freq_base": float(c.rope_theta),
         "llama.attention.layer_norm_rms_epsilon": float(c.rms_norm_eps),
     }
+    is_moe = isinstance(c, MoeConfig)
+    if is_moe:
+        meta.update({"llama.expert_count": c.num_experts,
+                     "llama.expert_used_count": c.num_experts_per_tok})
     if tokens:
         meta.update({"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": list(tokens),
                      "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2})
 
     def host(t, transpose=False):
-        t = t.t() if transpose else t
+        t = t.transpose(-1, -2) if transpose else t
         return t.detach().to(device="cpu", dtype=torch.float32).contiguous().numpy()
 
     tensors: Dict[str, Any] = {"token_embd.weight": host(params["embed"])}
     types = {"token_embd.weight": ttype}
     for li in range(c.num_layers):
-        for suffix, (key, transpose) in _GGUF_LAYER_MAP.items():
+        for suffix, (key, transpose) in (_GGUF_MOE_LAYER_MAP if is_moe else _GGUF_LAYER_MAP).items():
             name_li = f"blk.{li}.{suffix}"
             tensors[name_li] = host(params["layers"][key][li], transpose)
-            types[name_li] = ttype if transpose else GGML_F32
+            types[name_li] = ttype if transpose and key != "router" else GGML_F32
     tensors["output_norm.weight"] = host(params["final_norm"])
     if params.get("lm_head") is not None:
         tensors["output.weight"] = host(params["lm_head"], transpose=True)
@@ -421,18 +500,21 @@ def save_llama_as_gguf(params: Dict[str, Any], config: LlamaConfig, path: str,
 
 def load_llama_params_gguf(path, config: Optional[LlamaConfig] = None,
                            quantize: Optional[str] = None, device="cuda") -> Dict[str, Any]:
-    """Load a .gguf llama-family checkpoint into the models/llama.py tree.
-    Tensors decode to f32 on read (q8_0 included), then cast to the model
-    dtype, or requantize per channel under quantize="int8" (GGUF's
-    per-32-element q8_0 groups are not the engine's per-channel scheme)."""
+    """Load a .gguf llama-family checkpoint into the models/llama.py tree,
+    or an MoE one (an MoeConfig) into the models/moe.py tree (each layer's
+    `ffn_*_exps` tensor holds its E expert matrices). Tensors decode to f32
+    on read (q8_0 included), then cast to the model dtype, or requantize
+    per channel under quantize="int8" (GGUF's per-32-element q8_0 groups
+    are not the engine's per-channel scheme); the router stays f32."""
     from ..llm.gguf import load_tensor, read_gguf
 
     g = read_gguf(path, with_tensors=True)
     c = config or config_from_gguf(g)
+    layer_map = _GGUF_MOE_LAYER_MAP if isinstance(c, MoeConfig) else _GGUF_LAYER_MAP
     fill = _Filler(c, quantize, device, lambda name: torch.from_numpy(load_tensor(g, name)))
     params: Dict[str, Any] = {
         "layers": {key: fill.stacked(key, "blk.{li}." + suffix, transpose)
-                   for suffix, (key, transpose) in _GGUF_LAYER_MAP.items()},
+                   for suffix, (key, transpose) in layer_map.items()},
         "embed": fill.single("token_embd.weight", quant=True, contract_axis=-1),
         "final_norm": fill.single("output_norm.weight", quant=False),
     }

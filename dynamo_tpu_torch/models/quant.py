@@ -1,9 +1,9 @@
 """Matrix products over raw or int8 weight-only quantized weights.
 
-Port of `dynamo_tpu/models/quant.py` (all but the MoE expert product
-`qeinsum` and the mesh-only `scale_sharding`): the symmetric-range
-primitives the quantized KV cache shares (`QMAX`, `pack_int4`,
-`unpack_int4`), and int8 weight-only quantization of the llama tree.
+Port of `dynamo_tpu/models/quant.py` (all but the mesh-only
+`scale_sharding`): the symmetric-range primitives the quantized KV cache
+shares (`QMAX`, `pack_int4`, `unpack_int4`), and int8 weight-only
+quantization of the llama and MoE trees, expert stacks included.
 
 A quantized leaf is the reference's pytree node
     {"q": int8 [..., in, out], "s": float32 [..., 1, out]}
@@ -25,6 +25,13 @@ by the scale, and only then cast: the scale multiplies the f32 accumulator
 before any rounding, as in the reference. The int8 operand is widened to
 the activations' type (exact: |q| <= 127) ahead of an ordinary GEMM, in
 eager torch ops; a fused weight-only int8 GEMM is future work.
+
+The MoE expert product `qeinsum` keeps the reference's f32 output in both
+branches (its `preferred_element_type=f32`): a batched product over the
+expert axis whose quantized stack's scale `[E, 1, out]` multiplies the f32
+result. On the card a bf16 `bmm` writes that f32 output straight from its
+f32 accumulator (`out_dtype`), as XLA does; on the CPU the bf16 operands
+are widened to f32 first, which is exact.
 """
 
 from __future__ import annotations
@@ -120,19 +127,23 @@ def quantize_into(q_out: torch.Tensor, s_out: torch.Tensor, w: torch.Tensor,
         s_out.narrow(keep, a, part.shape[keep]).copy_(ql["s"])
 
 
-def _quantize_leaf(w: torch.Tensor, contract_axis: int = -2) -> Dict[str, torch.Tensor]:
-    """A torch leaf ([in, out], or layer-stacked [L, in, out]) quantized one
-    layer slice at a time into int8 and f32 leaves on its device."""
-    s_shape = list(w.shape)
+def empty_quant(shape, device, contract_axis: int = -2) -> Dict[str, torch.Tensor]:
+    """An uninitialised quantized leaf of `shape`: int8 ints and f32 scales
+    with `contract_axis` kept as a singleton."""
+    s_shape = list(shape)
     s_shape[contract_axis] = 1
-    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-    s = torch.empty(s_shape, dtype=torch.float32, device=w.device)
-    if w.dim() == 2:
-        quantize_into(q, s, w, contract_axis)
-    else:
-        for li in range(w.shape[0]):
-            quantize_into(q[li], s[li], w[li], contract_axis)
-    return {"q": q, "s": s}
+    return {"q": torch.empty(tuple(shape), dtype=torch.int8, device=device),
+            "s": torch.empty(tuple(s_shape), dtype=torch.float32, device=device)}
+
+
+def _quantize_leaf(w: torch.Tensor, contract_axis: int = -2) -> Dict[str, torch.Tensor]:
+    """A torch leaf ([in, out], layer-stacked [L, in, out], or an expert
+    stack [L, E, in, out]) quantized one matrix at a time into int8 and f32
+    leaves on its device."""
+    out = empty_quant(w.shape, w.device, contract_axis)
+    for idx in np.ndindex(*w.shape[:-2]):
+        quantize_into(out["q"][idx], out["s"][idx], w[idx], contract_axis)
+    return out
 
 
 def dequantize_leaf(leaf, dtype=torch.bfloat16):
@@ -152,6 +163,31 @@ def qdot(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None) -> torch.T
     if out_dtype == x.dtype:
         return torch.matmul(x, w)
     return _mm_f32(x, w).to(out_dtype)
+
+
+# the expert products of models/moe.py: x [E, C, in] @ w [E, in, out]
+_BMM_SPECS = ("ech,ehi->eci", "eci,eih->ech")
+
+
+def qeinsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """The reference's `qeinsum` for the expert products (`spec` one of
+    _BMM_SPECS): a batched product over the expert axis with an f32 output,
+    `w` a tensor or a quantized stack whose scale [E, 1, out] multiplies
+    the f32 result."""
+    if spec not in _BMM_SPECS:
+        raise ValueError(f"qeinsum takes the expert products {_BMM_SPECS}, not {spec!r}")
+    if is_quant(w):
+        return _bmm_f32(x, w["q"].to(x.dtype)) * w["s"]
+    return _bmm_f32(x, w)
+
+
+def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [E, C, in] @ w [E, in, out] with an f32 output."""
+    if x.dtype == torch.float32:
+        return torch.bmm(x, w.float())
+    if x.is_cuda:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
 
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -189,10 +225,12 @@ def head_leaf(params: Dict[str, Any]):
 
 
 def quantize_tree(params: Dict[str, Any], consume: bool = False) -> Dict[str, Any]:
-    """Quantize a built (e.g. random-init) llama tree: projections per out-
-    channel, the embedding per row, lm_head per out-channel; norms keep
-    their dtype. Leaves are quantized one layer slice at a time on their
-    own device (numpy leaves stay numpy, whole).
+    """Quantize a built (e.g. random-init) llama or MoE tree: projections
+    and the MoE expert stacks [L, E, in, out] per out-channel (an expert
+    stack's scale is [L, E, 1, out]), the embedding per row, lm_head per
+    out-channel; norms and the f32 MoE router keep their dtype. Leaves are
+    quantized one matrix at a time on their own device (numpy leaves stay
+    numpy, whole).
 
     consume=True MUTATES `params`, dropping each source leaf as soon as its
     quantized form exists, so the full-precision tree is never resident
@@ -217,7 +255,7 @@ def quantize_tree(params: Dict[str, Any], consume: bool = False) -> Dict[str, An
     src = params["layers"]
     layers = dict(src)
     for name in _LAYER_LEAVES:
-        if name in layers and not is_quant(layers[name]) and layers[name].ndim == 3:
+        if name in layers and not is_quant(layers[name]) and layers[name].ndim in (3, 4):
             w = layers[name]
             if consume:
                 src[name] = None

@@ -1,7 +1,7 @@
 """Where one decode step's time goes on the card.
 
-    python3 -m dynamo_tpu_torch.tools.decode_profile [--layers 28] [--ctx 512]
-                                                    [--kv-quant none|int8|int4]
+    python3 -m dynamo_tpu_torch.tools.decode_profile [--model llama3-3b] [--layers N]
+                                                    [--ctx 512] [--kv-quant none|int8|int4]
                                                     [--pool-mode scatter|local]
                                                     [--quantize none|int8]
                                                     [--lora N]
@@ -10,10 +10,13 @@ Runs the engine's decode step (models.llama.decode_forward + sampling, as
 `TorchEngine._dev_block` runs it under decode_pool_mode="scatter"; under
 "local", `decode_forward_local` steps over a read-only pool and one
 `kv_write_all_layers` commit per block of --steps) at the full width of
-Llama-3.2-3B with
+the registry model --model (default Llama-3.2-3B; an MoE model such as
+mixtral-8x7b runs models.moe's forwards; --layers cuts its depth) with
 64 lanes, random weights (int8 weight-only quantized with --quantize
-int8: every projection and the tied head then widen int8 to bf16 ahead of
-their GEMM), over a KV pool in the given format (its writes
+int8, each matrix as it is drawn: every projection, expert stack and the
+head then widen int8 to bf16 ahead of their GEMM; the widen of every int8
+leaf a step reads is also timed alone, beside the step's bound of
+reading its weights once), over a KV pool in the given format (its writes
 quantize in place), under `torch.profiler`, and prints one JSON
 line: host wall time per step, device-busy time per step (sum of kernel
 times), the device's idle share, kernel launches per step and the kernels
@@ -36,15 +39,17 @@ import time
 
 import torch
 
+from ..engine.engine import _resolve_model
 from ..engine.sampling import SamplingParams, sample_lp
-from ..models import llama, lora as lora_mod
-from ..models.quant import is_quant, param_bytes, quantize_tree
+from ..models import llama, lora as lora_mod, moe
+from ..models.quant import is_quant, param_bytes
 from ..ops.kv_quant import KV_QUANT_MODES, alloc_kv_store, kv_write_all_layers
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=28)
+    ap.add_argument("--model", default="llama3-3b", help="model registry key")
+    ap.add_argument("--layers", type=int, default=None, help="depth (default: the model's)")
     ap.add_argument("--lanes", type=int, default=64)
     ap.add_argument("--ctx", type=int, default=512, help="context length of every lane")
     ap.add_argument("--steps", type=int, default=8)
@@ -57,23 +62,29 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA device")
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=args.layers)
+    cfg = _resolve_model(args.model)
+    cfg = dataclasses.replace(cfg, num_layers=args.layers or cfg.num_layers)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    params = llama.init_params(cfg, gen, device=dev)
-    if args.quantize == "int8":
-        params = quantize_tree(params, consume=True)
+    params = family(cfg).init_params(cfg, gen, device=dev,
+                                     quantize=None if args.quantize == "none" else "int8")
     kw = dict(lanes=args.lanes, ctx=args.ctx, steps=args.steps, kv_quant=args.kv_quant,
               pool_mode=args.pool_mode)
     if not args.lora:
-        print(json.dumps(profile(params, cfg, **kw)))
+        print(json.dumps({"model": args.model, **profile(params, cfg, **kw)}))
         return
     op = lora_operand(cfg, args.lora, args.lanes, args.seed, dev)
-    print(json.dumps({"plain": profile(params, cfg, **kw),
+    print(json.dumps({"model": args.model, "plain": profile(params, cfg, **kw),
                       "lora": profile(params, cfg, lora=op, **kw)}))
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (data sheet)
 LORA_RANK = 16  # the rank of the profile's adapters
+
+
+def family(cfg):
+    """The forwards' module of the model: models.moe for an MoeConfig."""
+    return moe if isinstance(cfg, moe.MoeConfig) else llama
 
 
 def lora_operand(cfg, n_adapters: int, lanes: int, seed: int, dev) -> dict:
@@ -109,6 +120,7 @@ def profile(params, cfg, lanes: int = 64, ctx: int = 512, steps: int = 8,
     tables[:, :per] = 1 + torch.arange(B * per, device=dev, dtype=torch.int32).reshape(B, per)
     samp = SamplingParams.full(B, device=dev)._replace(all_greedy=True, no_penalties=True)
 
+    model = family(cfg)
     K = args.steps
     step_idx = [torch.full((1,), j, dtype=torch.int32, device=dev) for j in range(K)]
 
@@ -125,11 +137,11 @@ def profile(params, cfg, lanes: int = 64, ctx: int = 512, steps: int = 8,
                               dtype=cfg.dtype, device=dev)
         for j in range(n_steps):
             if args.pool_mode == "local":
-                logits, _, _ = llama.decode_forward_local(
+                logits, _, _ = model.decode_forward_local(
                     params, cfg, tokens, positions, loc[0], loc[1], step_idx[j],
                     kv_k, kv_v, tables, pool_lens)
             else:
-                logits, _, _ = llama.decode_forward(
+                logits, _, _ = model.decode_forward(
                     params, cfg, tokens, positions, kv_k, kv_v, tables, positions + 1,
                     lora=lora)
             nxt, _, _, _ = sample_lp(logits, samp, positions, raw=logits)
@@ -177,10 +189,20 @@ def profile(params, cfg, lanes: int = 64, ctx: int = 512, steps: int = 8,
         ev[1].record()
         torch.cuda.synchronize()
         commit_ms = round(ev[0].elapsed_time(ev[1]) / 3, 3)
+    widen_ms = widen_ms_per_step(params, cfg) if quantized == "int8" else None
+    weight_bytes = param_bytes(params)
     return {
-        "card": smi, "layers": args.layers, "lanes": B, "ctx": args.ctx,
+        "card": smi, "layers": args.layers,
+        "hidden_size": cfg.hidden_size,
+        "experts": getattr(cfg, "num_experts", None), "lanes": B, "ctx": args.ctx,
         "kv_quant": args.kv_quant, "pool_mode": args.pool_mode,
-        "quantize": quantized, "weight_bytes": param_bytes(params),
+        "quantize": quantized, "weight_bytes": weight_bytes,
+        # the least a step can take: every weight byte read once
+        "weight_read_bound_ms": round(1e3 * weight_bytes / HBM_BYTES_PER_S, 3),
+        # the int8 -> bf16 widen of every int8 leaf a step reads, alone
+        # (device time), and its share of the step's device-busy time
+        "widen_ms_per_step": widen_ms,
+        "widen_share_of_busy": None if widen_ms is None else round(widen_ms / busy_ms, 3),
         "lora_stack_bytes": None if lora is None else sum(
             t.numel() * t.element_size() for part in ("a", "b") for t in lora[part].values()),
         "lora_slots": None if lora is None else int(lora["scale"].numel()),
@@ -192,6 +214,32 @@ def profile(params, cfg, lanes: int = 64, ctx: int = 512, steps: int = 8,
         "top_kernels_ms_per_step": {
             name: round(us / 1e3 / args.steps, 3) for name, us in top},
     }
+
+
+@torch.no_grad()
+def widen_ms_per_step(params, cfg, reps: int = 3) -> float:
+    """Device ms of widening every int8 leaf one decode step reads (each
+    layer's projections and expert stacks, and the head) to the model
+    dtype, timed alone with CUDA events."""
+    leaves = [v["q"][li] for v in params["layers"].values() if is_quant(v)
+              for li in range(cfg.num_layers)]
+    head = params.get("lm_head") if params.get("lm_head") is not None else params["embed"]
+    if is_quant(head):
+        leaves.append(head["q"])
+
+    def widen():
+        for q in leaves:
+            q.to(cfg.dtype)
+
+    widen()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        widen()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return round(ev[0].elapsed_time(ev[1]) / reps, 3)
 
 
 if __name__ == "__main__":

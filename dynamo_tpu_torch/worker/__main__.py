@@ -72,12 +72,17 @@ An HF directory's config.json may give a smaller depth than `--model`'s
 (its first `num_hidden_layers` layers; the widths must agree). Without
 `--model-path` the weights are random, drawn from `--seed`.
 `--quantize int8` stores projections, embedding and head as int8 with
-per-channel scales. The KV pool is auto-sized after the weights are
-resident, so int8 weights leave room for more pages.
+per-channel scales (an MoE model's expert stacks too, one (layer, expert)
+matrix at a time; its router stays f32). The KV pool is auto-sized after
+the weights are resident, so int8 weights leave room for more pages. The
+MoE models (`--model tiny-moe|mixtral-8x7b|gptoss-120b`, or a Mixtral-
+named HF checkpoint / an MoE .gguf under `--model-path`) serve on one
+device; `--ep-size` stays refused, and `--lora` on an MoE model fails.
 
     python -m dynamo_tpu_torch.worker --model llama3-3b --discovery tcp://HOST:PORT
     python -m dynamo_tpu_torch.worker --model llama3-3b --model-path DIR --quantize int8
     python -m dynamo_tpu_torch.worker --model-path FILE.gguf
+    python -m dynamo_tpu_torch.worker --model mixtral-8x7b --quantize int8
     python -m dynamo_tpu_torch.worker --model llama3-3b --lora sql=/adapters/sql --lora demo=random:3
     DYN_SYSTEM_PORT=9100 python -m dynamo_tpu_torch.worker --model llama3-3b \
         --kvbm-host-blocks 256 --kvbm-disk-blocks 512 --kvbm-disk-path /var/kvbm
@@ -101,7 +106,9 @@ from ..llm.kv_transfer import KvDataPlaneServer
 from ..engine.engine import _resolve_model
 from ..llm.model_card import ModelDeploymentCard, card_tokenizer, register_llm
 from ..llm.tokenizers import load_tokenizer
-from ..models.loader import _find_gguf, config_from_gguf, depth_from_hf, load_llama_params
+from ..models.loader import (_find_gguf, config_from_gguf, depth_from_hf, load_llama_params,
+                             load_moe_params)
+from ..models.moe import MoeConfig
 from ..models.quant import param_bytes
 from ..runtime import DistributedRuntime, RuntimeConfig, init_logging
 from ..runtime.component import STATE_MORPHING, STATE_READY, Endpoint, ServedEndpoint
@@ -116,7 +123,8 @@ CANARY = {"token_ids": [1, 2, 3, 4], "stop_conditions": {"max_tokens": 1, "ignor
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="dynamo-tpu PyTorch/CUDA engine worker")
-    ap.add_argument("--model", default="tiny", help="model registry key (tiny/llama3-3b/llama3-8b/llama3-70b)")
+    ap.add_argument("--model", default="tiny", help="model registry key (tiny/llama3-3b/llama3-8b/llama3-70b, "
+                         "MoE: tiny-moe/mixtral-8x7b/gptoss-120b)")
     ap.add_argument("--model-name", default=None, help="served model name (defaults to --model)")
     ap.add_argument("--model-path", default=None,
                     help="HF safetensors checkpoint dir (or cached repo id), a .gguf file, or a "
@@ -232,8 +240,8 @@ def build_engine(args) -> TorchEngine:
         model_config = (config_from_gguf(gguf_path) if gguf_path
                         else depth_from_hf(args.model_path, _resolve_model(args.model)))
         t0 = time.monotonic()
-        params = load_llama_params(args.model_path, model_config, quantize=args.quantize,
-                                   device=device)
+        load = load_moe_params if isinstance(model_config, MoeConfig) else load_llama_params
+        params = load(args.model_path, model_config, quantize=args.quantize, device=device)
         logger.info("loaded %s (%s) in %.1fs: %.2f GiB of weights", args.model_path,
                     args.quantize or model_config.dtype, time.monotonic() - t0,
                     param_bytes(params) / 2**30)

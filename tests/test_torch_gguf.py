@@ -170,7 +170,9 @@ def test_refusals(tmp_path):
     moe = llama_tensors()
     moe["blk.0.ffn_gate_inp.weight"] = np.zeros((4, 64), np.float32)
     jg.write_gguf(tmp_path / "moe.gguf", llama_metadata(), tensors=moe)
-    with pytest.raises(UnsupportedConfigError, match="MoE"):
+    # an MoE gguf must state its expert counts (tests/test_torch_moe_loader.py
+    # loads one that does)
+    with pytest.raises(ValueError, match="MoE gguf missing llama.expert_count"):
         tload.config_from_gguf(str(tmp_path / "moe.gguf"))
     (tmp_path / "not.gguf").write_bytes(b"NOPE" + bytes(20))
     with pytest.raises(ValueError, match="not a GGUF"):

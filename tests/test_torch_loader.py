@@ -152,12 +152,14 @@ def test_port_export_round_trips_through_both_loaders(tmp_path):
 
 
 def test_moe_checkpoints_are_refused(tmp_path):
+    """The dense loader refuses an MoE checkpoint, and the MoE loader a
+    dense model (tests/test_torch_moe_loader.py loads MoE checkpoints)."""
     np_save_file({"model.layers.0.block_sparse_moe.gate.weight": np.zeros((4, 8), np.float32)},
                  tmp_path / "model.safetensors")
-    with pytest.raises(UnsupportedConfigError, match="MoE"):
+    with pytest.raises(ValueError, match="an MoE checkpoint; load it with load_moe_params"):
         tload.load_llama_params(str(tmp_path), TCFG, device="cpu")
-    with pytest.raises(UnsupportedConfigError, match="MoE"):
-        tload.load_moe_params(str(tmp_path), TCFG)
+    with pytest.raises(ValueError, match="needs an MoeConfig"):
+        tload.load_moe_params(str(tmp_path), TCFG, device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         tload.load_llama_params(str(tmp_path), TCFG, quantize="int4", device="cpu")
 
