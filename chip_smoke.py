@@ -74,7 +74,8 @@ the prefill kernel over the onboarded pages, and the tier copies must equal
 the device pages bit for bit; `kvbm` adds an sla-policy run (which arm the
 onboard budget picks for host and disk spans) and a warm restart on the
 same disk pool.
-`kvbm_peer` starts two CLI workers with host tiers, the status server,
+`kvbm_peer` starts two CLI workers (serving the 4-layer weights_load
+checkpoint) with host tiers, the status server,
 canaries and session checkpoints; worker 2 must pull worker 1's blocks over
 the data plane and stream its tokens, and both /metrics, /health and /live
 are read; then four streams run through the port's Migration on worker 1,
@@ -91,14 +92,14 @@ The `spec_guided` phases serve 8 greedy prompts built from repeated
 phrases on a plain engine, a split-spec engine (`spec_mode="ngram"`, mixed
 dispatch off: spec blocks verify on the prefill kernel at B=64, T=5) and a
 fused-spec engine (verify rows on the ragged kernel, a staircase of 5 rows a
-lane) — `spec_guided` at 8 layers, bf16 KV; `spec_guided_int8` and
+lane) — `spec_guided` at 4 layers, bf16 KV; `spec_guided_int8` and
 `spec_guided_int4` at 4 layers — and hold each spec stream equal to the
 plain one, or parted only at a near-tie (the plain logits' top-two gap at
 the first divergent position within SPEC_GAP_ULPS bf16 ulps; in a quantized
 pool both tokens within that plus the pool's quantization shift of the top
 logit); guided choice
 and json_schema requests on the plain and the fused-spec engines must fit
-their constraint, and at 8 layers the ITL of 4 unguided lanes is read
+their constraint, and in `spec_guided` the ITL of 4 unguided lanes is read
 alone and beside a guided lane. The kernel phase holds the prefill kernel
 at the verify shape and the ragged kernel on the staircase against their
 plain versions in every format and times them (the `@verify` and
@@ -137,6 +138,28 @@ config.json gives the depth, and `python -m dynamo_tpu_torch.worker --model
 mixtral-8x7b --model-path <it> --quantize int8` must register, stream 4
 requests alone as an in-process int8 engine of the same weights does, and
 drain on SIGTERM. `moe_launches` gives the MoE phases' share of the
+kernels line's launches.
+The multimodal phases (E/P/D: llm/multimodal.py, models/vit.py, the
+engine's prefill splice): `vit` holds ViT-Base/16 with its projector to
+3,072 in f32 on the card (TF32 off) to the port's CPU forward on the same
+weights and pixels (2e-3), times its forward at B=1 beside its bound, and
+times the decode and resize of a 640x480 PNG the smoke writes with zlib;
+`mm_serve` serves 8 image requests (4 PNGs of 224x224, 320x240, 640x480
+and 96x128, one or two a request) and 4 text requests, staggered, on
+Llama-3.2-3B at 28 layers (bf16, scatter, mixed on) behind the in-process
+ViT through `EncodeOperator`: every stream finishes, two exact repeats
+stream as their first runs (or part at a near-tie) and, alone again, hit
+the prefix cache into their last image, the same text with another image
+gives other first-token logits, one spliced prefill through the kernels
+matches plain attention, and the prefill, decode and ragged kernels carry
+the traffic (TTFT of image and text requests, tok/s, encode ms and wire
+bytes a part); `mm_worker` runs `python -m dynamo_tpu_torch.encode_worker
+--encoder vit --vit-size base --model llama3-3b` and a CLI worker on the
+weights_load checkpoint, drives 4 image requests through the port's
+EncodeOperator and PushRouter, holds each stream to an in-process engine's
+on the same checkpoint and stamped requests and the wire's embeddings to an
+encoder from the same seed, and splits each hop's ms into decode, forward,
+pack, unpack and the wire's rest. `mm_launches` gives their share of the
 kernels line's launches.
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -3003,8 +3026,9 @@ def gauge(metrics: str, name: str) -> float:
     return float(m.group(1))
 
 
-async def kvbm_peer(seed: int) -> None:
-    """Two `python -m dynamo_tpu_torch.worker` processes on the card, each
+async def kvbm_peer(seed: int, ckpt: str) -> None:
+    """Two `python -m dynamo_tpu_torch.worker` processes on the card serving
+    the weights_load checkpoint (`--model-path`: LOAD_LAYERS), each
     with a 256-block host tier, the status server, canaries and session
     checkpoints (DYN_KV_CHECKPOINT; mixed dispatch off, so every decode row
     runs the decode kernel). Wave A goes to worker 1 (addressed directly);
@@ -3058,6 +3082,7 @@ async def kvbm_peer(seed: int) -> None:
                        DYN_MIXED_DISPATCH="0")
             procs[name] = subprocess.Popen(
                 [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
+                 "--model-path", ckpt,
                  "--num-pages", str(PEER_PAGES), "--kvbm-host-blocks", str(PEER_HOST_BLOCKS),
                  "--seed", str(seed), "--discovery", disc, "--kv-data-plane-host", "127.0.0.1"],
                 cwd=root, env=env, stdout=logs[name], stderr=subprocess.STDOUT)
@@ -3219,7 +3244,7 @@ async def kvbm_peer(seed: int) -> None:
     assert calls["kernels"].get("prefill_attention/none", 0) > 0, calls
     assert not any(calls["plain"].values()), calls
     ttft = {name: [r["ttft_s"] for r in recs] for name, recs in (("w1", w1), ("w2", w2))}
-    emit("kvbm_peer", model="llama-3.2-3b", layers=LAYERS, num_pages_each=PEER_PAGES,
+    emit("kvbm_peer", model="llama-3.2-3b", layers=LOAD_LAYERS, num_pages_each=PEER_PAGES,
          host_blocks=PEER_HOST_BLOCKS, sessions=KVBM_SESSIONS,
          prompt_tokens=KVBM_PROMPT + PEER_TAIL, max_tokens=KVBM_OUT,
          seconds_to_ready=round(t_ready, 2), streams_equal=len(w2),
@@ -3255,7 +3280,7 @@ async def kvbm_peer(seed: int) -> None:
     blocks = stat_delta(w1_at_kill, w1_base, "kvbm_ckpt_blocks_pushed")
     push_s = stat_delta(w1_at_kill, w1_base, "kvbm_ckpt_push_s")
     itl = [x for w in whole for x in w["itl_s"]]
-    emit("kvbm_peer_durable", model="llama-3.2-3b", layers=LAYERS, streams=DURABLE_STREAMS,
+    emit("kvbm_peer_durable", model="llama-3.2-3b", layers=LOAD_LAYERS, streams=DURABLE_STREAMS,
          prompt_tokens=[len(r["token_ids"]) for r in dreqs], max_tokens=DURABLE_OUT,
          tokens_at_kill=at_kill, streams_equal=len(records),
          **mig.resume(dreqs, records, t_kill),
@@ -3553,7 +3578,7 @@ SPEC_CFG = dict(spec_mode="ngram", spec_draft_len=SPEC_T - 1, spec_ngram=2, spec
 # (phase, kv_quant, layers, dtype): the model's depth in bf16, the quantized
 # pools cut; an f32 run at a cut depth, where shapes round alike and the
 # streams must be the plain ones
-SPEC_LAYERS = 8  # the bf16 spec_guided phase: full width, a cut depth
+SPEC_LAYERS = 4  # the bf16 spec_guided phase: full width, a cut depth
 SPEC_PHASES = [("spec_guided", "none", SPEC_LAYERS, torch.bfloat16),
                ("spec_guided_int8", "int8", 4, torch.bfloat16),
                ("spec_guided_int4", "int4", 4, torch.bfloat16),
@@ -3779,7 +3804,7 @@ async def spec_guided(seed: int, params, phase: str, kvq: str, layers: int,
             assert res[arm]["spec_num_drafts"] > 0, (phase, arm)
         if arm == "spec_fused":
             assert res[arm]["mixed_rows_spec"] > 0, f"{phase}: no fused verify rows"
-        if arm == "spec_fused" or (arm == "plain" and layers == SPEC_LAYERS):
+        if arm == "spec_fused" or (arm == "plain" and phase == "spec_guided"):
             # guided requests (refused typed by a split-only spec engine;
             # on the plain engine at full depth, for the ITL reading)
             reset_counts()
@@ -3793,7 +3818,7 @@ async def spec_guided(seed: int, params, phase: str, kvq: str, layers: int,
             assert g_launch.get(("paged_decode", kvq), 0) > 0, f"{phase}/{arm}: no guided decode"
             assert not any(pa.plain_calls.values()), f"{phase}/{arm}: plain attention ran"
             add_launches(launches[arm], g_launch)
-            if arm == "plain" and layers == SPEC_LAYERS:
+            if arm == "plain" and phase == "spec_guided":
                 res[arm]["unguided_itl_ms"] = await guided_itl(engine, cfg.vocab_size, g_reqs[1])
         await engine.close()
         del engine
@@ -3810,7 +3835,7 @@ async def spec_guided(seed: int, params, phase: str, kvq: str, layers: int,
          split_equal_fused=sum(a == b for a, b in zip(streams["spec_split"],
                                                       streams["spec_fused"])),
          divergences=div, arms=res,
-         guided_fsm_cold_s=guided_fsm_cold_s(cfg.vocab_size) if layers == SPEC_LAYERS else None)
+         guided_fsm_cold_s=guided_fsm_cold_s(cfg.vocab_size) if phase == "spec_guided" else None)
     # the verify shapes' launches: the prefill kernel's in the split arm
     # (spec blocks and prompts), the ragged kernel's in the fused arm
     return {("prefill_attention@verify", kvq): launches["spec_split"].get(("prefill_attention", kvq), 0),
@@ -4489,6 +4514,522 @@ async def moe_all(seed: int) -> dict:
     return total, await moe_worker_checkpoint(seed)
 
 
+# ---------------------------------------------------------------------- #
+# phases: vit, mm_serve, mm_worker (multimodal E/P/D)
+# ---------------------------------------------------------------------- #
+
+F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores (data sheet)
+TOL_VIT = 2e-3  # f32 ViT-Base + projector, card against CPU (TF32 off)
+MM_IMAGE_SIZES = [(224, 224), (320, 240), (640, 480), (96, 128)]  # (width, height)
+# the mm_serve mix: (kind, text tokens, images) in arrival order; "repeat"
+# sends request `n` again exactly (once it has its first token), "swap"
+# sends request `n`'s text with other images
+MM_MIX = [("image", 40, [0]), ("text", 300, []), ("image", 120, [1, 2]),
+          ("image", 700, [3]), ("text", 64, []), ("repeat", 0, []), ("image", 220, [0, 3]),
+          ("text", 500, []), ("swap", 3, [1]), ("repeat", 2, []), ("text", 40, []),
+          ("image", 600, [2])]
+MM_WORKER_MIX = [(40, [0]), (300, [2]), (120, [1, 3]), (64, [3])]
+MM_WORKER_PAGES = 1024
+
+
+def write_png(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG written with zlib, its rows cycling through the five
+    filter types, so a decode undoes every one."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    h, w, _ = rgb.shape
+    raw = rgb.reshape(h, -1).astype(np.int32)
+    out, prior = bytearray(), np.zeros(raw.shape[1], np.int32)
+    zero3 = np.zeros(3, np.int32)
+    for y in range(h):
+        f, row = y % 5, raw[y]
+        left = np.concatenate([zero3, row[:-3]])
+        upleft = np.concatenate([zero3, prior[:-3]])
+        if f == 4:
+            p = left + prior - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
+        else:
+            pred = [np.zeros_like(row), left, prior, (left + prior) >> 1][f]
+        out.append(f)
+        out += ((row - pred) & 0xFF).astype(np.uint8).tobytes()
+        prior = row
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b""))
+
+
+def mm_images(seed: int) -> list:
+    """(RGB array, PNG bytes, data URL) of each MM_IMAGE_SIZES image: smooth
+    colour fields with noise, from the seed."""
+    import base64
+
+    rng = np.random.default_rng(seed + 16)
+    out = []
+    for w, h in MM_IMAGE_SIZES:
+        y, x = np.mgrid[0:h, 0:w]
+        ph = rng.uniform(0, 6.3, size=3)
+        rgb = np.stack([127 + 90 * np.sin(x / rng.uniform(9, 40) + ph[c])
+                        * np.cos(y / rng.uniform(9, 40)) for c in range(3)], -1)
+        rgb = np.clip(rgb + rng.normal(0, 12, size=rgb.shape), 0, 255).astype(np.uint8)
+        png = write_png(rgb)
+        out.append((rgb, png, "data:image/png;base64," + base64.b64encode(png).decode()))
+    return out
+
+
+def vit_flops(cfg) -> float:
+    """Products of one image through the ViT and its projector (2 a MAC)."""
+    N, T, H, I, O = cfg.n_patches, cfg.n_patches + 1, cfg.hidden_size, cfg.intermediate_size, \
+        cfg.out_hidden
+    layer = 2 * T * H * H * 4 + 2 * 2 * T * T * H + 2 * 2 * T * H * I
+    return (2 * N * cfg.num_channels * cfg.patch_size ** 2 * H + cfg.num_layers * layer
+            + 2 * N * H * O + 2 * N * O * O)
+
+
+def vit_encoder(seed: int, device):
+    """ViT-Base/16 at 224 px with its projector to Llama-3.2-3B's width, the
+    weights from `seed` (a CPU generator: the same on every device)."""
+    from dynamo_tpu_torch.llm.multimodal import ViTEncoder
+    from dynamo_tpu_torch.models.vit import ViTConfig
+
+    return ViTEncoder(config=ViTConfig(), llm_hidden=llama.LlamaConfig.llama3_2_3b().hidden_size,
+                      device=device, seed=seed)
+
+
+def vit_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in vit_leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in vit_leaves(v)]
+    return [tree]
+
+
+def phase_vit(seed: int):
+    """ViT-Base + projector in f32 on the card against the port's CPU forward
+    on the same weights and pixels (TOL_VIT), its forward timed at B=1
+    beside its bound, and a 640x480 PNG's decode and resize timed. Returns
+    the card's encoder."""
+    from dynamo_tpu_torch.llm import image_io
+    from dynamo_tpu_torch.llm.multimodal import ViTEncoder
+    from dynamo_tpu_torch.models import vit
+
+    assert torch.get_float32_matmul_precision() == "highest"  # TF32 off
+    t0 = time.perf_counter()
+    cpu = vit_encoder(seed, "cpu")
+    init_s = time.perf_counter() - t0
+    cfg = cpu.config
+    card = ViTEncoder(config=cfg, params=vit.to_device(cpu.params, DEV), device="cuda")
+    px = np.random.default_rng(seed).standard_normal(
+        (1, cfg.num_channels, cfg.image_size, cfg.image_size), dtype=np.float32)
+    t0 = time.perf_counter()
+    want = cpu._fwd(torch.from_numpy(px))
+    cpu_s = time.perf_counter() - t0
+    px_dev = torch.from_numpy(px).to(DEV)
+    got = card._fwd(px_dev)
+    err = max_err(got, want.to(DEV))
+    assert got.shape == (1, cfg.n_patches, cfg.out_hidden) and torch.isfinite(got).all()
+    assert err <= TOL_VIT, f"vit: the card's encoder is {err} from the CPU's"
+    ms = time_ms(lambda: card._fwd(px_dev))
+    flops = vit_flops(cfg)
+    n_params = sum(t.numel() for t in vit_leaves(card.params))
+    bytes_moved = 4 * (n_params + px.size + cfg.n_patches * cfg.out_hidden)
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    rgb, png, _ = mm_images(seed)[2]  # 640 x 480
+    assert np.array_equal(image_io.decode_png(png), rgb)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        image_io.load_rgb(png, cfg.image_size)
+        times.append(time.perf_counter() - t0)
+    emit("vit", config="vit-base-16-224", layers=cfg.num_layers, hidden=cfg.hidden_size,
+         out_hidden=cfg.out_hidden, dtype="float32", tf32=False, params=n_params,
+         init_s=round(init_s, 3), max_abs_err=err, tol=TOL_VIT, cpu_forward_s=round(cpu_s, 3),
+         forward_ms_b1=round(ms, 4), gflop=round(flops / 1e9, 2),
+         bound_ms=round(bound_ms, 4), bound_by="operations" if flops / F32_FLOPS
+         > bytes_moved / HBM_BYTES_PER_S else "bytes", tflops=round(tflops(flops, ms), 2),
+         png_bytes=len(png), png_size=list(rgb.shape[1::-1]),
+         decode_resize_ms=round(1e3 * min(times), 2),
+         decode_resize_ms_mean=round(1e3 * sum(times) / len(times), 2))
+    return card
+
+
+class LocalEncodeRouter:
+    """The encode endpoint in process: the encode worker's handler on
+    `encoder` behind a router's `generate`. Keeps each call's seconds and
+    parts."""
+
+    def __init__(self, encoder):
+        self.encoder = encoder
+        self.calls = []
+
+    async def generate(self, request, context=None):
+        from dynamo_tpu_torch.llm.multimodal import encode_parts
+
+        parts = request.get("multimodal") or []
+        t0 = time.perf_counter()
+        encoded = encode_parts(parts, self.encoder)
+        torch.cuda.synchronize()
+        self.calls.append((time.perf_counter() - t0, len(parts)))
+
+        async def stream():
+            yield {"data": {"multimodal": encoded, "n_tokens": self.encoder.n_tokens}}
+
+        return stream()
+
+
+def mm_logits(params: dict, cfg, token_ids: list, parts: list, plain: bool = False):
+    """The logits after `token_ids` (one batched-prefill forward on a fresh
+    pool, the parts' rows spliced over their placeholders), f32 [vocab]."""
+    from dynamo_tpu_torch.engine.kv_cache import alloc_kv_arrays
+
+    T, ps = len(token_ids), 64
+    P = -(-T // ps)
+    kv_k, kv_v = alloc_kv_arrays(cfg.num_layers, P + 1, ps, cfg.num_kv_heads, cfg.head_dim,
+                                 dtype=cfg.dtype, device=DEV)
+    emb = np.zeros((1, T, cfg.hidden_size), np.float32)
+    mask = np.zeros((1, T), bool)
+    for p in parts:
+        pos, arr = int(p["position"]), np.asarray(p["embedding"], np.float32)
+        n = max(0, min(len(arr), T - pos))
+        emb[0, pos:pos + n] = arr[:n]
+        mask[0, pos:pos + n] = True
+    with torch.no_grad():
+        out = llama.prefill_forward_batched(
+            params, cfg, i32([token_ids]), i32([list(range(T))]), kv_k, kv_v,
+            i32([list(range(1, P + 1))]), i32([0]), i32([T - 1]), plain_attention=plain,
+            emb_override=torch.from_numpy(emb).to(DEV), emb_mask=torch.from_numpy(mask).to(DEV))
+    return out[0][0].float()
+
+
+def near_tie(phase: str, params, cfg, req: dict, a: list, b: list) -> dict:
+    """Where two streams of one request part: the plain logits' top-two gap
+    there, which must be within SPEC_GAP_ULPS bf16 ulps of the top."""
+    p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    logits = mm_logits(params, cfg, list(req["token_ids"]) + a[:p], req["multimodal"])
+    top = torch.topk(logits, 2)
+    hi, lo = (float(x) for x in top.values)
+    ulp = 2.0 ** (np.floor(np.log2(max(abs(hi), 1e-30))) - MANTISSA_BITS[cfg.dtype])
+    rep = {"request": req["request_id"], "position": p, "tokens": [a[p], b[p]],
+           "gap_ulps": (hi - lo) / ulp}
+    assert sorted((a[p], b[p])) == sorted(int(x) for x in top.indices) \
+        and rep["gap_ulps"] <= SPEC_GAP_ULPS[cfg.dtype], f"{phase}: streams part at no near-tie: {rep}"
+    return rep
+
+
+async def mm_serve(seed: int, params, encoder) -> dict:
+    """Llama-3.2-3B at 28 layers (bf16, scatter, mixed on) behind the
+    in-process ViT-Base: MM_MIX's 8 image requests, each stamped first by
+    EncodeOperator (decode, ViT, splice; timed a part, one at a time), and
+    4 text requests, staggered into the engine (TTFT is the engine's: the
+    encoder would share this process's host thread and GIL with the
+    engine's, which no deployment does); the checks are in the module
+    docstring."""
+    from dynamo_tpu_torch.llm.multimodal import EncodeOperator
+    from dynamo_tpu_torch.runtime import msgpack_lite
+
+    cfg = llama.LlamaConfig.llama3_2_3b()
+    engine = TorchEngine(EngineConfig(model="llama3-3b", seed=seed, decode_pool_mode="scatter",
+                                      kv_quant="none"),
+                         model_config=cfg, params=params, device="cuda")
+    t0 = time.perf_counter()
+    await engine.warmup()
+    warm_s = time.perf_counter() - t0
+    images = mm_images(seed)
+    _, text = make_requests(seed, cfg.vocab_size, [], (), (), "mm")
+    reqs, kinds = [], []
+    for i, (kind, n, imgs) in enumerate(MM_MIX):
+        if kind == "repeat":
+            req = dict(reqs[n], request_id=f"mm-{i}")
+        elif kind == "swap":
+            req = dict(reqs[n], request_id=f"mm-{i}",
+                       multimodal=[{"type": "image_url", "url": images[j][2]} for j in imgs])
+        else:
+            req = PreprocessedRequest(token_ids=text(n, 300 + i), request_id=f"mm-{i}",
+                                      stop_conditions={"max_tokens": MAX_TOKENS}).to_dict()
+            if imgs:
+                req["multimodal"] = [{"type": "image_url", "url": images[j][2]} for j in imgs]
+        reqs.append(req)
+        kinds.append("text" if kind == "text" else "image")
+    router = LocalEncodeRouter(encoder)
+    op = EncodeOperator(router, vocab_size=cfg.vocab_size)
+    stamped = [await op.forward(dict(req), None) for req in reqs]
+
+    reset_counts()
+    base = engine.stats()
+    records = [new_record() for _ in reqs]
+    t_start = time.perf_counter()
+    tasks = []
+    for i, rec in enumerate(records):
+        kind, n, _ = MM_MIX[i]
+        after = records[n]["first"] if kind == "repeat" else None
+        tasks.append(asyncio.create_task(run_request(engine, stamped[i], rec, after)))
+        await asyncio.sleep(STAGGER_S)
+    await asyncio.gather(*tasks)
+    wall = time.perf_counter() - t_start
+    launches = kernel_launches()
+    plain = dict(pa.plain_calls)
+    stats = engine.stats()
+    for i, rec in enumerate(records):
+        assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, (i, rec["finish"])
+    check_path_launches("mm_serve", launches, plain, "scatter", "none")
+
+    # the repeats: the first run's stream (or a part at a near-tie), and,
+    # alone again, a prefix hit over every full page of the prompt: into
+    # the last image, whose rows are then read from the cache
+    repeats, ties = [], []
+    for i, (kind, n, _) in enumerate(MM_MIX):
+        if kind != "repeat":
+            continue
+        a, b = records[n]["tokens"], records[i]["tokens"]
+        if a != b:
+            ties.append(near_tie("mm_serve", params, cfg, stamped[n], a, b))
+        hits0 = engine.stats()["kv_prefix_hit_blocks_total"]
+        rec = new_record()
+        await run_request(engine, dict(stamped[i], request_id=f"mm-{i}-alone"), rec)
+        ps = engine.config.page_size
+        cached = ps * (engine.stats()["kv_prefix_hit_blocks_total"] - hits0)
+        L = len(stamped[i]["token_ids"])
+        last = stamped[i]["multimodal"][-1]
+        assert cached == L // ps * ps and cached > last["position"], (i, cached, L)
+        if rec["tokens"] != a:
+            ties.append(near_tie("mm_serve", params, cfg, stamped[n], a, rec["tokens"]))
+        repeats.append({"request": i, "of": n, "equal": a == b, "prompt_tokens": L,
+                        "cached_tokens": cached,
+                        "image_span": [last["position"], last["position"] + last["n_tokens"]]})
+    await engine.close()
+    del engine
+
+    # the same text with other images: other first-token logits
+    swap = next(i for i, (k, _, _) in enumerate(MM_MIX) if k == "swap")
+    orig = MM_MIX[swap][1]
+    la = mm_logits(params, cfg, stamped[orig]["token_ids"], stamped[orig]["multimodal"])
+    lb = mm_logits(params, cfg, stamped[swap]["token_ids"], stamped[swap]["multimodal"])
+    logit_diff = float((la - lb).abs().max())
+    assert logit_diff > 0, "mm_serve: other images gave the same logits"
+    # one spliced prefill: the kernels against plain attention
+    two = next(i for i, (k, _, im) in enumerate(MM_MIX) if len(im) == 2)
+    kern = mm_logits(params, cfg, stamped[two]["token_ids"], stamped[two]["multimodal"])
+    ref = mm_logits(params, cfg, stamped[two]["token_ids"], stamped[two]["multimodal"],
+                    plain=True)
+    kv_err = row_rel_err(kern[None], ref[None])
+    assert kv_err <= tol_moe_forward(LAYERS), f"mm_serve: kernels {kv_err} from plain"
+
+    part = stamped[0]["multimodal"][0]
+    wire = msgpack_lite.packb({"data": {"multimodal": [dict(part, embedding=np.asarray(
+        part["embedding"], np.float32).tolist())], "n_tokens": encoder.n_tokens}})
+    n_parts = sum(p for _, p in router.calls)
+    ttft = {k: [r["ttft_s"] for r, kk in zip(records, kinds) if kk == k] for k in ("image", "text")}
+    emit("mm_serve", model="llama-3.2-3b", layers=LAYERS, dtype="bfloat16",
+         encoder="vit-base-16-224 (f32, in process)", decode_pool_mode="scatter", kv_quant="none",
+         requests={"image": kinds.count("image"), "text": kinds.count("text")},
+         images=[list(s) for s in MM_IMAGE_SIZES], image_parts=n_parts,
+         prompt_tokens=[len(s["token_ids"]) for s in stamped], max_tokens=MAX_TOKENS,
+         warmup_s=round(warm_s, 3), wall_s=round(wall, 3),
+         output_tok_s=round(sum(len(r["tokens"]) for r in records) / wall, 1),
+         ttft_ms_p50={k: round(1e3 * pct(v, 50), 2) for k, v in ttft.items()},
+         ttft_ms_p99={k: round(1e3 * pct(v, 99), 2) for k, v in ttft.items()},
+         itl_ms_p50=round(1e3 * pct([x for r in records for x in r["itl_s"]], 50), 3),
+         encode_ms_per_part=round(1e3 * sum(s for s, _ in router.calls) / n_parts, 2),
+         wire_bytes_per_part=len(wire), repeats=repeats, near_ties=ties,
+         swapped_image_logit_max_diff=round(logit_diff, 4),
+         kernels_vs_plain_row_rel=round(kv_err, 5), tol=round(tol_moe_forward(LAYERS), 4),
+         mixed_steps=stats["mixed_steps"] - base["mixed_steps"],
+         prefix_hit_blocks=stats["kv_prefix_hit_blocks_total"] - base["kv_prefix_hit_blocks_total"],
+         launches={f"{n}/{f}": c for (n, f), c in launches.items() if c}, plain_calls=plain,
+         dev_time=dev_time_delta(stats, base))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_alone_launches(phase: str, launches: dict, plain: dict) -> None:
+    """Requests served one at a time (no mixed step, so no ragged launch):
+    the prefill and decode kernels launched, no other, no plain call."""
+    used = [("prefill_attention", "none"), ("paged_decode", "none")]
+    assert all(launches.get(u, 0) > 0 for u in used), f"{phase}: a path kernel never launched: {launches}"
+    assert sum(launches.values()) == sum(launches[u] for u in used), \
+        f"{phase}: a kernel outside the path launched: {launches}"
+    assert not any(plain.values()), f"{phase}: plain attention ran on the card's main path: {plain}"
+
+
+async def mm_worker(seed: int, ckpt: str) -> dict:
+    """`python -m dynamo_tpu_torch.encode_worker --encoder vit --vit-size base
+    --model llama3-3b` and `python -m dynamo_tpu_torch.worker --model-path
+    <the weights_load checkpoint>` (LOAD_LAYERS, bf16): MM_WORKER_MIX's 4
+    image requests through the port's EncodeOperator and PushRouter to the
+    encode worker, then each stamped request alone through a PushRouter to
+    the worker. The streams must equal an in-process engine's on the same
+    checkpoint and stamped requests, the wire's embeddings an in-process
+    encoder's from the same seed; the hop's ms is split into decode,
+    forward, pack (tolist included), unpack and the wire's rest. Returns
+    the worker's kernel launches."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from dynamo_tpu_torch.llm.kv_router.publisher import METRICS_TOPIC_FMT
+    from dynamo_tpu_torch.llm.multimodal import EncodeOperator
+    from dynamo_tpu_torch.runtime import (DiscoveryServer, DistributedRuntime, PushRouter,
+                                          RuntimeConfig, msgpack_lite)
+
+    server = DiscoveryServer(port=0)
+    _, port = await server.start()
+    disc = f"tcp://127.0.0.1:{port}"
+    rcfg = RuntimeConfig.from_settings()
+    rcfg.discovery_endpoint = disc
+    drt = await DistributedRuntime.create(rcfg)
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_2_3b(), num_layers=LOAD_LAYERS)
+    images = mm_images(seed)
+    _, text = make_requests(seed, cfg.vocab_size, [], (), (), "mmw")
+    reqs = []
+    for i, (n, imgs) in enumerate(MM_WORKER_MIX):
+        req = PreprocessedRequest(token_ids=text(n, 400 + i), request_id=f"mmw-{i}",
+                                  stop_conditions={"max_tokens": MAX_TOKENS}).to_dict()
+        req["multimodal"] = [{"type": "image_url", "url": images[j][2]} for j in imgs]
+        reqs.append(req)
+    cmds = {"encoder": ["-m", "dynamo_tpu_torch.encode_worker", "--encoder", "vit",
+                        "--vit-size", "base", "--model", "llama3-3b", "--discovery", disc],
+            "worker": ["-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b", "--model-path",
+                       ckpt, "--num-pages", str(MM_WORKER_PAGES), "--seed", str(seed),
+                       "--discovery", disc]}
+    procs, logs = {}, {}
+    try:
+        cards = await drt.discovery.watch_prefix("v1/mdc/dynamo/backend/generate/")
+        met_sub = await drt.discovery.subscribe(
+            METRICS_TOPIC_FMT.format(namespace="dynamo", component="backend"))
+        t0 = time.perf_counter()
+        for name, cmd in cmds.items():
+            logs[name] = tempfile.NamedTemporaryFile(prefix=f"torch_mm_{name}_", suffix=".log",
+                                                     delete=False)
+            procs[name] = subprocess.Popen([sys.executable, *cmd], cwd=root, env=env,
+                                           stdout=logs[name], stderr=subprocess.STDOUT)
+
+        def tail(name):
+            return Path(logs[name].name).read_text()[-3000:]
+
+        while True:
+            ev = await cards.get(timeout=1.0)
+            if ev is not None and ev.type == "put":
+                break
+            for name, proc in procs.items():
+                if proc.poll() is not None:
+                    raise RuntimeError(f"mm_worker: {name} exited {proc.poll()}: {tail(name)}")
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError("mm_worker: the worker never registered")
+        t_reg = time.perf_counter() - t0
+        enc_client = await drt.namespace("dynamo").component("encoder").endpoint("encode").client()
+        await enc_client.wait_for_instances(120)
+        t_enc = time.perf_counter() - t0
+        client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
+        await client.wait_for_instances(30)
+        op = EncodeOperator(PushRouter(enc_client), vocab_size=cfg.vocab_size)
+        router = PushRouter(client)
+        # the encode worker's first forward pays its CUDA and cuBLAS set-up
+        t1 = time.perf_counter()
+        await op.forward(dict(reqs[-1], request_id="mmw-warm"), None)
+        first_hop_s = time.perf_counter() - t1
+        stamped, hop_s = [], []
+        for req in reqs:
+            t1 = time.perf_counter()
+            stamped.append(await op.forward(dict(req), None))
+            hop_s.append(time.perf_counter() - t1)
+        before = await latest_stats(met_sub)
+        streams = []
+        for req in stamped:
+            rec = new_record()
+            await run_stream(router.generate, req, rec)
+            assert rec["finish"] == "length" and len(rec["tokens"]) == MAX_TOKENS, rec
+            streams.append(rec["tokens"])
+        after = await latest_stats(met_sub)
+        calls = calls_delta(after, before)
+        launches = {tuple(k.split(":", 1)[1].split("/")): n for k, n in calls.items()
+                    if k.startswith("kernels:")}
+        plain = {k: n for k, n in calls.items() if k.startswith("plain:")}
+        check_alone_launches("mm_worker", launches, plain)
+        encoded_log = "encoded" in tail("encoder")
+        for name in ("worker", "encoder"):
+            procs[name].send_signal(signal.SIGTERM)
+        rcs = {name: await asyncio.get_running_loop().run_in_executor(None, p.wait, 120)
+               for name, p in procs.items()}
+        assert rcs == {"encoder": 0, "worker": 0}, (rcs, tail("worker"), tail("encoder"))
+        assert encoded_log, tail("encoder")
+        await enc_client.close()
+        await client.close()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+            os.unlink(f.name)
+        await drt.close()
+        await server.stop()
+
+    # the in-process reference: the same checkpoint, the same stamped requests
+    engine = TorchEngine(EngineConfig(model="llama3-3b", seed=seed, num_pages=MM_WORKER_PAGES),
+                         model_config=cfg, params=loader.load_llama_params(ckpt, cfg, device=DEV),
+                         device="cuda")
+    await engine.warmup()
+    local = []
+    for req in stamped:
+        engine.clear_kv_blocks()
+        rec = new_record()
+        await run_request(engine, req, rec)
+        local.append(rec["tokens"])
+    await engine.close()
+    del engine
+    assert local == streams, "mm_worker: the CLI worker streams other tokens than the engine"
+    # the hop, split: each request's decode, forward, tolist + pack and
+    # unpack in this process (the fastest of three), on an encoder from the
+    # encode worker's seed (0); the wire's rest is the hop less those
+    def best_ms(fn, n=3):
+        times = []
+        for _ in range(n):
+            t1 = time.perf_counter()
+            out = fn()
+            times.append(1e3 * (time.perf_counter() - t1))
+        return min(times), out
+
+    enc = vit_encoder(0, "cuda")
+    emb_err, split = 0.0, []
+    for req, st, hop in zip(reqs, stamped, hop_s):
+        ms = {"decode": 0.0, "forward": 0.0}
+        embs = []
+        for raw, got in zip(req["multimodal"], st["multimodal"]):
+            dt, px = best_ms(lambda: enc._pixels(raw))
+            ms["decode"] += dt
+            px = torch.from_numpy(np.ascontiguousarray(px[None])).to(DEV)
+            ms["forward"] += time_ms(lambda: enc._fwd(px), warm=1, reps=5)
+            embs.append(enc._fwd(px)[0].float().cpu().numpy())
+            emb_err = max(emb_err, float(np.abs(embs[-1] - np.asarray(got["embedding"])).max()))
+        ms["pack"], raw_bytes = best_ms(lambda: msgpack_lite.packb({"data": {"multimodal": [
+            dict(p, embedding=e.tolist(), n_tokens=enc.n_tokens)
+            for p, e in zip(req["multimodal"], embs)], "n_tokens": enc.n_tokens}}))
+        ms["unpack"], _ = best_ms(lambda: msgpack_lite.unpackb(raw_bytes))
+        ms["wire_rest"] = 1e3 * hop - sum(ms.values())
+        split.append({"hop": round(1e3 * hop, 2), "bytes": len(raw_bytes),
+                      **{k: round(v, 2) for k, v in ms.items()}})
+    assert emb_err <= TOL_VIT, f"mm_worker: the wire's embeddings are {emb_err} from this encoder's"
+    del enc
+    torch.cuda.empty_cache()
+    emit("mm_worker", model="llama-3.2-3b", layers=LOAD_LAYERS, encoder="vit-base-16-224",
+         requests=len(reqs), image_parts=sum(len(r["multimodal"]) for r in reqs),
+         seconds_to_registration={"worker": round(t_reg, 2), "encoder": round(t_enc, 2)},
+         streams_equal=len(streams), embedding_max_abs_err=emb_err,
+         first_hop_ms=round(1e3 * first_hop_s, 2),
+         hop_ms_split=split,
+         launches={"/".join(k): n for k, n in launches.items()}, exit_codes=rcs)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4554,6 +5095,13 @@ def main() -> None:
     t0 = time.perf_counter()
     add_launches(launches, lora_all(args.seed, params))
     seconds["lora"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encoder = phase_vit(args.seed)
+    seconds["vit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mm_launches = asyncio.run(mm_serve(args.seed, params, encoder))
+    seconds["mm_serve"] = time.perf_counter() - t0
+    del encoder
     # the subprocess workers size or place their pools on the card: this
     # process lets go of what it holds first (engines that sat in
     # reference cycles with their tasks included)
@@ -4574,17 +5122,22 @@ def main() -> None:
         asyncio.run(disagg_subprocess(args.seed, reference, load["dir"]))
         seconds["disagg_subprocess"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        asyncio.run(kvbm_peer(args.seed))
+        asyncio.run(kvbm_peer(args.seed, load["dir"]))
         seconds["kvbm_peer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add_launches(mm_launches, asyncio.run(mm_worker(args.seed, load["dir"])))
+        seconds["mm_worker"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         add_launches(moe_launches, asyncio.run(weights_load_subprocess(args.seed, moe_load)))
         seconds["moe_worker"] = time.perf_counter() - t0
     finally:
         for ckpt in (load["dir"], moe_load["dir"]):
             shutil.rmtree(ckpt, ignore_errors=True)
-    # the MoE phases' share of the kernels line's launches
+    # the MoE and multimodal phases' shares of the kernels line's launches
     emit("moe_launches", launches={f"{n}/{f}": c for (n, f), c in sorted(moe_launches.items()) if c})
+    emit("mm_launches", launches={f"{n}/{f}": c for (n, f), c in sorted(mm_launches.items()) if c})
     add_launches(launches, moe_launches)
+    add_launches(launches, mm_launches)
 
     line = {"kernels": [
         {

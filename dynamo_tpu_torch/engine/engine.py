@@ -93,8 +93,12 @@ and host reads are the expensive unit:
 The KV pool is written in place. There is nothing to compile per shape, so
 `warmup()` only builds the kernel library and drives one dispatch of each
 kind. All device work runs on one executor thread so a blocking copy never
-stalls the event loop. Left out of this port so far (each raises a typed
-error when asked for): the multi-host shard handoff, multimodal,
+stalls the event loop. Multimodal requests arrive with their parts encoded
+(llm/multimodal.py: placeholder tokens in the prompt, encoder rows on each
+part); the batched prefill splices the rows over the placeholders'
+embeddings (`emb_override`), and such a slot stays off the mixed step
+until its prompt is in. Left out of this port so far (each raises a typed
+error when asked for): the multi-host shard handoff, embeddings requests,
 multi-host, tensor/pipeline/sequence parallelism. The KV pool may be stored at 8 or 4
 bits (`kv_quant`): quantized on write, dequantized inside the attention
 kernels. The weights may be int8 weight-only quantized (`quantize="int8"`,
@@ -170,13 +174,22 @@ SCRATCH_PAGE = 0  # physical page 0 is the dump target for masked lanes
 
 class UnsupportedRequestError(ValueError):
     """A request field asks for a feature this port has not implemented
-    (multimodal parts, embeddings, unknown `disagg_params` keys) or one this
-    engine's configuration cannot serve (guided decoding or a LoRA adapter
-    on a split-only speculative engine, penalties or logprobs under
-    speculative decoding). Raised from `generate`, never silently dropped.
-    (A LoRA request refused for its adapter — unknown, pool full of pinned
-    slots, a failed onboard — or for asking for guided decoding beside it
-    is answered with the reference's error item instead.)"""
+    (embeddings, unknown `disagg_params` keys) or one this engine's
+    configuration cannot serve (guided decoding or a LoRA adapter on a
+    split-only speculative engine, penalties or logprobs under speculative
+    decoding). Raised from `generate`, never silently dropped. (A LoRA
+    request refused for its adapter — unknown, pool full of pinned slots, a
+    failed onboard — or for asking for guided decoding beside it, and a
+    multimodal request refused for its parts, are answered with the
+    reference's error item instead.)"""
+
+
+class MultimodalRequestError(ValueError):
+    """A multimodal request the reference answers with an error item: a
+    part without encoder embeddings or a position, an embedding of the
+    wrong width, or image parts beside guided decoding. `generate` yields
+    it as `Annotated.from_error` (image parts beside a LoRA adapter are
+    refused by `_acquire_lora`, in the reference's order)."""
 
 
 DISAGG_PARAMS = ("return_kv", "kv_pull", "kv_stream")  # the keys served
@@ -258,6 +271,7 @@ class _Slot:
     migration: int = 0  # > 0: the retry of a stream whose worker died
     migration_counted: bool = False  # its resume is classified once
     replay: bool = False  # migrated: its tail is recomputed decode-shaped
+    mm: Optional[List[tuple]] = None  # multimodal splices: (position, emb [n, H] f32)
     guided_fsm: Optional[Any] = None  # llm/guided.TokenFsm (structured output)
     guided_state: int = 0  # current FSM state; advanced per emitted token
     lora_idx: int = 0  # adapter slot in the LoRA stack (0 = base model)
@@ -685,9 +699,7 @@ class TorchEngine:
             )
 
     def _check_request(self, req: PreprocessedRequest) -> None:
-        bad = ["multimodal"] if req.multimodal else []
-        if req.embed:
-            bad.append("embed")
+        bad = ["embed"] if req.embed else []
         bad += [f"disagg_params.{k}" for k in (req.disagg_params or {})
                 if k not in DISAGG_PARAMS]
         if bad:
@@ -729,6 +741,44 @@ class TorchEngine:
         if req.guided and self.config.spec_mode and not self._mixed_enabled:
             return ("guided decoding is incompatible with speculative decoding "
                     "without the mixed dispatch (run the worker without --spec)")
+        return None
+
+    def _check_multimodal(self, req: PreprocessedRequest) -> Optional[str]:
+        """None when the request is serveable; else the reference's refusal.
+        Serveable: text only, or every part carries encoder embeddings and a
+        placeholder position (the encode hop ran; llm/multimodal.py). The
+        embeddings are converted once, here, and kept on the request as
+        `_mm` [(position, [n, hidden] f32)] (a real encoder's are MBs of
+        nested lists off the wire); the parts themselves are left as they
+        came, so a request forwarded on (disagg) still packs."""
+        if not req.multimodal:
+            return None
+        H = self.model_config.hidden_size
+        splices = []
+        for p in req.multimodal:
+            if p.get("embedding") is None or p.get("position") is None:
+                return (
+                    f"model {self.config.model!r} needs encoder embeddings "
+                    f"for multimodal parts (type={p.get('type')!r}); "
+                    f"deploy an encode worker (dynamo_tpu.encode_worker)"
+                )
+            # a malformed embedding must fail THIS request at admission:
+            # inside the shared prefill dispatch it would fail every
+            # co-active request
+            try:
+                arr = np.asarray(p["embedding"], np.float32)
+            except (ValueError, TypeError):
+                return "multimodal embedding is not a numeric [n, hidden] array"
+            if arr.ndim != 2 or arr.shape[1] != H or arr.shape[0] == 0:
+                return (
+                    f"multimodal embedding shape {arr.shape} does not match "
+                    f"[n>0, hidden={H}] — encode worker configured for a "
+                    f"different model?"
+                )
+            splices.append((int(p["position"]), arr))
+        if req.guided:
+            return "guided decoding cannot be combined with multimodal parts"
+        req._mm = splices
         return None
 
     # -- multi-LoRA ------------------------------------------------------ #
@@ -777,6 +827,8 @@ class TorchEngine:
                                 f"{sorted(self.lora_names())}")
         if req.guided:
             raise LoraPoolError("guided decoding with a LoRA adapter is not supported yet")
+        if req.multimodal:
+            raise LoraPoolError("LoRA with multimodal content parts is not supported yet")
         req._lora_slot = self._lora_pool.acquire(req.lora_name)
         self._land_lora()
 
@@ -855,6 +907,7 @@ class TorchEngine:
                 salt=salt_hash(req.lora_name.encode()) if req.lora_name else 0),
         )
         slot.kv_prompt = slot.prompt
+        slot.mm = getattr(req, "_mm", None)
         slot.temperature = float(
             sampling.get("temperature", self.config.default_temperature) or 0.0
         )
@@ -907,12 +960,12 @@ class TorchEngine:
     async def _serve(self, request: Any, context: Context,
                      setup: Optional[Callable[[_Slot], None]] = None) -> AsyncIterator[dict]:
         """Every streaming entry: build the slot, let `setup` mark its entry
-        path, stream it. A LoRA admission refusal is answered with the
-        reference's error item, so a frontend in front of either worker
-        answers alike."""
+        path, stream it. A LoRA admission refusal and a multimodal refusal
+        are answered with the reference's error item, so a frontend in front
+        of either worker answers alike."""
         try:
             slot = await self._entry_slot_async(request, context)
-        except LoraPoolError as e:
+        except (LoraPoolError, MultimodalRequestError) as e:
             yield Annotated.from_error(str(e)).to_dict()
             return
         if setup is not None:
@@ -939,6 +992,9 @@ class TorchEngine:
         self._check_request(req)
         if not req.token_ids:
             raise ValueError("request has no prompt tokens")
+        mm_err = self._check_multimodal(req)
+        if mm_err is not None:
+            raise MultimodalRequestError(mm_err)
         return req
 
     async def _entry_slot_async(self, request: Any, context: Context) -> _Slot:
@@ -1041,8 +1097,11 @@ class TorchEngine:
         the transfer overlaps the peer's compute; the first decode step
         dispatches once the last chunk and the first token have both
         landed. Mid-morph, or when the request's adapter is refused, it
-        returns None: the serial path then refuses the stream."""
-        if self._morph_state in ("draining-role", "flipped"):
+        returns None: the serial path then refuses the stream. A request
+        with multimodal parts also gets None (the splice does not ride the
+        preload path): the serial handoff serves it."""
+        mm = request.get("multimodal") if isinstance(request, dict) else request.multimodal
+        if mm or self._morph_state in ("draining-role", "flipped"):
             return None
         try:
             slot = self._entry_slot(request, context)
@@ -1675,16 +1734,20 @@ class TorchEngine:
 
     @torch.no_grad()
     def _dev_prefill(self, toks, positions, tables, ctx_lens, last_idx,
-                     temps, top_ks, top_ps, seeds, pens, pen_rows, mask=None, lora=None):
+                     temps, top_ks, top_ps, seeds, pens, pen_rows, mask=None, lora=None,
+                     emb=None, emb_mask=None):
         """Batched chunked prefill + on-device first-token sampling (masked
         by the guided lanes' FSMs when `mask` is given; with the lanes'
-        adapters when `lora` is given)."""
+        adapters when `lora` is given; with encoder rows spliced over the
+        placeholders where `emb_mask` is set when `emb` is given)."""
         samp = self._samp(temps, top_ks, top_ps, seeds, pens)
         ctx_d, last_d = self._dev(ctx_lens), self._dev(last_idx)
         logits, _, _ = self._model.prefill_forward_batched(
             self.params, self.model_config, self._dev(toks), self._dev(positions),
             self.kv_k, self.kv_v, self._dev(tables), ctx_d, last_d,
             lora=self._dev_lora(lora),
+            emb_override=None if emb is None else self._dev(emb),
+            emb_mask=None if emb_mask is None else self._dev(emb_mask),
         )
         plogits = penalized(logits, samp, self._dev(pen_rows))
         first = sample_lp(plogits, samp, ctx_d + last_d, raw=logits,
@@ -1963,11 +2026,14 @@ class TorchEngine:
         if not cands:
             return False
         cands = self.scheduler.order(cands)
-        # guided and LoRA slots ride different operands and never share a
-        # prefill batch; plain slots batch with either (an all-ones mask row
-        # and adapter slot 0 are exact no-ops). The excluded kind waits; the
-        # planner's aging tiebreak keeps it from starving.
+        # multimodal, guided and LoRA slots ride different operands and
+        # never share a prefill batch; plain slots batch with any one kind
+        # (a masked-off splice row, an all-ones mask row and adapter slot 0
+        # are exact no-ops). The excluded kind waits; the planner's aging
+        # tiebreak keeps it from starving.
         def kind(s):
+            if s.mm is not None:
+                return "mm"
             return "guided" if s.guided_fsm is not None else "lora" if s.lora_idx else "plain"
 
         batch_kind = self.scheduler.pick_batch_kind(cands, kind)
@@ -2046,12 +2112,13 @@ class TorchEngine:
         # guided lanes constrain the first generated token as decode steps
         # are constrained; the other lanes' all-ones rows are exact no-ops
         mask = self._pack_masks([(lane, s) for s, _, lane in meta], B_pf)
+        emb, emb_mask = self._splice_operands(meta, B_pf, bucket)
         first_dev = await self._run_on_device(
             partial(
                 self._dev_prefill,
                 toks, positions, tables, ctx_lens, last_idx, temps,
                 top_ks, top_ps, seeds, pens, pen_rows, mask,
-                self._lora_operand(lora_idx),
+                self._lora_operand(lora_idx), emb, emb_mask,
             ),
             tag="prefill", shape=(bucket, B_pf),
         )
@@ -2068,11 +2135,33 @@ class TorchEngine:
         )
         return True
 
+    def _splice_operands(self, meta, B_pf: int, bucket: int):
+        """(emb [B_pf, bucket, H] f32, emb_mask [B_pf, bucket]) of a prefill
+        dispatch: each part's encoder rows land at their absolute prompt
+        positions inside the lane's chunk window [prefill_pos, +chunk),
+        which may cut an image at either end (a chunk boundary, a prefix
+        hit inside it). (None, None) when no chosen slot has image parts."""
+        if not any(s.mm for s, _, _ in meta):
+            return None, None
+        H = self.model_config.hidden_size
+        emb = np.zeros((B_pf, bucket, H), np.float32)
+        emb_mask = np.zeros((B_pf, bucket), bool)
+        for s, chunk, lane in meta:
+            start = s.prefill_pos
+            for pos0, arr in s.mm or ():
+                lo, hi = max(pos0, start), min(pos0 + len(arr), start + chunk)
+                if lo < hi:
+                    emb[lane, lo - start:hi - start] = arr[lo - pos0:hi - pos0]
+                    emb_mask[lane, lo - start:hi - start] = True
+        return emb, emb_mask
+
     def _replays(self, s: _Slot) -> bool:
         """A migrated slot whose remaining tail (at most two pages) is
-        recomputed decode-shaped instead of prefilled."""
+        recomputed decode-shaped instead of prefilled. A tail that reaches
+        into an image is prefilled: the decode forward has no splice."""
         return (s.replay and s.onboard is None
-                and 0 < len(s.kv_prompt) - s.prefill_pos <= 2 * self.config.page_size)
+                and 0 < len(s.kv_prompt) - s.prefill_pos <= 2 * self.config.page_size
+                and not any(pos0 + len(arr) > s.prefill_pos for pos0, arr in s.mm or ()))
 
     async def _dispatch_replays(self) -> bool:
         """Recompute a migrated resume's tail — the tokens past the prefix
@@ -2830,7 +2919,22 @@ class TorchEngine:
         n_spec_rows = sum(
             d for i in active if self.slots[i].guided_fsm is None
         ) if d else 0
-        cands = self._prefill_candidates()
+        cands = []
+        mm_starved = False
+        for s in self._prefill_candidates():
+            if s.mm is not None:
+                # the splice has no operand in the ragged forward: only this
+                # slot stays out (the others still fuse) and it ages toward
+                # the starvation guard
+                s.sched_skips += 1
+                mm_starved |= s.sched_skips >= self.scheduler.sla.starve_dispatches
+                continue
+            cands.append(s)
+        if mm_starved:
+            # a starved image slot must win the next batch outright: the
+            # whole step goes to the split path, whose pick_batch_kind
+            # starvation override serves it
+            return False
         if not cands:
             return False
         cands = self.scheduler.order(cands)

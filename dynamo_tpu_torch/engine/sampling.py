@@ -271,8 +271,11 @@ def apply_logit_penalties(
     frequency_penalty: torch.Tensor,  # [B]
     repetition_penalty: torch.Tensor,  # [B] 1.0 = off
 ) -> torch.Tensor:
-    """OpenAI-style penalties over a recent-token window, batched on device."""
-    valid = recent_tokens >= 0
+    """OpenAI-style penalties over a recent-token window, batched on device.
+    Ids outside the vocabulary (pads, a multimodal placeholder from a
+    larger tokenizer vocabulary) count nowhere, as the reference's scatter
+    drops them."""
+    valid = (recent_tokens >= 0) & (recent_tokens < logits.shape[-1])
     safe = torch.where(valid, recent_tokens, torch.zeros_like(recent_tokens)).long()
     counts = torch.zeros_like(logits, dtype=torch.float32)
     counts.scatter_add_(1, safe, valid.to(torch.float32))

@@ -11,7 +11,7 @@ the floating leaves are cast to. An MoE tree carries across the same way:
 its expert stacks `[L, E, in, out]` (quantized: scales `[L, E, 1, out]`)
 like any layer leaf, and its router stays f32 whatever `dtype` is, as the
 reference keeps it. `adapter_from_jax` does the same for a reference LoRA
-adapter.
+adapter, and `vit_params_from_jax` for the reference's ViT tree.
 """
 
 from __future__ import annotations
@@ -63,3 +63,15 @@ def adapter_from_jax(adapter, dtype: Optional[torch.dtype] = None, device="cpu")
         a={t: _leaf(v, dtype, device) for t, v in adapter.a.items()},
         b={t: _leaf(v, dtype, device) for t, v in adapter.b.items()},
     )
+
+
+def vit_params_from_jax(tree: Dict[str, Any], dtype: Optional[torch.dtype] = None,
+                        device="cpu") -> Dict[str, Any]:
+    """The reference's ViT tree (`dynamo_tpu.models.vit.init_params`, its
+    leaves numpy or JAX arrays) as the port's `models.vit` tree: the same
+    nesting (a list of layer dicts), every leaf a tensor on `device`."""
+    if isinstance(tree, dict):
+        return {k: vit_params_from_jax(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [vit_params_from_jax(v, dtype, device) for v in tree]
+    return _leaf(tree, dtype, device)

@@ -264,15 +264,23 @@ def prefill_forward_batched(
     all_logits: bool = False,  # True: [B, T, vocab] (the speculative verify)
     lora=None,  # models/lora.py stack + per-lane "idx" [B]
     mlp_fn=None,  # (layer, x, config) -> x; models/moe.py passes its MoE MLP
+    emb_override: Optional[torch.Tensor] = None,  # [B, T, H] multimodal rows (f32)
+    emb_mask: Optional[torch.Tensor] = None,  # [B, T] True where the override applies
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched chunked prefill: one call processes chunks of SEVERAL
     sequences. Returns (logits_last [B, vocab] f32, kv_k, kv_v) with the
     chunks' KV written into the pages — or every position's logits
-    [B, T, vocab] under `all_logits` (engine/spec.py's verify pass)."""
+    [B, T, vocab] under `all_logits` (engine/spec.py's verify pass).
+
+    `emb_override` / `emb_mask`: the multimodal splice — encoder rows,
+    cast to the model dtype, replace the placeholder tokens' embeddings
+    where the mask is set (llm/multimodal.py)."""
     c = config
     mlp = mlp_fn or _mlp
     B, T = tokens.shape
     x = embed_rows(params["embed"], tokens, c.dtype)  # [B, T, H]
+    if emb_override is not None:
+        x = torch.where(emb_mask[..., None], emb_override.to(c.dtype), x)
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
     page_size = kv_page_size(kv_k)
     total_lens = (context_lens + last_idx + 1).to(torch.int32)  # [B]

@@ -247,7 +247,9 @@ def ragged_forward(params, config: MoeConfig, tokens, positions, row_ids, kv_k, 
 
 def prefill_forward_batched(params, config: MoeConfig, tokens, positions, kv_k, kv_v,
                             page_tables, context_lens, last_idx, **kw):
-    """Batched chunked prefill (several sequences a dispatch), MoE MLP."""
+    """Batched chunked prefill (several sequences a dispatch), MoE MLP.
+    `**kw` carries llama's options through, the multimodal splice
+    (`emb_override`, `emb_mask`) among them."""
     return llama.prefill_forward_batched(params, config, tokens, positions, kv_k, kv_v,
                                          page_tables, context_lens, last_idx,
                                          mlp_fn=_moe_mlp_nd, **kw)

@@ -204,8 +204,12 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def embed_rows(embed, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     """Embedding gather; a quantized table gathers its rows and their
-    per-row scales and dequantizes them to `dtype`."""
-    idx = tokens.long()
+    per-row scales and dequantizes them to `dtype`. Ids past the table are
+    clamped to its last row, as XLA's gather clamps them in the reference:
+    a multimodal placeholder id drawn from a frontend tokenizer's larger
+    vocabulary reads a row the splice then replaces."""
+    rows = (embed["q"] if is_quant(embed) else embed).shape[0]
+    idx = tokens.long().clamp(max=rows - 1)
     if not is_quant(embed):
         return embed[idx]
     return (embed["q"][idx].to(torch.float32) * embed["s"][idx]).to(dtype)

@@ -15,6 +15,10 @@ not only the decoded values, must agree. As in msgpack: an int outside
 i64..u64 raises OverflowError, an object of any other type TypeError.
 Decoding accepts float32 too; an ext type, a map key that is not str or
 bytes, truncated input and trailing bytes raise ValueError.
+
+A long run of floats (an encoder's embedding rows: 602,112 floats a
+full-width image part) is packed and unpacked with one `struct` call and
+eight strided byte copies instead of one call a float: the same bytes.
 """
 
 from __future__ import annotations
@@ -105,6 +109,9 @@ def _pack(obj: Any, out: List[bytes]) -> None:
         out.append(raw)
     elif isinstance(obj, (list, tuple)):
         _pack_len(len(obj), 0x90, 16, (b"\xdc", b"\xdd"), out)
+        if len(obj) >= FLOAT_RUN and all(type(x) is float for x in obj):
+            out.append(_pack_floats(obj))
+            return
         for item in obj:
             _pack(item, out)
     elif isinstance(obj, dict):
@@ -114,6 +121,20 @@ def _pack(obj: Any, out: List[bytes]) -> None:
             _pack(v, out)
     else:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
+
+
+FLOAT_RUN = 16  # a list at least this long, all floats, takes the one-call path
+
+
+def _pack_floats(xs) -> bytes:
+    """float64 elements [0xcb, 8 big-endian bytes] of every float in `xs`."""
+    n = len(xs)
+    vals = struct.pack(f">{n}d", *xs)
+    out = bytearray(9 * n)
+    out[0::9] = b"\xcb" * n
+    for j in range(8):
+        out[1 + j::9] = vals[j::8]
+    return bytes(out)
 
 
 def packb(obj: Any) -> bytes:
@@ -146,6 +167,14 @@ def _str(r: _Reader, n: int) -> str:
 
 
 def _array(r: _Reader, n: int) -> list:
+    if n >= FLOAT_RUN:
+        body = r.buf[r.pos:r.pos + 9 * n]
+        if len(body) == 9 * n and body[0::9] == b"\xcb" * n:  # n float64 elements
+            vals = bytearray(8 * n)
+            for j in range(8):
+                vals[j::8] = body[1 + j::9]
+            r.pos += 9 * n
+            return list(struct.unpack(f">{n}d", vals))
     return [_unpack(r) for _ in range(n)]
 
 

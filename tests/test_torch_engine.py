@@ -196,7 +196,9 @@ def test_unsupported_config_fields_raise(field, value):
 ])
 def test_unsupported_request_fields_raise(field, value):
     # guided and LoRA requests are served, except on a split-only speculative
-    # engine
+    # engine; multimodal parts are served once encoded, and a part without
+    # encoder embeddings is answered with the reference's error item
+    # (tests/test_torch_multimodal.py holds the served path)
     extra = (dict(spec_mode="ngram", mixed_dispatch=False)
              if field in ("guided", "lora_name") else {})
     engine = TorchEngine(EngineConfig(**ENGINE_KW, **extra),
@@ -206,6 +208,11 @@ def test_unsupported_request_fields_raise(field, value):
     async def run():
         req = PreprocessedRequest(token_ids=[5, 6, 7], **{field: value}).to_dict()
         try:
+            if field == "multimodal":
+                items = [item async for item in engine.generate(req, Context())]
+                assert len(items) == 1 and items[0]["event"] == "error"
+                assert "needs encoder embeddings" in items[0]["comment"][0]
+                return
             with pytest.raises(UnsupportedRequestError, match=field):
                 async for _ in engine.generate(req, Context()):
                     pass
