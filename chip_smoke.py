@@ -74,15 +74,18 @@ the prefill kernel over the onboarded pages, and the tier copies must equal
 the device pages bit for bit; `kvbm` adds an sla-policy run (which arm the
 onboard budget picks for host and disk spans) and a warm restart on the
 same disk pool.
-`kvbm_peer` starts two CLI workers (serving the 4-layer weights_load
-checkpoint) with host tiers, the status server,
+`kvbm_peer` starts `python -m dynamo_tpu_torch.frontend --router-mode kv
+--embed-discovery` and two CLI workers (serving the 4-layer weights_load
+checkpoint) with host tiers, KV events, the status server,
 canaries and session checkpoints; worker 2 must pull worker 1's blocks over
 the data plane and stream its tokens, and both /metrics, /health and /live
-are read; then four streams run through the port's Migration on worker 1,
-which is SIGKILLed mid-decode once their prompts are checkpointed into
-worker 2: each must finish on worker 2 as it did uninterrupted, resumed
-from the checkpoint (the resume gap, the tokens recomputed and the
-checkpoint push ms a block are printed). `durable` does the same in one
+are read; then the frontend is driven over HTTP (its `frontend` line,
+below); then four streams run through the port's Migration on worker 1,
+beside one HTTP stream pinned there, and worker 1 is SIGKILLed mid-decode
+once their prompts are checkpointed into worker 2: each must finish on
+worker 2 as it did uninterrupted, resumed from the checkpoint (the resume
+gap, the tokens recomputed and the checkpoint push ms a block are
+printed), and the HTTP stream through the frontend's migration. `durable` does the same in one
 process with two engines, the streams severed by a live `morph` of the
 first; an injected morph error must roll it back to a routable role.
 `disagg_subprocess` also morphs its prefill worker into a decode worker
@@ -161,6 +164,17 @@ on the same checkpoint and stamped requests and the wire's embeddings to an
 encoder from the same seed, and splits each hop's ms into decode, forward,
 pack, unpack and the wire's rest. `mm_launches` gives their share of the
 kernels line's launches.
+The `frontend` line is `kvbm_peer`'s frontend over HTTP on asyncio
+streams: /v1/models and /health, a streamed and a unary chat, a greedy
+completion equal to the port tokenizer's decode of the same request
+through a PushRouter, six requests each landing on the worker that holds
+their five-page prefix (the workers' prefix-hit counters), the workers'
+kernel launches over the HTTP traffic alone, the frontend's and the gate's
+metrics, the frontend's absence from the card (no libcuda or torch mapped,
+no extra compute process), TTFT and ITL of 8 prompts over HTTP beside
+PushRouters' with each request on the same worker in both runs, and the
+stream whose worker is SIGKILLed mid-decode finishing on the other
+through the frontend's migration.
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -3027,21 +3041,26 @@ def gauge(metrics: str, name: str) -> float:
 
 
 async def kvbm_peer(seed: int, ckpt: str) -> None:
-    """Two `python -m dynamo_tpu_torch.worker` processes on the card serving
-    the weights_load checkpoint (`--model-path`: LOAD_LAYERS), each
-    with a 256-block host tier, the status server, canaries and session
-    checkpoints (DYN_KV_CHECKPOINT; mixed dispatch off, so every decode row
-    runs the decode kernel). Wave A goes to worker 1 (addressed directly);
-    once worker 1's checkpoints have landed, worker 2 drops its tiers and
-    gets the same prompts, and must pull worker 1's blocks over the data
-    plane (G4) and stream the same tokens. Both /metrics are scraped. Then
-    durable sessions: four streams (two greedy, two seeded) are taken
-    uninterrupted on worker 1, all at once, then run again through the port's Migration
-    over a PushRouter that prefers worker 1; once worker 1 has pushed their
-    prompts to worker 2 and each stream has DURABLE_CUT tokens out, worker 1
-    is SIGKILLed. The streams must finish on worker 2 as they did
-    uninterrupted, resumed from the checkpoint with under two pages
-    recomputed each. Worker 2 drains on SIGTERM."""
+    """`python -m dynamo_tpu_torch.frontend --router-mode kv --embed-discovery`
+    (its discovery serves the phase) and two `python -m
+    dynamo_tpu_torch.worker` processes on the card serving the weights_load
+    checkpoint (`--model-path`: LOAD_LAYERS), each with a host tier
+    (PEER_HOST_BLOCKS), KV events, the status server, canaries and session checkpoints
+    (DYN_KV_CHECKPOINT; mixed dispatch off, so every decode row runs the
+    decode kernel). Wave A goes to worker 1 (addressed directly); once
+    worker 1's checkpoints have landed, worker 2 drops its tiers and gets
+    the same prompts, and must pull worker 1's blocks over the data plane
+    (G4) and stream the same tokens. Both /metrics are scraped. Then the
+    frontend over HTTP (`frontend_http`). Then durable sessions: four
+    streams (two greedy, two seeded) are taken uninterrupted on worker 1,
+    all at once, then run again through the port's Migration over a
+    PushRouter that prefers worker 1, beside one HTTP stream the frontend
+    pins to worker 1; once worker 1 has pushed their prompts to worker 2
+    and each stream has DURABLE_CUT tokens out, worker 1 is SIGKILLed. The
+    four streams must finish on worker 2 as they did uninterrupted, resumed
+    from the checkpoint with under two pages recomputed each, and the HTTP
+    stream must finish there through the frontend's migration. Worker 2 and
+    the frontend drain on SIGTERM."""
     import os
     import re
     import signal
@@ -3049,17 +3068,12 @@ async def kvbm_peer(seed: int, ckpt: str) -> None:
     from pathlib import Path
 
     from dynamo_tpu_torch.llm.kv_router.publisher import METRICS_TOPIC_FMT
-    from dynamo_tpu_torch.runtime import (DiscoveryServer, DistributedRuntime, PushRouter,
-                                          RouterMode, RuntimeConfig, codec)
+    from dynamo_tpu_torch.runtime import (DistributedRuntime, PushRouter, RouterMode,
+                                          RuntimeConfig, codec)
 
-    server = DiscoveryServer(port=0)
-    _, port = await server.start()
-    disc = f"tcp://127.0.0.1:{port}"
-    cfg = RuntimeConfig.from_settings()
-    cfg.discovery_endpoint = disc
-    drt = await DistributedRuntime.create(cfg)
     root = Path(__file__).resolve().parent
-    sys_port = free_port_pair()
+    http_port, disc_port, sys_port = free_port_pair(), free_port_pair(), free_port_pair()
+    disc = f"tcp://127.0.0.1:{disc_port}"
     procs, logs, rcs = {}, {}, {}
     vocab = llama.LlamaConfig.llama3_2_3b().vocab_size
     _, text = make_requests(seed, vocab, [], (), (), "peer")
@@ -3067,41 +3081,64 @@ async def kvbm_peer(seed: int, ckpt: str) -> None:
                                 request_id=f"peer-{i}",
                                 stop_conditions={"max_tokens": KVBM_OUT}).to_dict()
             for i in range(KVBM_SESSIONS)]
+
+    def start(name, args, extra_env=None):
+        logs[name] = tempfile.NamedTemporaryFile(prefix=f"peer_{name}_", suffix=".log",
+                                                 delete=False)
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=root,
+            env=dict(os.environ, PYTHONPATH=str(root), **(extra_env or {})),
+            stdout=logs[name], stderr=subprocess.STDOUT)
+
+    def tail(name):
+        return Path(logs[name].name).read_text()[-3000:]
+
+    def alive():
+        for name, proc in procs.items():
+            if proc.poll() is not None:
+                raise RuntimeError(f"kvbm_peer: {name} exited {proc.poll()}: {tail(name)}")
+
+    drt = None
+    t_fe = time.perf_counter()
+    start("frontend", ["dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1",
+                       "--http-port", str(http_port), "--embed-discovery", "--discovery", disc,
+                       "--router-mode", "kv"])
     try:
+        while True:  # the frontend's HTTP port and its embedded discovery
+            alive()
+            try:
+                if (await http_call(http_port, "GET", "/live"))[0] == 200:
+                    break
+            except OSError:
+                await asyncio.sleep(0.1)
+        fe_live_s = time.perf_counter() - t_fe
+        cfg = RuntimeConfig.from_settings()
+        cfg.discovery_endpoint = disc
+        drt = await DistributedRuntime.create(cfg)
         cards = await drt.discovery.watch_prefix("v1/mdc/dynamo/backend/generate/")
         met_sub = await drt.discovery.subscribe(
             METRICS_TOPIC_FMT.format(namespace="dynamo", component="backend"))
         t0 = time.perf_counter()
         for index in (0, 1):
-            name = f"w{index + 1}"
-            logs[name] = tempfile.NamedTemporaryFile(prefix=f"torch_{name}_", suffix=".log",
-                                                     delete=False)
-            env = dict(os.environ, PYTHONPATH=str(root), DYN_SYSTEM_PORT=str(sys_port),
-                       DYN_WORKER_INDEX=str(index), DYN_HEALTH_CHECK_ENABLED="1",
-                       DYN_HEALTH_CHECK_IDLE_TIMEOUT="5", DYN_KV_CHECKPOINT=DURABLE_CKPT,
-                       DYN_MIXED_DISPATCH="0")
-            procs[name] = subprocess.Popen(
-                [sys.executable, "-m", "dynamo_tpu_torch.worker", "--model", "llama3-3b",
-                 "--model-path", ckpt,
-                 "--num-pages", str(PEER_PAGES), "--kvbm-host-blocks", str(PEER_HOST_BLOCKS),
-                 "--seed", str(seed), "--discovery", disc, "--kv-data-plane-host", "127.0.0.1"],
-                cwd=root, env=env, stdout=logs[name], stderr=subprocess.STDOUT)
-
-        def tail(name):
-            return Path(logs[name].name).read_text()[-3000:]
+            start(f"w{index + 1}",
+                  ["dynamo_tpu_torch.worker", "--model", FE_MODEL, "--model-path", ckpt,
+                   "--num-pages", str(PEER_PAGES), "--kvbm-host-blocks", str(PEER_HOST_BLOCKS),
+                   "--kv-events", "--seed", str(seed), "--discovery", disc,
+                   "--kv-data-plane-host", "127.0.0.1"],
+                  {"DYN_SYSTEM_PORT": str(sys_port), "DYN_WORKER_INDEX": str(index),
+                   "DYN_HEALTH_CHECK_ENABLED": "1", "DYN_HEALTH_CHECK_IDLE_TIMEOUT": "5",
+                   "DYN_KV_CHECKPOINT": DURABLE_CKPT, "DYN_MIXED_DISPATCH": "0"})
 
         seen = 0
         while seen < 2:
             ev = await cards.get(timeout=1.0)
             seen += ev is not None and ev.type == "put"
-            for name, proc in procs.items():
-                if proc.poll() is not None:
-                    raise RuntimeError(f"kvbm_peer: {name} exited {proc.poll()}: {tail(name)}")
+            alive()
             if time.perf_counter() - t0 > 600:
                 raise RuntimeError("kvbm_peer: the workers never registered")
         t_ready = time.perf_counter() - t0
         ids = {}
-        for name in procs:
+        for name in ("w1", "w2"):
             for _ in range(200):  # the line follows the card's registration
                 m = re.search(r"instance=([0-9a-f]+)", Path(logs[name].name).read_text())
                 if m:
@@ -3175,8 +3212,15 @@ async def kvbm_peer(seed: int, ckpt: str) -> None:
         health = {name: scrape(sys_port + i, "/health") for i, name in enumerate(("w1", "w2"))}
         live = {name: scrape(sys_port + i, "/live")[0] for i, name in enumerate(("w1", "w2"))}
 
+        # the same two workers behind the frontend, over HTTP
+        t_http = time.perf_counter()
+        fe = await frontend_http(seed, http_port, sys_port, ids, routers, stats_of,
+                                 checkpoints_landed, alive, procs)
+        fe["http_s"] = round(time.perf_counter() - t_http, 2)
+
         # durable sessions: the uninterrupted streams, then the same requests
-        # migrated off a worker SIGKILLed mid-decode
+        # migrated off a worker SIGKILLed mid-decode, beside an HTTP stream
+        # on that worker
         dreqs = durable_requests(seed, vocab, "peer-durable")
         whole = await together(routers["w1"].generate, dreqs)
         await checkpoints_landed("w1")
@@ -3186,36 +3230,66 @@ async def kvbm_peer(seed: int, ckpt: str) -> None:
         w1_base = await stats_of("w1")
         w2_base = await stats_of("w2")
         reset_counts()
+        by_instance = {f"{i:x}": name for name, i in ids.items()}
+        fe_mig = {"events": 0}
+        fe_first = asyncio.Event()
+
+        async def on_mig_frame(frame):
+            if frame.startswith(": worker_instance_id "):
+                # the retry's worker announces itself too: keep the first
+                name = by_instance[json.loads(frame.split(" ", 2)[2])[0]]
+                fe_mig.setdefault("first", name)
+                fe_mig["last"] = name
+            elif frame.startswith("data: {"):
+                fe_mig["events"] += 1
+                fe_first.set()
+
+        # its prefill is done before the durable prompts arrive
+        fe_task = asyncio.create_task(http_call(http_port, "POST", "/v1/completions", {
+            "model": FE_MODEL, "prompt": text(FE_MIGRATE_PROMPT, 9001),
+            "max_tokens": FE_MIGRATE_OUT, "temperature": 0.0, "stream": True,
+            "stream_options": {"include_usage": True},
+            "nvext": {"annotations": ["worker_instance_id"], "ignore_eos": True,
+                      "router_config_override": {"backend_instance_id": ids["w1"]}}},
+            on_mig_frame))
+        await asyncio.wait_for(fe_first.wait(), 60)
         mig = RetryClock(PushRouter(
             client, RouterMode.ROUND_ROBIN,
             prefer=lambda ready: [ids["w1"]] if ids["w1"] in ready else ready))
         records = [{"tokens": [], "times": []} for _ in dreqs]
         tasks = [asyncio.create_task(migrate_stream(mig, r, rec))
                  for r, rec in zip(dreqs, records)]
-        want = full_pages(dreqs)
+        want = full_pages(dreqs) + FE_MIGRATE_PROMPT // 64
         deadline = time.perf_counter() + 120
         while True:
             st = await stats_of("w1")
             pushed = stat_delta(st, w1_base, "kvbm_ckpt_blocks_pushed")
             if (pushed >= want and min(len(r["tokens"]) for r in records) >= DURABLE_CUT
+                    and fe_mig["events"] >= FE_MIGRATE_CUT
                     and st["kvbm_ckpt_queue_depth"] == 0 and st["kvbm_pending_offloads"] == 0):
                 break
-            assert time.perf_counter() < deadline and not any(t.done() for t in tasks), \
+            assert time.perf_counter() < deadline and not any(
+                t.done() for t in tasks + [fe_task]), \
                 "kvbm_peer: the streams never reached the cut with their prompts checkpointed"
         w1_at_kill = st
         t_kill = time.perf_counter()
         procs["w1"].kill()
         at_kill = [len(r["tokens"]) for r in records]
+        fe_at_kill = fe_mig["events"]
         await asyncio.wait_for(asyncio.gather(*tasks), 180)
+        fe_st, _h, _b, fe_ev = await asyncio.wait_for(fe_task, 180)
         w2_after = await stats_of("w2")
+        fe_metrics = (await http_call(http_port, "GET", "/metrics"))[2].decode()
+        fe_cpu_s = proc_cpu_s(procs["frontend"].pid)
         proc = procs.pop("w1")
         rcs["w1"] = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 30)
         assert rcs["w1"] == -signal.SIGKILL, rcs
         await client.close()
-        procs["w2"].send_signal(signal.SIGTERM)
-        proc = procs.pop("w2")
-        rcs["w2"] = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
-        assert rcs["w2"] == 0, f"kvbm_peer: w2 exited {rcs['w2']} on SIGTERM: {tail('w2')}"
+        for name in ("w2", "frontend"):
+            procs[name].send_signal(signal.SIGTERM)
+            proc = procs.pop(name)
+            rcs[name] = await asyncio.get_running_loop().run_in_executor(None, proc.wait, 120)
+            assert rcs[name] == 0, f"kvbm_peer: {name} exited {rcs[name]} on SIGTERM: {tail(name)}"
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -3224,8 +3298,8 @@ async def kvbm_peer(seed: int, ckpt: str) -> None:
         for f in logs.values():
             f.close()
             os.unlink(f.name)
-        await drt.close()
-        await server.stop()
+        if drt is not None:
+            await drt.close()
 
     for i, (a, b) in enumerate(zip(w1, w2)):
         assert a["tokens"] == b["tokens"], f"kvbm_peer: request {i} differs on the pulling worker"
@@ -3266,14 +3340,38 @@ async def kvbm_peer(seed: int, ckpt: str) -> None:
          health={name: h[0] for name, h in health.items()}, live=live,
          system_ports=[sys_port, sys_port + 1], exit_codes=rcs)
 
+    # the frontend's stream on the killed worker: finished on the other
+    data = sse_data(fe_ev)
+    usage = [d for _t, d in data if d.get("usage")][-1]["usage"]
+    finish = [d["choices"][0]["finish_reason"] for _t, d in data
+              if d["choices"] and d["choices"][0].get("finish_reason")]
+    assert fe_st == 200 and usage["completion_tokens"] == FE_MIGRATE_OUT and finish == ["length"], \
+        (fe_st, usage, finish)
+    assert fe_mig.get("first") == "w1" and fe_mig.get("last") == "w2", \
+        f"frontend: the stream did not move from w1 to w2: {fe_mig}"
+    migrations = float(re.search(r"^dynamo_frontend_migrations_total (\S+)$", fe_metrics,
+                                 re.M).group(1))
+    assert migrations >= 1, migrations
+    gaps = [t for t, d in data if d["choices"] and d["choices"][0].get("text")]
+    resume_gap = max(b - a for a, b in zip(gaps, gaps[1:]))
+    emit("frontend", model="llama-3.2-3b", layers=LOAD_LAYERS, workers=2,
+         num_pages_each=PEER_PAGES, router_mode="kv", seconds_to_live=round(fe_live_s, 2),
+         **fe, frontend_cpu_s=round(fe_cpu_s, 2),
+         migration={"killed": "w1", "resumed_on": fe_mig["last"],
+                    "events_at_kill": fe_at_kill, "tokens": usage["completion_tokens"],
+                    "resume_gap_ms": round(1e3 * resume_gap, 2), "migrations": migrations},
+         exit_codes=rcs)
+
+    # the durable streams, and the HTTP stream's resume beside them
+    resumed_streams = DURABLE_STREAMS + 1
     for i, (w, r) in enumerate(zip(whole, records)):
         assert r["tokens"] == w["tokens"], \
             f"kvbm_peer: stream {i} resumed on worker 2 differs from its uninterrupted stream"
     resumed = stat_delta(w2_after, w2_base, "migrations_resumed")
     replayed = stat_delta(w2_after, w2_base, "migration_replayed_tokens")
-    assert resumed == DURABLE_STREAMS, f"kvbm_peer: {resumed} resumes on worker 2"
+    assert resumed == resumed_streams, f"kvbm_peer: {resumed} resumes on worker 2"
     assert stat_delta(w2_after, w2_base, "resume_source_checkpoint") >= 1, w2_after
-    assert replayed < 2 * 64 * DURABLE_STREAMS, f"kvbm_peer: {replayed} tokens recomputed"
+    assert replayed < 2 * 64 * resumed_streams, f"kvbm_peer: {replayed} tokens recomputed"
     dcalls = calls_delta(w2_after, w2_base)
     assert dcalls.get("kernels:paged_decode/none", 0) > 0 and set(dcalls) <= {
         "kernels:paged_decode/none", "kernels:prefill_attention/none"}, dcalls
@@ -3284,8 +3382,8 @@ async def kvbm_peer(seed: int, ckpt: str) -> None:
          prompt_tokens=[len(r["token_ids"]) for r in dreqs], max_tokens=DURABLE_OUT,
          tokens_at_kill=at_kill, streams_equal=len(records),
          **mig.resume(dreqs, records, t_kill),
-         migrations_resumed=resumed, replayed_tokens=replayed,
-         replayed_tokens_per_stream=round(replayed / DURABLE_STREAMS, 1),
+         http_streams_beside=1, migrations_resumed=resumed, replayed_tokens=replayed,
+         replayed_tokens_per_stream=round(replayed / resumed_streams, 1),
          resume_source={k: stat_delta(w2_after, w2_base, f"resume_source_{k}")
                         for k in ("checkpoint", "peer", "local", "recompute")},
          tail_recompute=dev_delta(w2_after, w2_base, "replay"),
@@ -5028,6 +5126,324 @@ async def mm_worker(seed: int, ckpt: str) -> dict:
          hop_ms_split=split,
          launches={"/".join(k): n for k, n in launches.items()}, exit_codes=rcs)
     return launches
+
+
+# ---------------------------------------------------------------------- #
+# the OpenAI HTTP frontend, KV routing, in front of kvbm_peer's two workers
+# ---------------------------------------------------------------------- #
+
+FE_MODEL = "llama3-3b"  # the served name: the workers' --model
+FE_AFFINITY_PREFIX = 320  # five pages shared by a seed request and its followers
+FE_FOLLOWERS = 3  # follow-ups of each of the two seeds: six requests
+# the stream on the worker kvbm_peer kills: its prompt and output tokens
+# (more than the durable streams', so it is still decoding at the cut)
+FE_MIGRATE_PROMPT, FE_MIGRATE_OUT = 500, 512
+FE_MIGRATE_CUT = 4  # text events out at least when its worker is killed
+FE_SETTLE_S = 0.35  # > the workers' 0.25 s stats cadence: the router sees a settled load
+FE_SHARED = (3, 7)  # the latency run's request 7 shares request 3's prefix and waits for it
+
+
+async def http_call(port: int, method: str, path: str, body=None, on_event=None) -> tuple:
+    """One HTTP/1.1 request on asyncio streams (the card's machine has no
+    httpx): (status, headers, body, events). A chunked body is read chunk by
+    chunk; each SSE event is kept with its arrival (seconds from the send)
+    and handed to `await on_event(text)` as it arrives."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = b"" if body is None else json.dumps(body).encode()
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                 f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n"
+                 "Connection: close\r\n\r\n".encode() + data)
+    await writer.drain()
+    t0 = time.perf_counter()
+    try:
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+        status = int(head[0].split(" ")[1])
+        headers = {k.lower(): v.strip() for k, _, v in (h.partition(":") for h in head[1:] if h)}
+        events, raw, buf = [], b"", b""
+        if "chunked" in headers.get("transfer-encoding", ""):
+            while True:
+                size = int((await reader.readuntil(b"\r\n")).split(b";")[0], 16)
+                if size == 0:
+                    break
+                chunk = (await reader.readexactly(size + 2))[:-2]
+                now = time.perf_counter() - t0
+                raw += chunk
+                buf += chunk
+                while b"\n\n" in buf:
+                    frame, buf = buf.split(b"\n\n", 1)
+                    events.append((now, frame.decode()))
+                    if on_event is not None:
+                        await on_event(frame.decode())
+        else:
+            raw = await reader.readexactly(int(headers.get("content-length", "0")))
+        return status, headers, raw, events
+    finally:
+        writer.close()
+
+
+def sse_data(events) -> list:
+    """(arrival, parsed data) of each `data:` event but [DONE]."""
+    return [(t, json.loads(e[6:])) for t, e in events
+            if e.startswith("data: ") and e != "data: [DONE]"]
+
+
+def sse_comment(events, name: str):
+    for _t, e in events:
+        if e.startswith(f": {name} "):
+            return json.loads(e.split(" ", 2)[2])[0]
+    return None
+
+
+def http_latency(events) -> tuple:
+    """(TTFT s, mean ITL s, tokens) of one streamed completion: first and
+    last text event, tokens from the usage chunk."""
+    data = sse_data(events)
+    texts = [t for t, d in data if d["choices"] and d["choices"][0].get("text")]
+    n = [d for _t, d in data if d.get("usage")][-1]["usage"]["completion_tokens"]
+    return texts[0], (texts[-1] - texts[0]) / max(n - 1, 1), n
+
+
+def proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of a live process (/proc/<pid>/stat)."""
+    import os
+
+    fields = open(f"/proc/{pid}/stat").read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def check_frontend_calls(calls: dict, canaries: dict) -> None:
+    """Over the HTTP traffic alone (`calls_delta` of each worker's published
+    stats), each worker launched the decode kernel at least once a token of
+    one 64-token stream (canaries, one-token requests, decode nothing), the
+    prefill kernel more often than its canaries could (one forward of
+    LOAD_LAYERS launches each), and no plain attention."""
+    for name, c in calls.items():
+        assert c.get("kernels:paged_decode/none", 0) >= MAX_TOKENS - 1, (name, c)
+        assert c.get("kernels:prefill_attention/none", 0) > LOAD_LAYERS * canaries[name], \
+            (name, c, canaries)
+        assert not any(k.startswith("plain:") for k in c), (name, c)
+
+
+async def frontend_http(seed: int, http_port: int, sys_port: int, ids: dict, routers: dict,
+                        stats_of, checkpoints_landed, alive, procs: dict) -> dict:
+    """The frontend over HTTP (asyncio streams; no httpx on the card's
+    machine) in front of kvbm_peer's two workers: /v1/models and /health; a
+    greedy completion whose text equals the port tokenizer's decode of the
+    same request's tokens through a PushRouter; a streamed and a unary chat;
+    six requests, each sharing five pages with an earlier one, each landing
+    on the worker that holds them (the workers' kv_prefix_hit_blocks_total);
+    TTFT and ITL of the worker phase's 8 prompts over HTTP, then the same
+    requests over PushRouters, each request on the same worker in both runs
+    (the frontend's router pinned by `nvext.router_config_override`); the
+    workers' kernel launches over the HTTP traffic alone; dynamo_frontend_*
+    and gate metrics on /metrics; the frontend's PID not among the card's
+    compute processes and no libcuda in its maps. Its result goes into the
+    `frontend` line."""
+    import re
+
+    from dynamo_tpu_torch.llm.tokenizers import load_tokenizer
+
+    names = ("w1", "w2")
+    by_instance = {f"{i:x}": name for name, i in ids.items()}
+
+    def hits(name) -> float:
+        return gauge(scrape(sys_port + names.index(name), "/metrics")[1],
+                     "kv_prefix_hit_blocks_total")
+
+    def canaries() -> dict:
+        return {name: gauge(scrape(sys_port + i, "/metrics")[1], "health_canaries")
+                for i, name in enumerate(names)}
+
+    async def clear_settled():
+        """Both workers' checkpoints pushed, then every tier cleared through
+        the frontend; each mesh hears the other's `cleared`."""
+        for name in names:
+            await checkpoints_landed(name)
+        await http_call(http_port, "POST", "/clear-kv-blocks")
+        await asyncio.sleep(1.0)
+
+    t0 = time.perf_counter()
+    while True:  # the frontend's watcher has the model and both instances
+        st, _h, body, _e = await http_call(http_port, "GET", "/v1/models")
+        if st == 200 and [d["id"] for d in json.loads(body)["data"]] == [FE_MODEL]:
+            cleared = json.loads((await http_call(http_port, "POST", "/clear-kv-blocks"))[2])
+            if len(cleared["cleared"].get(FE_MODEL, {})) == 2:
+                break
+        alive()
+        await asyncio.sleep(0.1)
+    models_s = time.perf_counter() - t0
+    health = await http_call(http_port, "GET", "/health")
+    assert health[0] == 200 and json.loads(health[2]) == {
+        "status": "healthy", "models": [FE_MODEL]}, health
+
+    # the greedy reference first, alone on cleared caches: the tokens of a
+    # PushRouter's stream, decoded by the port's tokenizer
+    vocab = llama.LlamaConfig.llama3_2_3b().vocab_size
+    reqs, text = make_requests(seed, vocab, WORKER_LENGTHS, FE_SHARED, (), "fe")
+    prompt = text(300, 4242)
+    await http_call(http_port, "POST", "/clear-kv-blocks")
+    rec = new_record()
+    await run_stream(routers["w1"].generate, PreprocessedRequest(
+        token_ids=prompt, request_id="fe-greedy", sampling_options={"temperature": 0.0},
+        stop_conditions={"max_tokens": 32}).to_dict(), rec)
+    decoded = load_tokenizer("byte").decode_stream().step_batch(rec["tokens"]) or ""
+
+    # every kernel the workers launch from here to the second snapshot is the
+    # HTTP traffic's (or a canary's: counted beside it)
+    await asyncio.sleep(FE_SETTLE_S)
+    canaries0 = canaries()
+    base = {name: await stats_of(name) for name in names}
+
+    # the same greedy completion over HTTP, alone on cleared caches
+    await http_call(http_port, "POST", "/clear-kv-blocks")
+    st, _h, body, _e = await http_call(http_port, "POST", "/v1/completions", {
+        "model": FE_MODEL, "prompt": prompt, "max_tokens": 32, "temperature": 0.0,
+        "nvext": {"ignore_eos": True}})
+    completion = json.loads(body)
+    assert st == 200 and completion["usage"]["completion_tokens"] == 32, completion
+    assert completion["choices"][0]["text"] == decoded, \
+        (completion["choices"][0]["text"], decoded, rec["tokens"])
+
+    # a streamed and a unary chat
+    chat = {"model": FE_MODEL, "messages": [{"role": "user", "content": "say something"}],
+            "max_tokens": 16, "temperature": 0.0, "nvext": {"ignore_eos": True}}
+    st, hd, _b, events = await http_call(http_port, "POST", "/v1/chat/completions", dict(
+        chat, stream=True, stream_options={"include_usage": True}))
+    assert st == 200 and hd["content-type"] == "text/event-stream", (st, hd)
+    chunks = [d for _t, d in sse_data(events)]
+    assert events[-1][1] == "data: [DONE]", events[-3:]
+    assert chunks[0]["choices"][0]["delta"]["role"] == "assistant"
+    assert chunks[-1]["usage"]["completion_tokens"] == 16, chunks[-1]
+    streamed = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks if c["choices"])
+    st, _h, body, _e = await http_call(http_port, "POST", "/v1/chat/completions", chat)
+    unary = json.loads(body)
+    assert st == 200 and unary["usage"]["completion_tokens"] == 16, unary
+    assert unary["choices"][0]["finish_reason"] == "length", unary
+
+    # KV-aware routing: two seeds, then six followers sharing their first
+    # five pages, one at a time, each on the seed's worker
+    await clear_settled()
+    hits0 = {name: hits(name) for name in names}
+    landed = []
+    for s in range(2):
+        prefix = text(FE_AFFINITY_PREFIX, 7000 + s)
+        group = [prefix + text(120, 7100 + 10 * s + f) for f in range(FE_FOLLOWERS + 1)]
+        holder = None
+        for j, ids_ in enumerate(group):
+            # one at a time, each after a stats publish: the router's
+            # load view holds no finished request's blocks
+            await asyncio.sleep(FE_SETTLE_S)
+            st, _h, _b, ev = await http_call(http_port, "POST", "/v1/completions", {
+                "model": FE_MODEL, "prompt": ids_, "max_tokens": 4, "stream": True,
+                "nvext": {"annotations": ["worker_instance_id"], "ignore_eos": True}})
+            assert st == 200, st
+            worker = by_instance[sse_comment(ev, "worker_instance_id")]
+            if j == 0:
+                holder = worker
+            else:
+                landed.append((s, worker, holder))
+    assert all(w == h for _s, w, h in landed), f"frontend: a follower left its prefix: {landed}"
+    await asyncio.sleep(2 * FE_SETTLE_S)  # the workers' next stats publish
+    hit_blocks = {name: hits(name) - hits0[name] for name in names}
+    per_worker = {name: sum(1 for _s, w, _h in landed if w == name) for name in names}
+    for name in names:
+        assert hit_blocks[name] >= (FE_AFFINITY_PREFIX // 64) * per_worker[name], \
+            (hit_blocks, per_worker)
+
+    # TTFT and ITL: the worker phase's 8 prompts, staggered, 64 tokens each,
+    # request i on worker i % 2 over HTTP and then over a PushRouter
+    pins = {r["request_id"]: names[i % 2] for i, r in enumerate(reqs)}
+
+    async def over_http(req, first, after):
+        if after is not None:
+            await after.wait()
+
+        async def on_event(frame):
+            if frame.startswith("data: {"):
+                d = json.loads(frame[6:])
+                if d["choices"] and d["choices"][0].get("text"):
+                    first.set()
+
+        st, _h, _b, ev = await http_call(http_port, "POST", "/v1/completions", {
+            "model": FE_MODEL, "prompt": req["token_ids"], "max_tokens": MAX_TOKENS,
+            "temperature": 0.0, "stream": True, "stream_options": {"include_usage": True},
+            "nvext": {"ignore_eos": True, "annotations": ["worker_instance_id"],
+                      "router_config_override": {
+                          "backend_instance_id": ids[pins[req["request_id"]]]}}}, on_event)
+        assert st == 200, st
+        worker = by_instance[sse_comment(ev, "worker_instance_id")]
+        assert worker == pins[req["request_id"]], (req["request_id"], worker)
+        return http_latency(ev)
+
+    await clear_settled()
+    firsts = [asyncio.Event() for _ in reqs]
+    t1 = time.perf_counter()
+    tasks = []
+    for i, req in enumerate(reqs):
+        after = firsts[FE_SHARED[0]] if i == FE_SHARED[1] else None
+        tasks.append(asyncio.create_task(over_http(req, firsts[i], after)))
+        await asyncio.sleep(STAGGER_S)
+    lat = await asyncio.gather(*tasks)
+    http_wall = time.perf_counter() - t1
+    assert all(n == MAX_TOKENS for _t, _i, n in lat), lat
+
+    await asyncio.sleep(FE_SETTLE_S)
+    after = {name: await stats_of(name) for name in names}
+    canaries1 = canaries()
+    calls = {name: calls_delta(after[name], base[name]) for name in names}
+    canaried = {name: canaries1[name] - canaries0[name] for name in names}
+    check_frontend_calls(calls, canaried)
+
+    await clear_settled()
+    direct, direct_wall = await drive(lambda r: routers[pins[r["request_id"]]].generate(r),
+                                      reqs, FE_SHARED)
+    direct_itl = [sum(r["itl_s"]) / max(len(r["tokens"]) - 1, 1) for r in direct]
+
+    def summary(ttft, itl, n_out, wall):
+        return {"wall_s": round(wall, 3), "output_tok_s": round(n_out / wall, 1),
+                "ttft_ms": {"p50": round(1e3 * pct(ttft, 50), 2), "p99": round(1e3 * pct(ttft, 99), 2)},
+                "itl_ms": {"p50": round(1e3 * pct(itl, 50), 3), "p99": round(1e3 * pct(itl, 99), 3)}}
+
+    # the frontend's exposition, and its hands off the card
+    metrics = (await http_call(http_port, "GET", "/metrics"))[2].decode()
+    metric_names = {ln.split("{")[0].split(" ")[0] for ln in metrics.splitlines()
+                    if ln and not ln.startswith("#")}
+    for want in ("dynamo_frontend_requests_total", "dynamo_frontend_inflight_requests",
+                 "dynamo_frontend_time_to_first_token_seconds_bucket",
+                 "dynamo_frontend_inter_token_latency_seconds_count",
+                 "dynamo_frontend_output_tokens_total", "dynamo_frontend_gate_admitted_total",
+                 "dynamo_frontend_gate_queue_depth", "dynamo_frontend_migrations_total"):
+        assert want in metric_names, f"frontend: {want} missing from /metrics"
+    fe_pid = procs["frontend"].pid
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.split()
+    worker_pids = [procs[n].pid for n in names]
+    # nvidia-smi may list the host's PIDs rather than this namespace's:
+    # the count (this process and the two workers) is checked as well
+    assert str(fe_pid) not in apps and len(apps) <= 3, \
+        f"frontend: pid {fe_pid} or another process holds a CUDA context: {apps}"
+    fe_maps = open(f"/proc/{fe_pid}/maps").read()
+    assert "libcuda" not in fe_maps and "torch" not in fe_maps, "frontend: loaded CUDA or torch"
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    return dict(
+        card=card, seconds_to_models=round(models_s, 2),
+        chat={"streamed_events": len(chunks), "streamed_text_chars": len(streamed),
+              "unary_tokens": unary["usage"]["completion_tokens"]},
+        greedy_completion_equal=True,
+        affinity={"followers": len(landed), "landed": [w for _s, w, _h in landed],
+                  "prefix_hit_blocks": hit_blocks},
+        requests=len(reqs), prompt_tokens=WORKER_LENGTHS, max_tokens=MAX_TOKENS,
+        placement={name: [i for i, r in enumerate(reqs) if pins[r["request_id"]] == name]
+                   for name in names},
+        over_http=summary([t for t, _i, _n in lat], [i for _t, i, _n in lat],
+                          sum(n for _t, _i, n in lat), http_wall),
+        over_push_router=summary([r["ttft_s"] for r in direct], direct_itl,
+                                 sum(len(r["tokens"]) for r in direct), direct_wall),
+        http_worker_calls=calls, canaries_during_http=canaried,
+        frontend_pid_on_card=False, card_compute_pids=len(apps),
+        worker_pids_listed=sum(str(p) in apps for p in worker_pids),
+        metrics_names=len(metric_names))
 
 
 def main() -> None:

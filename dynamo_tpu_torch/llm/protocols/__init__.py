@@ -1,6 +1,29 @@
-"""Engine-facing wire protocol types (the OpenAI request/response types of
-the reference's `llm/protocols/openai.py` belong to the frontend slice)."""
+"""Wire protocols for the LLM serving pipeline.
 
+Port of `dynamo_tpu/llm/protocols/`: the OpenAI request/response types
+(chat, completions, embeddings; standard-library classes in place of
+pydantic), the engine-facing PreprocessedRequest / LLMEngineOutput pair and
+the Annotated<T> SSE event wrapper.
+"""
+
+from .openai import (
+    ChatCompletionChunk,
+    ChatCompletionRequest,
+    ChatCompletionResponse,
+    ChatMessage,
+    Choice,
+    ChoiceDelta,
+    CompletionChoice,
+    CompletionChunk,
+    CompletionRequest,
+    CompletionResponse,
+    EmbeddingRequest,
+    EmbeddingResponse,
+    ModelInfo,
+    ModelList,
+    NvExt,
+    Usage,
+)
 from .common import (
     Annotated,
     FinishReason,
@@ -12,9 +35,25 @@ from .common import (
 
 __all__ = [
     "Annotated",
+    "ChatCompletionChunk",
+    "ChatCompletionRequest",
+    "ChatCompletionResponse",
+    "ChatMessage",
+    "Choice",
+    "ChoiceDelta",
+    "CompletionChoice",
+    "CompletionChunk",
+    "CompletionRequest",
+    "CompletionResponse",
+    "EmbeddingRequest",
+    "EmbeddingResponse",
     "FinishReason",
     "LLMEngineOutput",
+    "ModelInfo",
+    "ModelList",
+    "NvExt",
     "PreprocessedRequest",
     "SamplingOptions",
     "StopConditions",
+    "Usage",
 ]

@@ -30,8 +30,9 @@ SCHED_EST_PREFILL_TOK_S = "sched_est_prefill_tok_s"
 SCHED_EST_DECODE_TOK_S = "sched_est_decode_tok_s"
 
 #: The reference's registry entries (`dynamo_tpu/runtime/metrics.py:METRICS`)
-#: for the stats `TorchEngine.stats()` publishes. `export=True` entries
-#: become `dynamo_worker_<name>` gauges in the worker.
+#: for the stats `TorchEngine.stats()` publishes, the frontend's gate and
+#: exposition and the KV router's index. `export=True` entries become
+#: `dynamo_worker_<name>` gauges in the worker.
 METRICS = {
     NUM_WAITING_REQS: {"kind": "gauge", "layer": "engine", "unit": "requests", "help": "Requests queued for prefill admission.", "wire": True, "export": True},
     NUM_RUNNING_REQS: {"kind": "gauge", "layer": "engine", "unit": "requests", "help": "Requests occupying decode slots.", "wire": True, "export": True},
@@ -169,6 +170,44 @@ METRICS = {
     "kvbm_known_checkpoint_blocks": {"kind": "gauge", "layer": "kvbm", "unit": "blocks", "help": "Checkpoint blocks known cluster-wide.", "export": True},
     "kvbm_ckpt_ineligible_peers": {"kind": "gauge", "layer": "kvbm", "help": "Peers refused as checkpoint targets (format skew).", "export": True},
     "kvbm_peer_ms_per_block": {"kind": "info", "layer": "kvbm", "unit": "ms", "help": "Per-peer observed pull cost map (addr -> ms/block)."},
+    # ---- dynogate (gate/, frontend process) --------------------------
+    "gate_enabled": {"kind": "gauge", "layer": "gate", "help": "1 when the admission gate is active."},
+    "gate_admitted_total": {"kind": "counter", "layer": "gate", "help": "Requests admitted by the gate."},
+    "gate_rejected_total": {"kind": "counter", "layer": "gate", "help": "Requests rejected (429) by the gate."},
+    "gate_shed_total": {"kind": "counter", "layer": "gate", "help": "Parked requests shed before admission."},
+    "gate_parked_total": {"kind": "counter", "layer": "gate", "help": "Requests parked in the admission queue."},
+    "gate_queue_depth": {"kind": "gauge", "layer": "gate", "help": "Requests currently parked at the gate."},
+    "gate_rejected_by_reason": {"kind": "info", "layer": "gate", "help": "Rejection counts keyed by reason (stats-dict map)."},
+    "gate_retry_after_hist": {"kind": "histogram", "layer": "gate", "unit": "seconds", "help": "Retry-After values handed out (stats-dict blob).", "buckets": (1.0, 2.0, 5.0, 10.0)},
+    "gate_per_tenant": {"kind": "info", "layer": "gate", "help": "Bounded per-tenant admit/reject map."},
+    "gate_signal_samples": {"kind": "counter", "layer": "gate", "help": "Worker metric samples folded into gate signals."},
+    # ---- frontend prometheus exposition (llm/http, llm/migration) ----
+    "dynamo_frontend_requests_total": {"kind": "counter", "layer": "frontend", "unit": "requests", "help": "HTTP LLM requests completed.", "labels": ("model", "endpoint", "status"), "wire": True},
+    "dynamo_frontend_inflight_requests": {"kind": "gauge", "layer": "frontend", "unit": "requests", "help": "Requests currently being processed.", "labels": ("model", "endpoint")},
+    "dynamo_frontend_request_duration_seconds": {"kind": "histogram", "layer": "frontend", "unit": "seconds", "help": "End-to-end request duration.", "labels": ("model", "endpoint"), "wire": True, "buckets": (0.05, 0.1, 0.25, 0.5, 1, 2, 4, 8, 16, 32, 64, 128)},
+    "dynamo_frontend_time_to_first_token_seconds": {"kind": "histogram", "layer": "frontend", "unit": "seconds", "help": "Time to first token.", "labels": ("model",), "wire": True, "buckets": (0.01, 0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2, 6.4, 12.8)},
+    "dynamo_frontend_output_tokens_total": {"kind": "counter", "layer": "frontend", "unit": "tokens", "help": "Generated tokens delivered to clients.", "labels": ("model",), "wire": True},
+    "dynamo_frontend_input_tokens_total": {"kind": "counter", "layer": "frontend", "unit": "tokens", "help": "Prompt tokens accepted.", "labels": ("model",), "wire": True},
+    "dynamo_frontend_inter_token_latency_seconds": {"kind": "histogram", "layer": "frontend", "unit": "seconds", "help": "Mean inter-token latency per request.", "labels": ("model",), "wire": True, "buckets": (0.002, 0.005, 0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64, 1.28)},
+    "dynamo_frontend_client_disconnects_total": {"kind": "counter", "layer": "frontend", "help": "Client disconnects mid-stream.", "labels": ("model",)},
+    "dynamo_frontend_tokens_per_frame": {"kind": "histogram", "layer": "frontend", "unit": "tokens", "help": "Generated tokens per streamed delta batch.", "labels": ("model",), "buckets": (1, 2, 4, 8, 16, 32, 64, 128)},
+    "dynamo_frontend_migrations_total": {"kind": "counter", "layer": "frontend", "help": "Stream migrations started after worker loss."},
+    "dynamo_frontend_migration_replayed_tokens_total": {"kind": "counter", "layer": "frontend", "unit": "tokens", "help": "Tokens replayed into migration retry prompts."},
+    "dynamo_frontend_migrations_exhausted_total": {"kind": "counter", "layer": "frontend", "help": "Streams that ran out of migration budget."},
+    "dynamo_frontend_gate_admitted_total": {"kind": "counter", "layer": "gate", "help": "Gate admissions (exposition view)."},
+    "dynamo_frontend_gate_rejected_total": {"kind": "counter", "layer": "gate", "help": "Gate rejections (exposition view)."},
+    "dynamo_frontend_gate_shed_total": {"kind": "counter", "layer": "gate", "help": "Parked requests shed (exposition view)."},
+    "dynamo_frontend_gate_queue_depth": {"kind": "gauge", "layer": "gate", "help": "Parked requests right now (exposition view)."},
+    "dynamo_frontend_gate_rejected_by_reason_total": {"kind": "counter", "layer": "gate", "help": "Gate rejections by bounded reason.", "labels": ("reason",)},
+    "dynamo_frontend_gate_tenant_requests_total": {"kind": "counter", "layer": "gate", "help": "Per-tenant admit/reject counts (bounded tenant set).", "labels": ("tenant", "outcome")},
+    "dynamo_frontend_gate_retry_after_seconds": {"kind": "histogram", "layer": "gate", "unit": "seconds", "help": "Retry-After values handed out.", "buckets": (1.0, 2.0, 5.0, 10.0)},
+    # ---- KV router / indexer (frontend process) ----------------------
+    "index_blocks": {"kind": "gauge", "layer": "router", "unit": "blocks", "help": "Blocks tracked by the KV event index."},
+    "index_max_blocks": {"kind": "gauge", "layer": "router", "unit": "blocks", "help": "Index capacity (0 = unbounded)."},
+    "index_evicted_blocks": {"kind": "counter", "layer": "router", "unit": "blocks", "help": "Index entries evicted at capacity."},
+    "index_mappings": {"kind": "gauge", "layer": "router", "help": "hash->worker mappings held."},
+    "index_memory_bytes_estimate": {"kind": "gauge", "layer": "router", "unit": "bytes", "help": "Estimated index memory footprint."},
+    "events_applied": {"kind": "counter", "layer": "router", "help": "KV events applied to the index."},
 }
 
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75,
@@ -257,22 +296,32 @@ class _Metric:
             raise ValueError(f"{self.name}: expected labels {self.label_names}, got {values}")
         return _Child(self, tuple(str(v) for v in values))
 
-    def render(self, out: List[str]):
+    def render(self, out: List[str], flat: bool = False):
+        """Append the exposition lines. `flat` writes what prometheus_client
+        writes for a flat registry: a counter's HELP/TYPE under its `_total`
+        name and each sample's labels sorted by name, `le` among them."""
         sample = self.name + "_total" if self.kind == "counter" else self.name
-        out.append(f"# HELP {self.name} {self.doc}")
-        out.append(f"# TYPE {self.name} {self.kind}")
+        family = sample if flat else self.name
+        out.append(f"# HELP {family} {self.doc}")
+        out.append(f"# TYPE {family} {self.kind}")
         with self.lock:
             items = sorted(self.values.items())
+
+        def fmt(pairs):
+            if flat:
+                pairs = sorted(pairs)
+            return ",".join(f'{n}="{_escape(v)}"' for n, v in pairs)
+
         for key, val in items:
-            labels = ",".join(f'{n}="{_escape(v)}"' for n, v in zip(self.label_names, key))
+            pairs = list(zip(self.label_names, key))
             if self.kind != "histogram":
-                out.append(f"{sample}{{{labels}}} {_fmt(val)}")
+                out.append(f"{sample}{{{fmt(pairs)}}} {_fmt(val)}")
                 continue
             counts, total = val
             for le, c in zip(self.buckets, counts):
-                out.append(f'{self.name}_bucket{{{labels},le="{_fmt(le)}"}} {_fmt(c)}')
-            out.append(f"{self.name}_count{{{labels}}} {_fmt(counts[-1])}")
-            out.append(f"{self.name}_sum{{{labels}}} {_fmt(total)}")
+                out.append(f'{self.name}_bucket{{{fmt(pairs + [("le", _fmt(le))])}}} {_fmt(c)}')
+            out.append(f"{self.name}_count{{{fmt(pairs)}}} {_fmt(counts[-1])}")
+            out.append(f"{self.name}_sum{{{fmt(pairs)}}} {_fmt(total)}")
 
 
 class MetricsRegistry:
@@ -375,6 +424,37 @@ class MetricsRegistry:
             metrics = [root._metrics[k] for k in sorted(root._metrics)]
         for m in metrics:
             m.render(out)
+        return ("\n".join(out) + "\n").encode()
+
+
+class CollectorRegistry:
+    """A flat registry of metrics with their own label names and no prefix
+    or hierarchy labels (prometheus_client's `CollectorRegistry` role, as
+    the frontend's HTTP metrics use it). A counter named `x_total` is the
+    family `x`, its samples `x_total`, as prometheus_client names them."""
+
+    def __init__(self):
+        self._metrics: List[_Metric] = []
+
+    def _add(self, kind: str, name: str, doc: str, labels: Sequence[str], buckets=None):
+        m = _Metric(kind, name, doc, tuple(labels), buckets)
+        self._metrics.append(m)
+        return m
+
+    def counter(self, name: str, doc: str, labels: Sequence[str] = ()) -> _Metric:
+        return self._add("counter", name.removesuffix("_total"), doc, labels)
+
+    def gauge(self, name: str, doc: str, labels: Sequence[str] = ()) -> _Metric:
+        return self._add("gauge", name, doc, labels)
+
+    def histogram(self, name: str, doc: str, labels: Sequence[str] = (),
+                  buckets: Optional[Sequence[float]] = None) -> _Metric:
+        return self._add("histogram", name, doc, labels, buckets)
+
+    def render(self) -> bytes:
+        out: List[str] = []
+        for m in self._metrics:
+            m.render(out, flat=True)
         return ("\n".join(out) + "\n").encode()
 
 

@@ -637,6 +637,7 @@ class RequestPlaneClient:
         self, conn: _Connection, stream_id: int, queue: asyncio.Queue, ctx: Context
     ) -> AsyncIterator[Any]:
         cancel_sent = False
+        ended = False  # the worker ended the stream, or was told to
         kill_task = asyncio.create_task(ctx.killed())
         stop_task = asyncio.create_task(ctx.stopped())
         get_task: Optional[asyncio.Task] = None
@@ -650,6 +651,7 @@ class RequestPlaneClient:
                     waiters, return_when=asyncio.FIRST_COMPLETED
                 )
                 if kill_task in done:
+                    ended = True
                     await self._send_cancel(conn, stream_id, kill=True)
                     return
                 if stop_task in done and not cancel_sent:
@@ -703,8 +705,10 @@ class RequestPlaneClient:
                     else:
                         yield codec.unpack(payload)
                 elif t == T_DONE:
+                    ended = True
                     return
                 elif t == T_ERR:
+                    ended = True
                     code = control.get("code")
                     if code == ERR_DRAINING:
                         # a draining worker is connection-level unavailable:
@@ -718,12 +722,21 @@ class RequestPlaneClient:
                         )
                     raise EngineError(control.get("error", "engine error"))
                 elif t == T_LOST:
+                    ended = True
                     raise StreamLost("connection to worker lost mid-stream")
         finally:
             for task in (kill_task, stop_task, get_task):
                 if task is not None:
                     task.cancel()
             conn.streams.pop(stream_id, None)
+            if not ended and (ctx.is_killed() or (ctx.is_stopped() and not cancel_sent)):
+                # the consumer was torn down (a client that left cancels the
+                # whole pipeline) before this loop saw its kill or stop: tell
+                # the worker now, or it decodes on for no one. One write
+                # call, so the frame cannot interleave with another's.
+                if not conn.closed and not conn.writer.is_closing():
+                    conn.writer.write(codec.encode_frame(
+                        {"t": T_CANCEL, "stream": stream_id, "kill": ctx.is_killed()}))
 
     async def _send_cancel(self, conn: _Connection, stream_id: int, kill: bool):
         try:

@@ -23,8 +23,15 @@ ALLOWED_THIRD_PARTY = {"torch", "numpy"}
 FORBIDDEN = {"msgpack", "aiohttp", "xxhash", "pydantic", "prometheus_client", "ml_dtypes",
              # checkpoint and tokenizer packages: the port reads safetensors,
              # GGUF and the HF hub cache with the standard library
-             "safetensors", "huggingface_hub", "transformers", "tokenizers"}
-LAZY_ONLY = {"triton"}  # allowed inside a function body, never at module level
+             "safetensors", "huggingface_hub", "transformers", "tokenizers",
+             # HTTP clients and KServe gRPC: the frontend serves HTTP on
+             # asyncio streams and refuses --grpc-port
+             "httpx", "grpc", "google"}
+# allowed inside a function body, never at module level: triton where a
+# kernel launches; jinja2 (a dependency of torch itself, on the card's
+# machine as wherever torch is installed) where OpenAIPreprocessor compiles
+# a chat template
+LAZY_ONLY = {"triton", "jinja2"}
 STDLIB = set(sys.stdlib_module_names)
 
 
@@ -92,7 +99,7 @@ def test_importing_every_module_builds_nothing_and_pulls_no_jax():
         "import dynamo_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu', 'triton', 'msgpack', 'ml_dtypes', 'safetensors', 'huggingface_hub', 'transformers', 'tokenizers')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu', 'triton', 'msgpack', 'ml_dtypes', 'safetensors', 'huggingface_hub', 'transformers', 'tokenizers', 'jinja2', 'aiohttp', 'pydantic', 'prometheus_client', 'httpx')]\n"
         "assert not bad, bad\n"
         "from dynamo_tpu_torch.ops import _build\n"
         "assert _build._lib is None and _build.build_seconds is None\n"
@@ -108,7 +115,9 @@ def test_importing_every_module_builds_nothing_and_pulls_no_jax():
 
 
 @pytest.mark.parametrize("module", ["kvbm.checkpoint", "llm.migration", "llm.guided",
-                                    "engine.spec", "models.lora", "models.lora_pool"])
+                                    "engine.spec", "models.lora", "models.lora_pool",
+                                    "llm.parsers.tool_calling", "gate.gate",
+                                    "llm.kv_router.indexer", "llm.backend"])
 def test_copied_reference_modules_stand_alone(module):
     """The port's own copies of reference modules that hold no JAX: alone in
     a fresh interpreter they pull in neither jax nor the JAX package."""
@@ -127,6 +136,25 @@ def test_copied_reference_modules_stand_alone(module):
     assert res.returncode == 0, res.stderr
 
 
+def test_frontend_imports_no_torch():
+    """The frontend shares the card with its workers and does no device
+    work: its modules load neither torch nor jinja2 until a preprocessor is
+    built, so it can never create a CUDA context."""
+    import subprocess
+
+    code = (
+        "import sys\n"
+        "import dynamo_tpu_torch.frontend.__main__ as m\n"
+        "import dynamo_tpu_torch.llm.kv_router, dynamo_tpu_torch.gate\n"
+        "m.parse_args(['--router-mode', 'kv'])\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in ('torch', 'jinja2', 'numpy')]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_walk_finds_every_subpackage():
     names = {m.name for m in pkgutil.walk_packages([str(PKG)], "dynamo_tpu_torch.")}
     for expected in ("engine.engine", "engine.scheduler.policy", "ops.paged_attention",
@@ -138,7 +166,11 @@ def test_walk_finds_every_subpackage():
                      "models.safetensors_io", "llm.gguf", "kvbm.storage", "kvbm.manager",
                      "kvbm.distributed", "runtime.system_status", "runtime.health_check",
                      "kvbm.checkpoint", "llm.migration", "llm.guided", "engine.spec",
-                     "models.lora", "models.lora_pool"):
+                     "models.lora", "models.lora_pool", "runtime.pipeline", "runtime.compute",
+                     "llm.protocols.openai", "llm.parsers.jail", "llm.preprocessor",
+                     "llm.backend", "llm.service", "llm.discovery", "llm.kv_router.indexer",
+                     "llm.kv_router.scheduler", "gate.gate", "gate.signals", "llm.http.metrics",
+                     "llm.http.server", "llm.http.service", "frontend.__main__"):
         assert f"dynamo_tpu_torch.{expected}" in names
     importlib.import_module("dynamo_tpu_torch.ops._build")
 
