@@ -175,6 +175,21 @@ no extra compute process), TTFT and ITL of 8 prompts over HTTP beside
 PushRouters' with each request on the same worker in both runs, and the
 stream whose worker is SIGKILLed mid-decode finishing on the other
 through the frontend's migration.
+The `profiler` phase runs the SLA planner's pre-deployment sweep
+(`planner.profiler.main --model llama3-3b`, in process) at full width and
+28 layers with the default grids: single-sequence prefill at ISL 128-4,096
+and decode at 15 (usage, context) points of 65,536 KV tokens, up to 243
+lanes; the sweep must launch the prefill kernel exactly 560 times and the
+paged-decode kernel 3,780 times with no plain call, and both kernels are
+then held to their plain versions at its widest shapes and timed there
+(the `@profile` entries of the kernels line). The `planner` phase profiles
+the 4-layer checkpoint's depth on small grids, starts the port's frontend
+and `python -m dynamo_tpu_torch.planner --connector local` over
+`--role prefill|decode` CLI workers on that checkpoint: the cold start
+must register one of each, closed-loop HTTP streams must make the planner
+read finite TTFT and ITL and scale decode to two replicas by the
+arithmetic PERF.md writes down, the third worker must serve a request
+pinned to it, and SIGTERM must take the planner and every child down.
 Every phase prints one JSON line; any failure raises (non-zero exit). The last line of output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 It exits non-zero without printing a result when there is no CUDA device.
@@ -187,6 +202,7 @@ import asyncio
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -385,9 +401,13 @@ def row_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def make_pool(rng, pages, ps, KH, D, dtype):
+    """K and V pools of standard normals, drawn on the card from a seed
+    that `rng` draws: the full-width pools hold 2.7e8 values, which the
+    host draws in seconds each."""
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 62)))
     shape = (pages, ps, KH, D)
-    k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(DEV, dtype)
-    v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(DEV, dtype)
+    k = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(shape, generator=gen, device=DEV).to(dtype)
     return k, v
 
 
@@ -438,14 +458,16 @@ def i32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.int32, device=DEV)
 
 
-def sdpa_ms(q, k, v, mask) -> float:
+def sdpa_ms(q, k, v, mask, is_causal: bool = False) -> float:
     """One scaled_dot_product_attention call over the gathered context
-    (q [B, H, T, D], k/v [B, KH, S, D], mask [B, 1, T, S]); a yardstick only."""
+    (q [B, H, T, D], k/v [B, KH, S, D], mask [B, 1, T, S]); a yardstick only.
+    Where every key is visible (mask None) or the mask is the causal one
+    (is_causal, T == S), no mask is passed, so the flash backend may run."""
     G = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(G, dim=1)
     v = v.repeat_interleave(G, dim=1)
     f = torch.nn.functional.scaled_dot_product_attention
-    return time_ms(lambda: f(q, k, v, attn_mask=mask), warm=2, reps=10)
+    return time_ms(lambda: f(q, k, v, attn_mask=mask, is_causal=is_causal), warm=2, reps=10)
 
 
 def check_full(name, fmt, out, ref, case="full"):
@@ -5446,6 +5468,470 @@ async def frontend_http(seed: int, http_port: int, sys_port: int, ids: dict, rou
         metrics_names=len(metric_names))
 
 
+# ---------------------------------------------------------------------- #
+# phases: profiler (the planner's pre-deployment sweep) and planner (the
+# SLA planner scaling CLI workers behind the port's frontend)
+# ---------------------------------------------------------------------- #
+
+PROFILE_MODEL = "llama3-3b"  # the sweep at full width and depth, default grids
+PROFILE_LAYERS = 28
+PROFILE_ISL = (128, 512, 1024, 2048, 4096)
+PROFILE_POINTS = 15  # 3 contexts x 5 usages, each fits 65,536 KV tokens
+PROFILE_CALLS = {"prefill_attention": PROFILE_LAYERS * len(PROFILE_ISL) * 4,  # warmup + 3
+                 "paged_decode": PROFILE_LAYERS * PROFILE_POINTS * 9}  # warmup + 8
+
+
+def profile_kernel_checks(seed: int, measured: dict) -> None:
+    """Both kernels of the sweep against their plain versions at its
+    largest shapes, and timed there: paged decode at 243 lanes of 4 pages
+    (context 256, usage 0.95; also 15 lanes of 64 pages, the split path)
+    and prefill at B=1, T=4,096 from position 0 (the dispatcher of the
+    single-sequence forward too)."""
+    from dynamo_tpu_torch.planner.profiler import decode_batch
+
+    rng = np.random.default_rng(seed + 13)
+    H, KH, D, ps = 24, 8, 128, 64
+    pages = (1 << 16) // ps + 1
+    k, v = make_pool(rng, pages, ps, KH, D, torch.bfloat16)
+    for ctx, usage in ((4096, 0.95), (256, 0.95)):
+        B, pps = decode_batch(usage, ctx, 1 << 16, ps), -(-ctx // ps)
+        q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+        q = q.to(DEV, torch.bfloat16)
+        tab = i32((1 + np.arange(B)[:, None] * pps + np.arange(pps)) % pages)
+        lens = i32(np.full(B, ctx))
+        args = (q, k, v, tab, lens)
+        err, rel = check_full("paged_decode@profile", "none", pa.paged_attention_decode(*args),
+                              pa.paged_attention_decode_plain(*args), f"B={B} ctx={ctx}")
+    # the timed row: the sweep's widest point, 243 lanes of 4 pages
+    b_ms, b_by = decode_bound(np.full(B, ctx), KH, D, ps, "none", q, H)
+    kd, vd = dense_ctx(k, tab, q.dtype), dense_ctx(v, tab, q.dtype)
+    lib = sdpa_ms(q[:, :, None], kd, vd, None)  # every lane's keys all valid
+    del kd, vd
+    times = time_kernel(lambda: pa.paged_attention_decode(*args))
+    measured[("paged_decode@profile", "none")] = {
+        "max_abs_err": err, "max_row_rel_err": rel, **times,
+        "tflops": tflops(4.0 * H * D * B * ctx, times["ms"]),
+        "plain_ms": time_ms(lambda: pa.paged_attention_decode_plain(*args), 1, 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "splits": hopper_paged_attention.last_splits,
+        "shape": f"B={B} pages={pps} ctx={ctx} H={H} KH={KH} D={D} ps={ps}",
+    }
+    del args, q, tab, lens
+    T = PROFILE_ISL[-1]
+    q, k2, v2, pos, tab, totals, starts = prefill_case(
+        rng, 1, T, H, KH, D, ps, T // ps, T // ps + 1, torch.bfloat16, starts=[0], reals=[T])
+    args = (q, k2, v2, pos, tab, totals, starts)
+    err, rel = check_full("prefill_attention@profile", "none", pa.prefill_attention_batched(*args),
+                          pa.prefill_attention_batched_plain(*args), "B=1 T=4096")
+    single = (q[0], k2, v2, pos[0], tab[0], 0, T)
+    err1, rel1 = check_full("prefill_attention@profile", "none", pa.prefill_attention(*single),
+                            pa.prefill_attention_plain(*single[:5]), "single sequence")
+    visible = T * (T + 1) / 2
+    b_ms, b_by = bound(T * kv_bytes_per_token(KH, D, "none") + 2 * q.numel() * 2,
+                       4.0 * H * D * visible)
+    # from position 0 with T == S, the chunk's mask is the causal one
+    lib = sdpa_ms(q.transpose(1, 2), dense_ctx(k2, tab, q.dtype), dense_ctx(v2, tab, q.dtype),
+                  None, is_causal=True)
+    times = time_kernel(lambda: pa.prefill_attention_batched(*args))
+    measured[("prefill_attention@profile", "none")] = {
+        "max_abs_err": max(err, err1), "max_row_rel_err": max(rel, rel1), **times,
+        "tflops": tflops(4.0 * H * D * visible, times["ms"]),
+        "plain_ms": time_ms(lambda: pa.prefill_attention_batched_plain(*args), 1, 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "shape": f"B=1 T={T} H={H} KH={KH} D={D} ps={ps} start=0",
+    }
+    del args, single, q, k, v, k2, v2
+    torch.cuda.empty_cache()
+
+
+def phase_profiler(seed: int) -> dict:
+    """`planner.profiler.main` in process on Llama-3.2-3B at 28 layers with
+    the default grids (ISL 128-4,096; context 256/1,024/4,096 x usage
+    0.1-0.95 of 65,536 KV tokens): the TTFT and throughput of each ISL, the
+    ITL and throughput of each point, exactly the launches the sweep makes
+    (28 layers x 5 ISLs x 4 calls of the prefill kernel, 28 x 15 points x 9
+    steps of the paged-decode kernel) and no plain call; then both kernels
+    against their plain versions at the sweep's largest shapes. Returns the
+    measured entries of the kernels line (`@profile`) with their launches."""
+    import tempfile
+
+    from dynamo_tpu_torch.planner import perf_interpolation, profiler
+
+    out = tempfile.mkdtemp(prefix="torch_profile_")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        raw = profiler.main(["--model", PROFILE_MODEL, "--output-dir", out])
+        sweep_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        plain = dict(pa.plain_calls)
+        want = {(name, "none"): n for name, n in PROFILE_CALLS.items()}
+        assert {key: n for key, n in launches.items() if n} == want, \
+            f"profiler: launches {launches}, want {want}"
+        assert not any(plain.values()), f"profiler: plain attention on the card: {plain}"
+        p, d = raw["prefill"], raw["decode"]
+        assert len(d["z_itl"]) == PROFILE_POINTS
+        for a in (p["prefill_ttft"], p["prefill_thpt_per_gpu"], d["z_itl"], d["z_thpt_per_gpu"]):
+            assert np.all(np.isfinite(a)) and np.all(a > 0), a
+        pi = perf_interpolation.PrefillInterpolator(profile_results_dir=out)
+        di = perf_interpolation.DecodeInterpolator(profile_results_dir=out)
+        assert pi.interpolate_ttft(1000) > 0 and np.isfinite(di.itl_grid).all()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    measured: dict = {}
+    profile_kernel_checks(seed, measured)
+    emit("profiler", sweep_seconds=round(sweep_s, 2), layers=PROFILE_LAYERS,
+         prefill=[{"isl": int(i), "ttft_ms": round(float(t), 3), "tok_s": round(float(r), 1)}
+                  for i, t, r in zip(p["prefill_isl"], p["prefill_ttft"],
+                                     p["prefill_thpt_per_gpu"])],
+         decode=[{"kv_usage": float(u), "context": int(c),
+                  "lanes": profiler.decode_batch(float(u), int(c), 1 << 16, 64),
+                  "itl_ms": round(float(t), 3), "tok_s": round(float(r), 1)}
+                 for u, c, t, r in zip(d["x_kv_usage"], d["y_context_length"], d["z_itl"],
+                                       d["z_thpt_per_gpu"])],
+         launches={f"{n}/{f}": c for (n, f), c in launches.items() if c},
+         plain_calls=plain, tol_bf16_full=TOL_BF16_FULL, tol_bf16_row_rel=TOL_BF16_ROW_REL,
+         kernels={f"{n}/{f}": m for (n, f), m in measured.items()})
+    for (name, fmt), m in measured.items():
+        m["launches"] = launches[(name.split("@")[0], fmt)]
+    return measured
+
+
+# the planner phase: the profile of the workers' depth, on small grids
+# whose lightest point is one lane (so a few streams over HTTP ask for a
+# second decode replica; PERF.md writes the arithmetic down)
+PLANNER_ISL = (128, 512, 1024)
+PLANNER_CTX = (256, 1024)
+PLANNER_USAGE = (0.1, 0.5, 0.9)
+PLANNER_MAX_KV = 2048
+PLANNER_INTERVAL_S = 4.0
+PLANNER_TTFT_S = 2.0
+# the ITL target: over the d correction (2.5-2.8 in earlier runs: the
+# frontend's ITL against the profile's) it stays above every profiled ITL
+# (3.2-3.6 ms at 4 layers), so the planner takes the highest-load point
+PLANNER_ITL_S = 0.03
+PLANNER_BUDGET = 3  # chips: one prefill and at most two decode replicas
+PLANNER_PAGES = 512  # each worker's pool (4 layers: 0.5 GiB)
+PLANNER_STREAMS = 32  # closed-loop HTTP streams
+PLANNER_PROMPT, PLANNER_OSL = 200, 192
+
+
+def planner_log(text: str) -> dict:
+    """The planner's decisions, observations and correction factors from
+    its log, in order."""
+    import re
+
+    dec = [{"raw": None if r == "None" else tuple(map(int, r.strip("()").split(","))),
+            "target": tuple(map(int, t.strip("()").split(","))),
+            "applied": a == "True", "reason": why}
+           for r, t, a, why in re.findall(
+               r"planner decision: raw=(None|\(\d+, \d+\)) target=(\(\d+, \d+\)) "
+               r"applied=(True|False) \(([^)]*)\)", text)]
+    obs = [dict(zip(("num_req", "isl", "osl", "ttft_s", "itl_s"), map(float, m)))
+           for m in re.findall(r"observed num_req=(\S+) isl=(\S+) osl=(\S+) "
+                               r"ttft=(\S+)s itl=(\S+)s", text)]
+    corr = [tuple(map(float, m)) for m in re.findall(
+        r"correction factors: ttft=(\S+) itl=(\S+)", text)]
+    pids = [(role, int(pid)) for role, pid in re.findall(r"spawned (\w+) worker pid=(\d+)", text)]
+    # each sizing (its inputs at full precision and its ask before the chip
+    # budget) with the budget's total where the ask exceeded it
+    sizing = []
+    for line in text.splitlines():
+        m = re.search(r"sizing: num_req=(\S+) isl=(\S+) osl=(\S+) p_correction=(\S+) "
+                      r"d_correction=(\S+) -> p=(\d+) d=(\d+)", line)
+        if m:
+            sizing.append({**dict(zip(("num_req", "isl", "osl", "p_corr", "d_corr"),
+                                      map(float, m.groups()[:5]))),
+                           "ask": (int(m.group(6)), int(m.group(7))), "over_budget": None})
+        m = re.search(r"chip budget \d+ exceeded \((\d+)\)", line)
+        if m:
+            sizing[-1]["over_budget"] = int(m.group(1))
+    return {"decisions": dec, "observed": obs, "corrections": corr, "spawned": pids,
+            "sizing": sizing}
+
+
+def planner_ask(s: dict, pi, di) -> dict:
+    """The replicas an interval asks for before the chip budget, from the
+    inputs the planner logged: prefill = ceil(num_req x ISL / interval x
+    min(1, p correction) / the profile's prefill tok/s at that ISL); decode
+    = ceil(num_req x OSL / interval / the tok/s of the highest-load profile
+    point at context ISL + OSL/2 whose ITL meets the target over the d
+    correction); each at least --min-endpoint 1."""
+    per_p = pi.interpolate_thpt_per_chip(s["isl"])
+    p = math.ceil(s["num_req"] * s["isl"] / PLANNER_INTERVAL_S * min(1.0, s["p_corr"])
+                  / max(per_p, 1e-9))
+    itl = PLANNER_ITL_S / s["d_corr"] if s["d_corr"] > 0 else PLANNER_ITL_S
+    thpt, itl_at, usage = di.find_best_throughput_per_chip(itl, s["isl"] + s["osl"] / 2)
+    d = math.ceil(s["num_req"] * s["osl"] / PLANNER_INTERVAL_S / max(thpt, 1e-9))
+    return {"ask": (max(p, 1), max(d, 1)), "prefill_tok_s": per_p, "itl_target_s": itl,
+            "point_tok_s": thpt, "point_itl_s": itl_at, "point_kv_usage": usage}
+
+
+async def planner_phase(seed: int, ckpt: str) -> None:
+    """The SLA planner on the port, end to end: the profile of the
+    workers' depth (`profile_prefill` / `profile_decode` at LOAD_LAYERS on
+    small grids), `python -m dynamo_tpu_torch.frontend --embed-discovery
+    --router-mode round-robin`, and `python -m dynamo_tpu_torch.planner
+    --connector local` whose children are `--role prefill|decode` CLI
+    workers on the weights_load checkpoint. The cold start must register
+    one prefill and one decode worker; closed-loop HTTP streams through
+    the pair must let an interval read finite TTFT and ITL off the
+    frontend's /metrics and the planner ask for a second decode replica
+    (scale-up to (1, 2)); every interval's ask must follow the arithmetic
+    PERF.md writes down (`planner_ask`, redone from the inputs the planner
+    logs); the third worker must register and serve a request pinned to
+    it; over the HTTP traffic every worker must launch its kernels (the
+    prefill worker the prefill kernel, each decode worker the paged-decode
+    kernel) and call no plain version; SIGTERM to the planner must exit 0
+    and leave no child alive."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from dynamo_tpu_torch.llm.kv_router.publisher import METRICS_TOPIC_FMT
+    from dynamo_tpu_torch.planner import perf_interpolation, profiler
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig, codec
+
+    t_phase = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_2_3b(num_layers=LOAD_LAYERS)
+    prof = tempfile.mkdtemp(prefix="torch_planner_profile_")
+
+    root = Path(__file__).resolve().parent
+    http_port, disc_port = free_port_pair(), free_port_pair()
+    disc = f"tcp://127.0.0.1:{disc_port}"
+    env = dict(os.environ, PYTHONPATH=str(root), DYN_DISCOVERY_ENDPOINT=disc)
+    logs, procs = {}, {}
+
+    def start(name, args, extra_env=None):
+        logs[name] = tempfile.NamedTemporaryFile(prefix=f"planner_{name}_", suffix=".log",
+                                                 delete=False)
+        procs[name] = subprocess.Popen([sys.executable, "-m", *args], cwd=root,
+                                       env=dict(env, **(extra_env or {})),
+                                       stdout=logs[name], stderr=subprocess.STDOUT)
+
+    def log(name):
+        return Path(logs[name].name).read_text(errors="replace")
+
+    def alive():
+        for name, proc in procs.items():
+            if proc.poll() is not None:
+                raise RuntimeError(f"planner: {name} exited {proc.poll()}: {log(name)[-3000:]}")
+
+    worker = (f"{sys.executable} -m dynamo_tpu_torch.worker --model {FE_MODEL} "
+              f"--model-path {ckpt} --num-pages {PLANNER_PAGES} --seed {seed} "
+              f"--discovery {disc} --kv-data-plane-host 127.0.0.1")
+    drt = None
+    stop = asyncio.Event()
+    recs: list = []
+    t0 = time.perf_counter()
+    # the admission gate off: it would shed (429) the very load the planner
+    # must see, and a rejected request counts in the frontend's requests
+    # with no tokens, which the planner's interval averages take in
+    start("frontend", ["dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1",
+                       "--http-port", str(http_port), "--embed-discovery", "--discovery", disc,
+                       "--router-mode", "round-robin"], {"DYN_GATE": "0"})
+    try:
+        # the profile on the card while the frontend starts
+        profiler.write_profiles(
+            prof, profiler.profile_prefill(cfg, PLANNER_ISL),
+            profiler.profile_decode(cfg, PLANNER_CTX, PLANNER_USAGE, PLANNER_MAX_KV))
+        gc.collect()
+        torch.cuda.empty_cache()
+        pi = perf_interpolation.PrefillInterpolator(profile_results_dir=prof)
+        di = perf_interpolation.DecodeInterpolator(profile_results_dir=prof)
+        profile_s = time.perf_counter() - t_phase
+        while True:
+            alive()
+            try:
+                if (await http_call(http_port, "GET", "/live"))[0] == 200:
+                    break
+            except OSError:
+                await asyncio.sleep(0.1)
+        rcfg = RuntimeConfig.from_settings()
+        rcfg.discovery_endpoint = disc
+        drt = await DistributedRuntime.create(rcfg)
+        dclient = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
+        pclient = await drt.namespace("dynamo").component("prefill").endpoint("generate").client()
+        subs = {role: await drt.discovery.subscribe(METRICS_TOPIC_FMT.format(
+            namespace="dynamo", component=comp)) for role, comp in (("prefill", "prefill"),
+                                                                   ("decode", "backend"))}
+
+        async def published(role, ids) -> dict:
+            """Each of these workers' stats as published after this call
+            (the queue drained first), by instance id."""
+            while await subs[role].get(timeout=0.01) is not None:
+                pass
+            got = {}
+            while not set(ids) <= set(got):
+                raw = await subs[role].get(timeout=10)
+                if raw is None:
+                    raise RuntimeError(f"planner: no stats from {role} {set(ids) - set(got)}")
+                msg = codec.unpack(raw)
+                got[msg["worker_id"]] = msg["stats"]
+            return {i: got[i] for i in ids}
+
+        start("planner", [
+            "dynamo_tpu_torch.planner", "--connector", "local",
+            "--frontend-url", f"http://127.0.0.1:{http_port}", "--profile-results-dir", prof,
+            "--ttft", str(PLANNER_TTFT_S), "--itl", str(PLANNER_ITL_S),
+            "--adjustment-interval", str(PLANNER_INTERVAL_S), "--min-endpoint", "1",
+            "--max-chip-budget", str(PLANNER_BUDGET),
+            "--prefill-cmd", f"{worker} --role prefill",
+            "--decode-cmd", f"{worker} --role decode --disagg-threshold {DISAGG_THRESHOLD}"])
+
+        async def until(cond, what, limit=240.0):
+            t = time.perf_counter()
+            while not cond():
+                alive()
+                if time.perf_counter() - t > limit:
+                    raise RuntimeError(f"planner: {what} not within {limit} s: "
+                                       f"{log('planner')[-4000:]}")
+                await asyncio.sleep(0.2)
+            return time.perf_counter() - t0
+
+        async def models():
+            st, _h, body, _e = await http_call(http_port, "GET", "/v1/models")
+            return st == 200 and FE_MODEL in [d["id"] for d in json.loads(body)["data"]]
+
+        # the cold start: one prefill and one decode worker, with nothing sent
+        t_cold = await until(lambda: len(pclient.instance_ids()) == 1
+                             and len(dclient.instance_ids()) == 1, "the cold start")
+        while not await models():
+            alive()
+            await asyncio.sleep(0.1)
+        first_ids = set(dclient.instance_ids())
+        pre_ids = list(pclient.instance_ids())
+        base = {**await published("prefill", pre_ids), **await published("decode", first_ids)}
+
+        async def stream(i, pin=None):
+            nvext = {"ignore_eos": True}
+            if pin is not None:
+                nvext["router_config_override"] = {"backend_instance_id": pin}
+            prompt = f"planner {i}: " + " ".join(WORDS[(i * 7 + j) % len(WORDS)]
+                                                 for j in range(PLANNER_PROMPT // 6))
+            st, _h, _b, events = await http_call(http_port, "POST", "/v1/completions", {
+                "model": FE_MODEL, "prompt": prompt[:PLANNER_PROMPT], "stream": True,
+                "stream_options": {"include_usage": True},
+                "max_tokens": PLANNER_OSL, "temperature": 0.0, "nvext": nvext})
+            data = sse_data(events)
+            usage = [d["usage"] for _, d in data if d.get("usage")]
+            return {"status": st, "tokens": usage[-1]["completion_tokens"] if usage else 0,
+                    "ttft_ms": 1e3 * data[0][0] if data else None}
+
+        async def loop(k):
+            i = k
+            while not stop.is_set():
+                recs.append(await stream(i))
+                i += PLANNER_STREAMS
+
+        t_load = time.perf_counter()
+        tasks = [asyncio.create_task(loop(k)) for k in range(PLANNER_STREAMS)]
+        t_up = await until(lambda: any(d["applied"] and d["reason"] == "scale-up"
+                                       for d in planner_log(log("planner"))["decisions"]),
+                           "a scale-up decision", 120)
+        t_third = await until(lambda: len(dclient.instance_ids()) == 2, "the third worker")
+        new_id, = set(dclient.instance_ids()) - first_ids
+        base.update(await published("decode", [new_id]))
+        stop.set()
+        await asyncio.gather(*tasks)
+        load_s = time.perf_counter() - t_load
+        pinned = await stream(10_000, pin=new_id)
+        assert pinned["status"] == 200 and pinned["tokens"] == PLANNER_OSL, pinned
+        after = {**await published("prefill", pre_ids),
+                 **await published("decode", first_ids | {new_id})}
+        calls = {i: calls_delta(after[i], base[i]) for i in after}
+        bad = [r for r in recs if r["status"] != 200 or r["tokens"] != PLANNER_OSL]
+        assert not bad and recs, f"planner: failed streams {bad[:3]}"
+
+        procs["planner"].send_signal(signal.SIGTERM)
+        rc = await asyncio.get_running_loop().run_in_executor(None, procs["planner"].wait, 120)
+        text = log("planner")
+        assert rc == 0, f"planner exited {rc} on SIGTERM: {text[-3000:]}"
+        parsed = planner_log(text)
+        left = [pid for _r, pid in parsed["spawned"] if Path(f"/proc/{pid}").exists()
+                and "zombie" not in Path(f"/proc/{pid}/status").read_text().lower()]
+        assert not left, f"planner: children alive after SIGTERM: {left}"
+        del procs["planner"]
+    finally:
+        stop.set()
+        for name, proc in procs.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in procs.values():
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+        if drt is not None:
+            await drt.close()
+        shutil.rmtree(prof, ignore_errors=True)
+
+    # over the HTTP traffic each worker ran its kernels and no plain version
+    # (a decode worker prefills only what stays under the disagg threshold)
+    pre_id, = pre_ids
+    assert calls[pre_id].get("kernels:prefill_attention/none", 0) > 0, calls[pre_id]
+    for i in first_ids | {new_id}:
+        assert calls[i].get("kernels:paged_decode/none", 0) >= PLANNER_OSL - 1, (i, calls[i])
+    assert not any(k.startswith("plain:") for c in calls.values() for k in c), calls
+
+    # the decisions against the arithmetic: every sized interval, then the
+    # one that scaled up
+    decs, obs = parsed["decisions"], parsed["observed"]
+    assert [d["reason"] for d in decs][:1] == ["bootstrap:min-endpoint"] and \
+        decs[0]["target"] == (1, 1), decs
+    up = next(i for i, d in enumerate(decs) if d["applied"] and d["reason"] == "scale-up")
+    assert decs[up]["target"] == (1, 2), decs
+    valid = [o for o in obs if o["num_req"] > 0 and math.isfinite(o["ttft_s"])
+             and math.isfinite(o["itl_s"])]
+    assert valid, f"planner: no interval read finite TTFT and ITL: {obs}"
+    # (a sizing the SIGTERM cut off before its decision may close the log)
+    sized = [d for d in decs if d["raw"] is not None]
+    assert sized and len(sized) <= len(parsed["sizing"]) <= len(sized) + 1, \
+        (decs, parsed["sizing"])
+    asks = [planner_ask(s, pi, di) for s in parsed["sizing"]]
+    for s, dec, want in zip(parsed["sizing"], sized, asks):
+        assert s["ask"] == want["ask"], f"planner: asked {s['ask']}, the arithmetic {want}"
+        total = sum(s["ask"])  # one chip a replica
+        if total <= PLANNER_BUDGET:
+            assert s["over_budget"] is None and dec["raw"] == s["ask"], (s, dec)
+        else:
+            assert s["over_budget"] == total and sum(dec["raw"]) <= PLANNER_BUDGET, (s, dec)
+    # the scale-up: a second decode replica wanted, at a profiled point that
+    # met the corrected target (not the lightest-point fallback)
+    n_before = sum(1 for d in decs[:up + 1] if d["raw"] is not None)
+    s_up, w_up = parsed["sizing"][n_before - 1], asks[n_before - 1]
+    assert s_up["ask"][1] >= 2 and w_up["point_itl_s"] <= w_up["itl_target_s"], (s_up, w_up)
+    o = valid[n_before - 1]  # the observation that fed it
+    itl_model = o["itl_s"] / s_up["d_corr"]  # the profile's ITL at the observed load
+    tok = [r["tokens"] for r in recs]
+    emit("planner", seconds=round(time.perf_counter() - t_phase, 1),
+         profile_seconds=round(profile_s, 1), cold_start_s=round(t_cold, 1),
+         scale_up_at_s=round(t_up, 1), third_worker_at_s=round(t_third, 1),
+         decisions=[[d["raw"], d["target"], d["applied"], d["reason"]] for d in decs],
+         observed=obs, corrections=parsed["corrections"],
+         sizing=[{**s, **{k: round(v, 6) for k, v in w.items() if k != "ask"}}
+                 for s, w in zip(parsed["sizing"], asks)],
+         scale_up_arithmetic={
+             "num_req": s_up["num_req"], "isl": s_up["isl"], "osl": s_up["osl"],
+             "decode_load_tok_s": round(s_up["num_req"] * s_up["osl"] / PLANNER_INTERVAL_S, 1),
+             "d_correction": round(s_up["d_corr"], 4),
+             "itl_target_ms": round(1e3 * w_up["itl_target_s"], 3),
+             "point_kv_usage": round(w_up["point_kv_usage"], 4),
+             "point_itl_ms": round(1e3 * w_up["point_itl_s"], 3),
+             "point_tok_s": round(w_up["point_tok_s"], 1), "ask": s_up["ask"]},
+         worker_calls={("prefill" if i == pre_id else "decode_new" if i == new_id
+                        else "decode"): c for i, c in calls.items()},
+         itl_ms_frontend=round(1e3 * o["itl_s"], 3),
+         itl_ms_interpolated=round(1e3 * itl_model, 3),
+         streams=len(recs), load_seconds=round(load_s, 1),
+         http_tok_s=round(sum(tok) / load_s, 1),
+         ttft_ms_p50=round(float(np.median([r["ttft_ms"] for r in recs])), 1),
+         pinned_to_third=pinned["status"] == 200)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5525,6 +6011,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    profile_measured = phase_profiler(args.seed)
+    seconds["profiler"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     moe_launches, moe_load = asyncio.run(moe_all(args.seed))
     seconds["moe"] = time.perf_counter() - t0
     try:
@@ -5543,6 +6032,9 @@ def main() -> None:
         t0 = time.perf_counter()
         add_launches(mm_launches, asyncio.run(mm_worker(args.seed, load["dir"])))
         seconds["mm_worker"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        asyncio.run(planner_phase(args.seed, load["dir"]))
+        seconds["planner"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         add_launches(moe_launches, asyncio.run(weights_load_subprocess(args.seed, moe_load)))
         seconds["moe_worker"] = time.perf_counter() - t0
@@ -5583,6 +6075,19 @@ def main() -> None:
             "body": KERNELS[name.split("@")[0]]["body"],
         }
         for name in ("prefill_attention@verify", "ragged_attention@staircase") for fmt in FORMATS
+    ] + [
+        # the same kernels at the planner profiler's widest shapes; launches:
+        # the profiler phase's sweep
+        {
+            "name": f"{name}/{fmt}", "route": "cuda",
+            "source": KERNELS[name.split("@")[0]]["source"],
+            "replaces": KERNELS[name.split("@")[0]]["replaces"]["none"],
+            **{key: m[key] for key in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "tflops", "ms_back_to_back", "host_us", "shape")},
+            "body": KERNELS[name.split("@")[0]]["body"],
+        }
+        for (name, fmt), m in profile_measured.items()
     ]}
     emit("total", seconds=round(time.perf_counter() - t_all, 1),
          phase_seconds={k: round(v, 1) for k, v in seconds.items()})

@@ -49,6 +49,7 @@ from ..ops.paged_attention import (
     paged_attention_decode_mixed,
     paged_attention_decode_mixed_plain,
     paged_attention_decode_plain,
+    prefill_attention,
     prefill_attention_batched,
     prefill_attention_batched_plain,
     ragged_attention,
@@ -248,6 +249,54 @@ def _page_slots(positions: torch.Tensor, tables_tok: torch.Tensor, page_size: in
     phys = torch.gather(tables_tok, -1, logical[..., None].long())[..., 0]
     phys = torch.where(positions < P_tab * page_size, phys, torch.zeros_like(phys))
     return phys.long(), (positions % page_size).long()
+
+
+def prefill_forward(
+    params: Dict[str, Any],
+    config: LlamaConfig,
+    tokens: torch.Tensor,  # [T] one chunk of one sequence
+    positions: torch.Tensor,  # [T] absolute positions
+    kv_k,  # [L, pages, page_size, kv_heads, head_dim] or QuantKV
+    kv_v,
+    page_table: torch.Tensor,  # [max_pages] pages of THIS sequence
+    context_len,  # positions below it are valid history (int or 0-d tensor)
+    last_idx=None,  # index of the last REAL token of a padded chunk (default T-1)
+    mlp_fn=None,  # (layer, x, config) -> x; models/moe.py passes its MoE MLP
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One prompt chunk of a single sequence; returns (logits_last [vocab]
+    f32, kv_k, kv_v) with the chunk's KV written into its pages. The chunk
+    attends causally to itself and to the history already in the pages.
+    The engine serves prefill batched (`prefill_forward_batched`); this is
+    the profiler's forward, as in the reference."""
+    c = config
+    mlp = mlp_fn or _mlp
+    T = tokens.shape[0]
+    dev = tokens.device
+    x = embed_rows(params["embed"], tokens, c.dtype)  # [T, H]
+    cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
+    page_size = kv_page_size(kv_k)
+    # valid context = history + the real (unpadded) chunk: bounds the
+    # kernel's page streaming, as in the reference
+    real = T if last_idx is None else torch.as_tensor(last_idx, device=dev) + 1
+    start = torch.as_tensor(context_len, dtype=torch.int32, device=dev)
+    total = (start + real).to(torch.int32)
+    phys, offs = _page_slots(positions, page_table[None, :].expand(T, -1), page_size)
+
+    for li in range(c.num_layers):
+        layer = _layer(params, li)
+        q, k, v = _qkv(layer, x, c, cos, sin)
+        kv_write(kv_k, li, phys, offs, k)
+        kv_write(kv_v, li, phys, offs, v)
+        attn = prefill_attention(
+            q, kv_layer(kv_k, li), kv_layer(kv_v, li), positions, page_table, start, total)
+        attn = attn.reshape(T, c.num_heads * c.head_dim)
+        x = x + qdot(attn, layer["wo"])
+        x = mlp(layer, x, c)
+
+    x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
+    last = x[-1] if last_idx is None else x[torch.as_tensor(last_idx, device=dev).long()]
+    logits = qdot(last, head_leaf(params), out_dtype=torch.float32)
+    return logits, kv_k, kv_v
 
 
 def prefill_forward_batched(

@@ -33,6 +33,7 @@ from .kv_quant import QuantKV, gather_dequant
 __all__ = [
     "paged_attention_decode", "paged_attention_decode_plain",
     "paged_attention_decode_mixed", "paged_attention_decode_mixed_plain",
+    "prefill_attention", "prefill_attention_plain",
     "prefill_attention_batched", "prefill_attention_batched_plain",
     "ragged_attention", "ragged_attention_plain", "ragged_tile_q",
     "plain_calls", "attention_counts",
@@ -144,6 +145,30 @@ def paged_attention_decode_mixed_plain(
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def prefill_attention_plain(
+    q: torch.Tensor,  # [T, H, D] (one sequence's chunk, rope applied)
+    kv_k_layer: torch.Tensor,  # [pages, page_size, KH, D]
+    kv_v_layer: torch.Tensor,
+    positions: torch.Tensor,  # [T] absolute positions of the chunk
+    page_table: torch.Tensor,  # [max_pages]
+) -> torch.Tensor:
+    """Plain single-sequence chunked prefill, as the reference's XLA path:
+    row t attends to every key at a position <= positions[t] (history pages
+    and the chunk, causal). Returns [T, H, D]."""
+    plain_calls["prefill"] += 1
+    T, H, D = q.shape
+    dt = _ctx_dtype(kv_k_layer, q)
+    ctx_k = _gather_ctx(kv_k_layer, page_table, dt)  # [S, KH, D]
+    ctx_v = _gather_ctx(kv_v_layer, page_table, dt)
+    S, KH = ctx_k.shape[0], ctx_k.shape[1]
+    G = H // KH
+    qg = q.reshape(T, KH, G, D).float()
+    scores = torch.einsum("tkgd,skd->tkgs", qg, ctx_k) / (D ** 0.5)
+    mask = torch.arange(S, device=q.device)[None, :] <= positions[:, None]  # [T, S]
+    out = _softmax_pv(scores, mask[:, None, None, :], ctx_v, "tkgs,skd->tkgd", dt)
+    return out.reshape(T, H, D).to(q.dtype)
+
+
 def prefill_attention_batched_plain(
     q: torch.Tensor,  # [B, T, H, D] (chunks, rope applied)
     kv_k_layer: torch.Tensor,  # [pages, page_size, KH, D]
@@ -249,6 +274,22 @@ def paged_attention_decode_mixed(q, kv_k_layer, kv_v_layer, page_tables,
             q, kv_k_layer, kv_v_layer, page_tables, pool_lens, loc_k, loc_v, step_idx)
     return paged_attention_decode_mixed_plain(
         q, kv_k_layer, kv_v_layer, page_tables, pool_lens, loc_k, loc_v, step_idx)
+
+
+def prefill_attention(q, kv_k_layer, kv_v_layer, positions, page_table,
+                      context_len, total_len):
+    """Single-sequence chunked prefill attention (q [T, H, D]; the chunk's
+    KV already in the pages). Returns [T, H, D]. On the card it is the
+    batched kernel at B=1, row 0 at `context_len` and `total_len` keys
+    valid, as the reference's single-sequence Pallas wrapper calls its
+    batched kernel."""
+    if q.is_cuda:
+        i32 = dict(dtype=torch.int32, device=q.device)
+        return prefill_attention_batched_hopper(
+            q[None], kv_k_layer, kv_v_layer, page_table.to(torch.int32)[None],
+            torch.as_tensor(context_len, **i32).reshape(1),
+            torch.as_tensor(total_len, **i32).reshape(1))[0]
+    return prefill_attention_plain(q, kv_k_layer, kv_v_layer, positions, page_table)
 
 
 def prefill_attention_batched(q, kv_k_layer, kv_v_layer, positions,

@@ -1,9 +1,9 @@
 """The port's admission gate (`dynamo_tpu_torch/gate/`) against the
 reference's: the reference's `tests/test_gate.py` cases run on both
-packages (on the port they drive the port's gate, PushRouter, StepPlanner
-and HTTP service, the last through an aiohttp client), and one scripted
-admission sequence on a fake clock gives both gates the same decisions,
-counters and `/metrics` lines."""
+packages (on the port they drive the port's gate, PushRouter, StepPlanner,
+mock engine and HTTP service, the last through an aiohttp client), and one
+scripted admission sequence on a fake clock gives both gates the same
+decisions, counters and `/metrics` lines."""
 
 import asyncio
 import time
@@ -15,14 +15,10 @@ from . import frontend_parity
 
 GATE_TESTS = Path(__file__).resolve().parent / "test_gate.py"
 _CASES = frontend_parity.cases(frontend_parity.load_as(GATE_TESTS, "dynamo_tpu"))
-# the mock engine's TTFT estimate is the reference's mocker (`llm/mocker/
-# engine.py`), which the port does not have yet (ROADMAP queue A)
-_REFERENCE_ONLY = {"test_mock_engine_est_ttft_grows_with_backlog"}
 
 
 @pytest.mark.parametrize("pkg,case", [
-    (pkg, case) for case in _CASES for pkg in frontend_parity.PACKAGES
-    if not (pkg == "dynamo_tpu_torch" and case in _REFERENCE_ONLY)])
+    (pkg, case) for case in _CASES for pkg in frontend_parity.PACKAGES])
 def test_reference_gate_cases(pkg, case, monkeypatch, tmp_path):
     mod = frontend_parity.load_as(GATE_TESTS, pkg)
     try:

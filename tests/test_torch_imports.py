@@ -30,8 +30,9 @@ FORBIDDEN = {"msgpack", "aiohttp", "xxhash", "pydantic", "prometheus_client", "m
 # allowed inside a function body, never at module level: triton where a
 # kernel launches; jinja2 (a dependency of torch itself, on the card's
 # machine as wherever torch is installed) where OpenAIPreprocessor compiles
-# a chat template
-LAZY_ONLY = {"triton", "jinja2"}
+# a chat template; scipy (on the card's machine) where the planner's
+# interpolators build their cubic surfaces, as the reference's do
+LAZY_ONLY = {"triton", "jinja2", "scipy"}
 STDLIB = set(sys.stdlib_module_names)
 
 
@@ -99,7 +100,7 @@ def test_importing_every_module_builds_nothing_and_pulls_no_jax():
         "import dynamo_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu', 'triton', 'msgpack', 'ml_dtypes', 'safetensors', 'huggingface_hub', 'transformers', 'tokenizers', 'jinja2', 'aiohttp', 'pydantic', 'prometheus_client', 'httpx')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu', 'triton', 'msgpack', 'ml_dtypes', 'safetensors', 'huggingface_hub', 'transformers', 'tokenizers', 'jinja2', 'aiohttp', 'pydantic', 'prometheus_client', 'httpx', 'scipy')]\n"
         "assert not bad, bad\n"
         "from dynamo_tpu_torch.ops import _build\n"
         "assert _build._lib is None and _build.build_seconds is None\n"
@@ -117,18 +118,27 @@ def test_importing_every_module_builds_nothing_and_pulls_no_jax():
 @pytest.mark.parametrize("module", ["kvbm.checkpoint", "llm.migration", "llm.guided",
                                     "engine.spec", "models.lora", "models.lora_pool",
                                     "llm.parsers.tool_calling", "gate.gate",
-                                    "llm.kv_router.indexer", "llm.backend"])
+                                    "llm.kv_router.indexer", "llm.backend",
+                                    "planner.profiler", "planner.perf_interpolation",
+                                    "planner.load_predictor", "planner.planner_core",
+                                    "planner.metrics_source", "planner.connector",
+                                    "planner.soak", "planner.__init__", "planner.__main__",
+                                    "llm.mocker.engine", "llm.mocker.kv_manager",
+                                    "mocker.__main__", "llm.http.client"])
 def test_copied_reference_modules_stand_alone(module):
     """The port's own copies of reference modules that hold no JAX: alone in
-    a fresh interpreter they pull in neither jax nor the JAX package."""
+    a fresh interpreter they pull in neither jax nor the JAX package, nor
+    aiohttp (the card's machine has none), nor scipy (the interpolators
+    import it inside their constructors)."""
     import subprocess
 
     path = PKG / (module.replace(".", "/") + ".py")
     assert path in _sources()
     code = (
         "import sys, importlib\n"
-        f"importlib.import_module('dynamo_tpu_torch.{module}')\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu')]\n"
+        f"importlib.import_module('dynamo_tpu_torch.{module.removesuffix('.__init__')}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'dynamo_tpu', 'aiohttp', 'scipy')]\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -170,7 +180,11 @@ def test_walk_finds_every_subpackage():
                      "llm.protocols.openai", "llm.parsers.jail", "llm.preprocessor",
                      "llm.backend", "llm.service", "llm.discovery", "llm.kv_router.indexer",
                      "llm.kv_router.scheduler", "gate.gate", "gate.signals", "llm.http.metrics",
-                     "llm.http.server", "llm.http.service", "frontend.__main__"):
+                     "llm.http.server", "llm.http.service", "frontend.__main__",
+                     "planner.profiler", "planner.perf_interpolation", "planner.load_predictor",
+                     "planner.planner_core", "planner.metrics_source", "planner.connector",
+                     "planner.soak", "planner.__main__", "llm.mocker.engine",
+                     "mocker.__main__", "llm.http.client"):
         assert f"dynamo_tpu_torch.{expected}" in names
     importlib.import_module("dynamo_tpu_torch.ops._build")
 
